@@ -1,0 +1,225 @@
+"""The port's kernel modules on the CPU (their plain versions) vs the JAX
+package's Pallas kernels in interpret mode and its jnp oracles.
+
+A CPU tensor takes the plain version and never launches a kernel: the
+launch counters stay at 0.  The CUDA kernels themselves are held against
+these plain versions on the card by chip_smoke.py."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.quant import qrange
+from repro.kernels import ops as jops
+from repro.kernels import paged_attention as jpk
+from repro.kernels import ref as jref
+from repro.kernels.bramac_matmul import bramac_matmul as j_bramac_matmul
+from repro.models import attention as JA
+from repro_torch.kernels import bramac_matmul as tbm
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import paged_attention as tpk
+from repro_torch.kernels import ref as tref
+
+jax.config.update("jax_platform_name", "cpu")
+
+BITS = [2, 4, 8]
+
+
+def rand_q(rng, bits, shape, signed=True):
+    lo, hi = qrange(bits) if signed else (0, (1 << bits) - 1)
+    return rng.integers(lo, hi + 1, size=shape, dtype=np.int8)
+
+
+def _scales(rng, M, N, per_channel=True):
+    if not per_channel:
+        return np.ones((1, 1), np.float32) * 0.75, \
+            np.ones((1, 1), np.float32) * 1.25
+    return rng.uniform(0.5, 2.0, (M, 1)).astype(np.float32), \
+        rng.uniform(0.5, 2.0, (1, N)).astype(np.float32)
+
+
+def _both(xq, wq, xs, ws, **kw):
+    """(JAX ops.quant_matmul — the Pallas kernel in interpret mode on the
+    CPU —, JAX exact oracle, port quant_matmul) as numpy."""
+    od = kw.pop("out_dtype", "float32")
+    j = jops.quant_matmul(jnp.asarray(xq), jnp.asarray(wq), jnp.asarray(xs),
+                          jnp.asarray(ws), out_dtype=jnp.dtype(od), **kw)
+    e = jref.quant_matmul_exact(jnp.asarray(xq), jnp.asarray(wq),
+                                jnp.asarray(xs), jnp.asarray(ws),
+                                out_dtype=jnp.dtype(od))
+    t = tops.quant_matmul(torch.from_numpy(xq), torch.from_numpy(wq),
+                          torch.from_numpy(xs), torch.from_numpy(ws),
+                          out_dtype=getattr(torch, od), **kw)
+    return (np.asarray(j, np.float32), np.asarray(e, np.float32),
+            t.to(torch.float32).numpy())
+
+
+@pytest.mark.parametrize("bits_a", BITS)
+@pytest.mark.parametrize("bits_w", BITS)
+@pytest.mark.parametrize("shape", [(8, 16, 8), (16, 32, 24), (3, 100, 77)])
+def test_quant_matmul_bit_exact(bits_a, bits_w, shape):
+    """The plain digit-pass matmul equals the Pallas kernel (interpret) and
+    the exact integer oracle bit for bit, ragged M/K/N included."""
+    M, K, N = shape
+    rng = np.random.default_rng(hash((bits_a, bits_w, shape)) % 2**31)
+    xq, wq = rand_q(rng, bits_a, (M, K)), rand_q(rng, bits_w, (K, N))
+    xs, ws = _scales(rng, M, N)
+    j, e, t = _both(xq, wq, xs, ws, bits_a=bits_a, bits_w=bits_w)
+    np.testing.assert_array_equal(t, j)
+    np.testing.assert_array_equal(t, e)
+
+
+@pytest.mark.parametrize("case", ["unsigned", "packed", "bf16", "scalar"])
+def test_quant_matmul_variants_bit_exact(case):
+    """Unsigned activations (-1 at 4 bits means 15), 4-bit pair-packed
+    weights, bf16 output (one rounding of the same f32 epilogue) and (1,1)
+    scales: bit-exact vs the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(11)
+    M, K, N = 16, 64, 32
+    xq = rand_q(rng, 4, (M, K), signed=case != "unsigned")
+    wq = rand_q(rng, 4, (K, N))
+    xs, ws = _scales(rng, M, N, per_channel=case != "scalar")
+    kw = dict(bits_a=4, bits_w=4, signed=case != "unsigned",
+              w_packed=case == "packed")
+    if case == "bf16":
+        kw["out_dtype"] = "bfloat16"
+    j, e, t = _both(xq, wq, xs, ws, **kw)
+    np.testing.assert_array_equal(t, j)
+    if case != "unsigned":
+        np.testing.assert_array_equal(t, e)
+
+
+def test_bramac_matmul_wrapper_packed_and_block_independent():
+    """The kernel wrapper takes (K/2, N) pair-packed storage directly, and
+    its plain version matches the Pallas kernel at two block shapes."""
+    rng = np.random.default_rng(7)
+    M, K, N = 32, 64, 32
+    xq, wq = rand_q(rng, 4, (M, K)), rand_q(rng, 4, (K, N))
+    xs, ws = _scales(rng, M, N)
+    from repro_torch.core import quant as tq
+    wp = tq.pack_bits(torch.from_numpy(wq).T, 4).T.contiguous()
+    t = tbm.bramac_matmul(torch.from_numpy(xq), wp, torch.from_numpy(xs),
+                          torch.from_numpy(ws), bits_a=4, bits_w=4,
+                          w_packed=True).numpy()
+    for block in [(16, 16, 16), (8, 32, 16)]:
+        j = j_bramac_matmul(jnp.asarray(xq), jnp.asarray(wq), jnp.asarray(xs),
+                            jnp.asarray(ws), bits_a=4, bits_w=4, block=block,
+                            interpret=True)
+        np.testing.assert_array_equal(t, np.asarray(j))
+    d = tref.quant_matmul_digit_ref(torch.from_numpy(xq), torch.from_numpy(wq),
+                                    torch.from_numpy(xs), torch.from_numpy(ws),
+                                    bits_a=4)
+    np.testing.assert_array_equal(t, d.numpy())
+    w = rand_q(rng, 8, (8, 6))
+    x = rand_q(rng, 8, (6,))
+    np.testing.assert_array_equal(
+        tref.mac2_mvm_ref(torch.from_numpy(w), torch.from_numpy(x)).numpy(),
+        np.asarray(jref.mac2_mvm_ref(jnp.asarray(w), jnp.asarray(x))))
+
+
+# --- paged decode -----------------------------------------------------------
+
+PS = 16
+
+
+def _pool(seed, B, n_pages, max_pages=4, P=16, Hkv=2, hd=16):
+    rng = np.random.default_rng(seed)
+    k = rng.normal(size=(P, PS, Hkv, hd)).astype(np.float32)
+    v = rng.normal(size=(P, PS, Hkv, hd)).astype(np.float32)
+    tables = rng.permutation(P)[:B * max_pages].reshape(B, max_pages) \
+        .astype(np.int32)
+    return k, v, tables, np.asarray(n_pages, np.int32)
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("lengths", [(15, 16, 17), (1, 32, 33), (48, 2, 31)])
+def test_paged_decode_matches_jax(lengths):
+    """Plain paged_decode vs the Pallas kernel (interpret): live lengths
+    below / at / across page boundaries.  atol 2e-6: fp32 reassociation
+    (the reference suite's own kernel-vs-oracle bound)."""
+    B, H = 3, 4
+    n_pages = [-(-n // PS) for n in lengths]
+    k, v, tables, npg = _pool(0, B, n_pages)
+    q = np.random.default_rng(9).normal(size=(B, H, 16)).astype(np.float32)
+    lens = np.asarray(lengths, np.int32)
+    want = jpk.paged_decode(*map(jnp.asarray, (q, k, v, tables, npg, lens)))
+    got = tpk.paged_decode(*_t(q, k, v, tables, npg, lens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-6)
+
+
+def test_paged_decode_free_slot_and_poisoned_pages():
+    """n_pages=0 emits exact zeros; pages no sequence owns are poisoned
+    with 1e9 and the output does not move (bit-identical)."""
+    k, v, tables, npg = _pool(1, 3, [0, 1, 2])
+    q = np.random.default_rng(3).normal(size=(3, 4, 16)).astype(np.float32)
+    lens = np.asarray([1, PS, 2 * PS], np.int32)
+    got = tpk.paged_decode(*_t(q, k, v, tables, npg, lens)).numpy()
+    live = np.zeros(k.shape[0], bool)
+    for b, n in enumerate(npg):
+        live[tables[b, :n]] = True
+    kb = np.where(live[:, None, None, None], k, 1e9).astype(np.float32)
+    vb = np.where(live[:, None, None, None], v, 1e9).astype(np.float32)
+    bad = tpk.paged_decode(*_t(q, kb, vb, tables, npg, lens)).numpy()
+    np.testing.assert_array_equal(got, bad)
+    assert (got[0] == 0).all() and np.isfinite(got).all()
+    want = jpk.paged_decode(*map(jnp.asarray, (q, kb, vb, tables, npg, lens)))
+    np.testing.assert_allclose(got, np.asarray(want), atol=2e-6)
+
+
+@pytest.mark.parametrize("lengths", [(15, 16, 17), (1, 33, 48)])
+def test_paged_decode_q_matches_jax(lengths):
+    """Plain int8 paged_decode_q vs the Pallas kernel (interpret) on the
+    reference's own quantized rows; atol 1e-6 as the reference suite (only
+    the normalizer's association order differs)."""
+    B, H = 3, 4
+    n_pages = [-(-n // PS) for n in lengths]
+    k, v, tables, npg = _pool(7, B, n_pages)
+    kq, kss = JA._quant_rows(jnp.asarray(k))
+    vq, vss = JA._quant_rows(jnp.asarray(v))
+    q = np.random.default_rng(11).normal(size=(B, 1, H, 16)).astype(np.float32)
+    qq, qs = JA._quant_rows(jnp.asarray(q))
+    lens = np.asarray(lengths, np.int32)
+    args = [np.asarray(a) for a in (qq[:, 0], qs[:, 0], kq, kss, vq, vss)] \
+        + [tables, npg, lens]
+    want = jpk.paged_decode_q(*map(jnp.asarray, args), jnp.float32)
+    got = tpk.paged_decode_q(*_t(*args), torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
+def test_cpu_tensors_launch_no_kernel():
+    """Every launch counter stays at 0 when the tensors live on the CPU."""
+    before = (tbm.bramac_matmul.launches, tpk.paged_decode.launches,
+              tpk.paged_decode_q.launches)
+    test_paged_decode_free_slot_and_poisoned_pages()
+    rng = np.random.default_rng(0)
+    xq, wq = rand_q(rng, 8, (4, 8)), rand_q(rng, 8, (8, 4))
+    xs, ws = _scales(rng, 4, 4)
+    tops.quant_matmul(*_t(xq, wq, xs, ws), bits_a=8, bits_w=8)
+    k, v, tables, npg = _pool(2, 2, [1, 1])
+    kq = torch.from_numpy(k).to(torch.int8)
+    sc = torch.ones(k.shape[:3])
+    tpk.paged_decode_q(torch.zeros((2, 4, 16), dtype=torch.int8),
+                       torch.ones((2, 4)), kq, sc, kq, sc,
+                       *_t(tables, npg, np.asarray([3, 5], np.int32)),
+                       torch.float32)
+    assert before == (0, 0, 0)
+    assert (tbm.bramac_matmul.launches, tpk.paged_decode.launches,
+            tpk.paged_decode_q.launches) == (0, 0, 0)
+
+
+def test_kv_accounting_matches_jax():
+    from repro.configs import get_config as jget
+    from repro_torch.configs import get_config as tget
+    for arch in ("granite-8b", "minicpm3-4b"):
+        for smoke in (True, False):
+            for qkv in (False, True):
+                jc = jget(arch, smoke=smoke).replace(quant_kv=qkv)
+                tc = tget(arch, smoke=smoke).replace(quant_kv=qkv)
+                assert tpk.kv_row_bytes(tc) == jpk.kv_row_bytes(jc)
+    lens = [0, 5, 16, 17, 40]
+    assert tpk.decode_read_rows(lens, 16) == jpk.decode_read_rows(lens, 16)
+    assert tpk.oracle_read_rows(4, 64) == jpk.oracle_read_rows(4, 64)
