@@ -95,7 +95,18 @@ def phase_matmul(gen, report):
     from repro_torch.core import quant
     from repro_torch.kernels import bramac_matmul as bm
 
-    def case(M, K, N, bits, signed, packed, od, per_channel):
+    worst = 0.0
+
+    def offset_view(t, off):
+        # the same values in a contiguous view that starts `off` bytes into
+        # its storage, so the base pointer is not 4-byte aligned
+        buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+        v = buf[off:].view(t.shape)
+        v.copy_(t)
+        return v
+
+    def case(M, K, N, bits, signed, packed, od, per_channel, off=0):
+        nonlocal worst
         x = rand_q(gen, bits, (M, K), signed)
         w = rand_q(gen, bits, (K, N))
         if per_channel:
@@ -105,14 +116,19 @@ def phase_matmul(gen, report):
             xs = torch.full((1, 1), 0.75, device="cuda")
             ws = torch.full((1, 1), 1.25, device="cuda")
         wq = quant.pack_bits(w.T, 4).T.contiguous() if packed else w
+        if off:
+            x, wq = offset_view(x, off), offset_view(wq, 4 - off)
+            need(x.is_contiguous() and x.data_ptr() % 4 == off,
+                 "offset view is not what the case needs")
         kw = dict(bits_a=bits, bits_w=bits, signed=signed, out_dtype=od,
                   w_packed=packed)
         got = bm.bramac_matmul(x, wq, xs, ws, **kw)
         want = bm.bramac_matmul_plain(x, wq, xs, ws, **kw)
         torch.cuda.synchronize()
+        worst = max(worst, (got.float() - want.float()).abs().max().item())
         need(torch.equal(got, want),
              f"bramac_matmul != plain at M,K,N={M},{K},{N} bits={bits} "
-             f"signed={signed} packed={packed} out={od}")
+             f"signed={signed} packed={packed} out={od} offset={off}")
         return x, wq, xs, ws, kw
 
     n = 0
@@ -125,6 +141,12 @@ def phase_matmul(gen, report):
                             case(M, K, N, bits, signed, packed, od,
                                  per_channel)
                             n += 1
+    # contiguous views whose storage starts off a 4-byte boundary (K and N
+    # multiples of 4, where the kernel would otherwise load 4-byte words)
+    for off in (1, 2, 3):
+        for packed in (False, True):
+            case(8, 64, 128, 4, True, packed, torch.float32, True, off=off)
+            n += 1
     rows = []
     for name, (K, N) in GRANITE_SHAPES.items():
         for M in (4, 64):
@@ -152,14 +174,15 @@ def phase_matmul(gen, report):
             print(f"  bramac_matmul {name} M={M} K={K} N={N}: {ms:.4f} ms "
                   f"(bound {bound:.4f} ms by {by}, plain {plain_ms:.4f} ms, "
                   f"{lib_name} {lib_ms:.4f} ms)")
-    print(f"phase 2 bramac_matmul: {n} cases bit-exact vs plain "
-          f"(bits 2/4/8, signed+unsigned, 4-bit packed, f32+bf16 out, "
-          f"scalar and per-channel scales, ragged and granite shapes)")
+    print(f"phase 2 bramac_matmul: {n} cases bit-exact vs plain, max abs "
+          f"err {worst:.3g} (bits 2/4/8, signed+unsigned, 4-bit packed, "
+          f"f32+bf16 out, scalar and per-channel scales, ragged, unaligned "
+          f"views and granite shapes)")
     main = next(r for r in rows if r["shape"] == "w_gate/w_up" and r["M"] == 4)
     report["bramac_matmul"] = dict(
         name="bramac_matmul", route="cuda",
         source="src/repro_torch/kernels/csrc/bramac_matmul.cu",
-        replaces="src/repro/kernels/bramac_matmul.py:47", max_abs_err=0.0,
+        replaces="src/repro/kernels/bramac_matmul.py:47", max_abs_err=worst,
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
         bound_by=main["bound_by"], library_ms=main["library_ms"],
         shapes=rows)
@@ -173,19 +196,26 @@ B, H, HKV, HD, PS, MAXP = 4, 32, 8, 128, 16, 16
 CASES = {                          # (lengths, n_pages): below / at / across
     "boundaries": ((15, 16, 17, 33), (1, 1, 2, 3)),   # page edges
     "free_slot": ((40, 1, 96, 20), (3, 0, 6, 2)),     # n_pages=0 -> zeros
+    "owned_past_len": ((20, 33, 1, 64), (4, 5, 3, 6)),  # n_pages > ceil(L/ps)
     "serve": ((57, 104, 121, 136), (4, 7, 8, 9)),     # decode-time lengths
 }
 
 
 def _pool_case(gen, lengths, n_pages):
+    """Block tables over a pool of B*MAXP pages, and the (P, ps) mask of
+    the rows the reference reads: the first min(n_pages, ceil(len/ps))
+    pages of each table, rows below the length.  Everything else (pages no
+    table lists, owned pages past the length, rows past the length in the
+    last page) is to be poisoned by the caller."""
     P = B * MAXP
     tables = torch.randperm(P, generator=gen, device="cuda")[:B * MAXP] \
         .reshape(B, MAXP).to(torch.int32)
-    live = torch.zeros(P, dtype=torch.bool, device="cuda")
-    for b, n in enumerate(n_pages):
-        live[tables[b, :n].long()] = True
+    read = torch.zeros(P, PS, dtype=torch.bool, device="cuda")
+    for b, (L, n) in enumerate(zip(lengths, n_pages)):
+        for j in range(min(n, -(-L // PS))):
+            read[tables[b, j].long(), :max(0, min(PS, L - j * PS))] = True
     return (tables, torch.tensor(n_pages, dtype=torch.int32, device="cuda"),
-            torch.tensor(lengths, dtype=torch.int32, device="cuda"), live)
+            torch.tensor(lengths, dtype=torch.int32, device="cuda"), read)
 
 
 def _live_rows(lengths, n_pages):
@@ -200,7 +230,7 @@ def phase_paged(gen, report):
         # reference suite's own kernel-vs-oracle bound; bf16: the same
         # sums rounded once to bf16 (2^-8 relative on O(1) outputs)
         for cname, (lengths, n_pages) in CASES.items():
-            tables, npg, lens, live = _pool_case(gen, lengths, n_pages)
+            tables, npg, lens, read = _pool_case(gen, lengths, n_pages)
             q = torch.randn(B, H, HD, generator=gen, device="cuda").to(dt)
             k = torch.randn(B * MAXP, PS, HKV, HD, generator=gen,
                             device="cuda").to(dt)
@@ -208,10 +238,11 @@ def phase_paged(gen, report):
                             device="cuda").to(dt)
             got = pa.paged_decode(q, k, v, tables, npg, lens)
             want = pa.paged_decode_plain(q, k, v, tables, npg, lens)
-            # pages no sequence owns are poisoned: the output must not move
-            bad = live[:, None, None, None]
-            got_p = pa.paged_decode(q, torch.where(bad, k, 1e9),
-                                    torch.where(bad, v, 1e9), tables, npg,
+            # every row the reference does not read is poisoned: the output
+            # must not move
+            ok = read[:, :, None, None]
+            got_p = pa.paged_decode(q, torch.where(ok, k, 1e9),
+                                    torch.where(ok, v, 1e9), tables, npg,
                                     lens)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
@@ -248,12 +279,12 @@ def phase_paged(gen, report):
     report["paged_decode"]["max_abs_err"] = worst
     print(f"phase 3 paged_decode: {2 * len(CASES)} cases within tolerance "
           f"(f32 atol 2e-6, bf16 8e-3), max abs err {worst:.3g}; poisoned "
-          f"pages ignored; free slot emits zeros")
+          f"unread pages and rows ignored; free slot emits zeros")
 
     worst = 0.0
     for dt in (torch.float32, torch.bfloat16):
         for cname, (lengths, n_pages) in CASES.items():
-            tables, npg, lens, live = _pool_case(gen, lengths, n_pages)
+            tables, npg, lens, read = _pool_case(gen, lengths, n_pages)
             P = B * MAXP
             k = torch.randint(-127, 128, (P, PS, HKV, HD), generator=gen,
                               device="cuda").to(torch.int8)
@@ -267,7 +298,15 @@ def phase_paged(gen, report):
             args = (qq, qs, k, ks, v, vs, tables, npg, lens)
             got = pa.paged_decode_q(*args, dt)
             want, pscale = pa._q_plain(*args, dt)
+            # rows the reference does not read, poisoned: no change
+            ok = read[:, :, None]
+            got_p = pa.paged_decode_q(
+                qq, qs, torch.where(ok[..., None], k, 127),
+                torch.where(ok, ks, 1e3), torch.where(ok[..., None], v, 127),
+                torch.where(ok, vs, 1e3), tables, npg, lens, dt)
             torch.cuda.synchronize()
+            need(torch.equal(got, got_p),
+                 f"paged_decode_q {cname} {dt}: poisoned rows changed output")
             # the normalizer is summed in another order; a last-bit change
             # can move a requantized probability across a rounding edge,
             # which changes an output by at most 127*pscale per flip: allow
@@ -302,7 +341,8 @@ def phase_paged(gen, report):
                       f"{plain_ms:.4f} ms)")
     report["paged_decode_q"]["max_abs_err"] = worst
     print(f"phase 4 paged_decode_q: {2 * len(CASES)} cases within "
-          f"tolerance (<= 2 requantization flips), max abs err {worst:.3g}")
+          f"tolerance (<= 2 requantization flips), max abs err {worst:.3g}; "
+          f"poisoned unread pages and rows ignored")
 
 
 # ---------------------------------------------------------------------------
@@ -368,6 +408,9 @@ def phase_serve(report):
     totals = {k: 0 for k in counters}
     for quant_kv in (False, True):
         c = cfg.replace(quant_kv=quant_kv)
+        # warm-up: a short serve pays the first-use costs (module loads,
+        # allocator growth) so the timed serve below measures steady state
+        serve(c, params, prompts[:2], 2)
         for fn in counters.values():
             fn.launches = 0
         torch.cuda.reset_peak_memory_stats()
@@ -395,9 +438,18 @@ def phase_serve(report):
               f"mean TTFT {ttft:.1f} ms, peak memory {peak:.2f} GB, "
               f"{run['steps']} decode steps, {run['forwards']} forwards, "
               f"launches {got}")
+        # the same serve again: its spread from the run above is the
+        # run-to-run noise of the tok/s and TTFT readings
+        rep = serve(c, params, prompts, 16)
+        need(rep["streams"] == run["streams"],
+             "a repeated greedy serve gave other streams")
+        rep_ttft = 1e3 * float(np.mean(rep["ttft"]))
+        print(f"  repeat: {rep['tokens'] / rep['wall']:.1f} tok/s, mean TTFT "
+              f"{rep_ttft:.1f} ms, same streams")
         report.setdefault("serve", []).append(dict(
             kv="int8" if quant_kv else "bf16", tok_s=run["tokens"] / run["wall"],
-            ttft_ms=ttft, wall_s=run["wall"], peak_gb=peak, launches=got))
+            ttft_ms=ttft, wall_s=run["wall"], peak_gb=peak, launches=got,
+            repeat_tok_s=rep["tokens"] / rep["wall"], repeat_ttft_ms=rep_ttft))
     for k, n in totals.items():
         need(n > 0, f"{k} was never launched on the main path")
         report[k]["launches"] = n
@@ -482,13 +534,18 @@ def main() -> int:
     reports = build.build_all()
     for name in build.SOURCES:
         build.library(name)
-    ptxas = " ".join(reports.values())
-    regs = [int(w) for w in re.findall(r"Used (\d+) registers", ptxas)]
-    spills = [int(w) for w in re.findall(r"(\d+) bytes spill stores", ptxas)]
-    print(f"phase 1 device: {smi}; kernels built in "
-          f"{time.perf_counter() - t0:.1f} s (ptxas: up to "
-          f"{max(regs, default=0)} registers/thread, "
-          f"{sum(spills)} bytes spilled)")
+    if reports:
+        ptxas = " ".join(reports.values())
+        regs = [int(w) for w in re.findall(r"Used (\d+) registers", ptxas)]
+        spills = [int(w) for w in re.findall(r"(\d+) bytes spill stores",
+                                             ptxas)]
+        built = (f"built {', '.join(sorted(reports))} (ptxas: up to "
+                 f"{max(regs, default=0)} registers/thread, {sum(spills)} "
+                 f"bytes spilled)")
+    else:
+        built = "cached build, nothing compiled"
+    print(f"phase 1 device: {smi}; kernels ready in "
+          f"{time.perf_counter() - t0:.1f} s, {built}")
     report: dict = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
     phase_matmul(gen, report)

@@ -193,8 +193,10 @@ extern "C" int bramac_matmul_launch(const void* x, const void* w,
   dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
   const uint32_t byte_mask = (1u << bits_a) - 1u;
   const uint32_t amask = byte_mask * 0x01010101u;
-  const bool xvec = (K % 4) == 0;
-  const bool wvec = (N % 4) == 0;
+  // 4-byte loads need every row start 4-byte aligned: the row length a
+  // multiple of 4 and the base pointer aligned (a view may start anywhere)
+  const bool xvec = (K % 4) == 0 && (reinterpret_cast<uintptr_t>(x) % 4) == 0;
+  const bool wvec = (N % 4) == 0 && (reinterpret_cast<uintptr_t>(w) % 4) == 0;
   const auto* xp = static_cast<const int8_t*>(x);
   const auto* wp = static_cast<const int8_t*>(w);
   auto* ap = static_cast<int*>(acc);

@@ -3,10 +3,9 @@
 
 The tensors' device decides the route: a CUDA tensor launches the
 hand-written kernel (`kernels.bramac_matmul`), a CPU tensor takes its
-plain digit-pass version.  `use_kernel` is kept so call sites read like the
-reference's; it does not change the route.  No padding to blocks is
-needed: the CUDA kernel masks the ragged edge itself.  The QAT
-`bramac_dense` (straight-through gradients) belongs to the training slice.
+plain digit-pass version.  No padding to blocks is needed: the CUDA
+kernel masks the ragged edge itself.  The QAT `bramac_dense`
+(straight-through gradients) belongs to the training slice.
 """
 from __future__ import annotations
 
@@ -18,13 +17,12 @@ from repro_torch.kernels.bramac_matmul import bramac_matmul
 
 def quant_matmul(x_q, w_q, x_scale, w_scale, *, bits_a: int, bits_w: int,
                  signed: bool = True, out_dtype=torch.float32,
-                 w_packed: bool = False, use_kernel: bool = True):
+                 w_packed: bool = False):
     """Quantized (M,K)x(K,N) matmul through the BRAMAC kernel.
 
     w_q is the unpacked (K, N) weight; with w_packed=True it is pair-packed
     along K here (low nibble of byte r = W[2r], high nibble = W[2r+1]) and
     the kernel consumes the packed storage."""
-    del use_kernel                     # the device decides (module docstring)
     x_scale = torch.as_tensor(x_scale, dtype=torch.float32,
                               device=x_q.device).reshape(-1, 1)
     w_scale = torch.as_tensor(w_scale, dtype=torch.float32,
