@@ -3,13 +3,16 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc`, holds
-each against its plain PyTorch version at the serving path's shapes, serves
-granite-8b at full size (36 layers, d=4096, bf16, 8-bit BRAMAC weights,
-random weights from a seed) through the port's Engine with fp and int8 KV
-caches, counts that the serve went through every kernel, and checks that
-greedy streams are identical with the decode kernels on and off.  Imports
-torch, numpy and `repro_torch` only.  Exits non-zero, printing no result,
-when any phase fails or no CUDA device is present.
+each against its plain PyTorch version at its path's shapes, runs the paper
+path (`repro_torch.launch.paper`: the analytical models' rows, which must
+equal `benchmarks/baseline.json`, and the Fig 11 GEMVs through the
+dummy-array MAC2 kernel) and times that kernel on every granite-8b linear
+as a GEMV, serves granite-8b at full size (36 layers, d=4096, bf16, 8-bit
+BRAMAC weights, random weights from a seed) through the port's Engine with
+fp and int8 KV caches, counts that each path went through its kernels, and
+checks that greedy streams are identical with the decode kernels on and
+off.  Imports torch, numpy and `repro_torch` only.  Exits non-zero,
+printing no result, when any phase fails or no CUDA device is present.
 
 Output: one line per phase; then a JSON line listing every kernel with its
 check, times and bound; the card's name and power limit as nvidia-smi gives
@@ -17,6 +20,7 @@ them; and, last, {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
@@ -57,27 +61,60 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+HOST_BOUND = []                    # readings whose enqueue outlasted the spin
+
+
+@functools.cache
+def spin_cycles_per_ms() -> float:
+    """Clock cycles of `torch.cuda._sleep` per ms of device time."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    torch.cuda._sleep(20_000_000)
+    b.record()
+    torch.cuda.synchronize()
+    return 20_000_000 / a.elapsed_time(b)
+
+
 def time_cold(fn, iters: int = 20) -> float:
     """Mean ms of `fn()` on the device, the L2 flushed before each launch.
     A spin kernel ahead of the start event keeps the device busy while the
     host enqueues `fn`, so the interval holds device time, not the
-    wrapper's Python time."""
+    wrapper's Python time.  The spin lasts 4x the host's enqueue time of
+    one call (at least 1 ms); a reading in which some call's enqueue still
+    outlasted the spin may include host time, and is printed and kept in
+    HOST_BOUND."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    pairs = []
+    t0 = time.perf_counter()
+    fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    spin_ms = max(1.0, 4 * enqueue_ms)
+    cycles = int(spin_ms * spin_cycles_per_ms())
+    pairs, host_ms = [], []
     for _ in range(iters):
         flush.zero_()
-        torch.cuda._sleep(2_000_000)           # ~1 ms of device spin
+        torch.cuda._sleep(cycles)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
         a.record()
         fn()
         b.record()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
         pairs.append((a, b))
     torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+    ms = sum(a.elapsed_time(b) for a, b in pairs) / iters
+    if max(host_ms) > spin_ms:
+        HOST_BOUND.append((ms, max(host_ms), spin_ms))
+        print(f"  (timing: an enqueue took {max(host_ms):.3f} ms, longer "
+              f"than the {spin_ms:.3f} ms device spin; the reading printed "
+              f"next, {ms:.4f} ms, may include host time)")
+    return ms
 
 
 def rand_q(gen, bits, shape, signed=True):
@@ -346,6 +383,153 @@ def phase_paged(gen, report):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the dummy-array MAC2 kernel and the paper path
+# ---------------------------------------------------------------------------
+
+def _read_as(x, bits, signed):
+    """x as the dummy array reads it: its bits-bit view, two's complement
+    when signed."""
+    u = x.to(torch.int32) & ((1 << bits) - 1)
+    return torch.where(u >= 1 << (bits - 1), u - (1 << bits), u) if signed \
+        else u
+
+
+def _baseline_rows() -> dict:
+    with open(os.path.join(ROOT, "benchmarks", "baseline.json")) as f:
+        records = json.load(f)["records"]
+    return {r["name"]: r["derived"] for r in records if r["deterministic"]
+            and r["name"].split("_")[0] in
+            ("table2", "fig7", "fig9", "fig10", "fig11", "fig13")}
+
+
+def phase_mac2(gen, report):
+    from repro_torch.core import gemv_model as gm
+    from repro_torch.kernels import mac2_kernel as mk
+    from repro_torch.kernels import ref
+    from repro_torch.launch import paper
+    kern, plain = mk.mac2_mvm_kernel, mk.mac2_mvm_kernel_plain
+    worst, n = 0, 0
+
+    def case(w, x, bits, signed, what):
+        nonlocal worst, n
+        got = kern(w, x, bits=bits, signed=signed)
+        want_p = plain(w, x, bits=bits, signed=signed)
+        want = ref.mac2_mvm_ref(w, _read_as(x, bits, signed))
+        torch.cuda.synchronize()
+        worst = max(worst, int((got.long() - want.long()).abs().max()),
+                    int((want_p.long() - want.long()).abs().max()))
+        need(torch.equal(got, want_p) and torch.equal(got, want),
+             f"mac2_mvm_kernel != plain / w @ x at {what} R,C={tuple(w.shape)} "
+             f"bits={bits} signed={signed}")
+        n += 1
+
+    t0 = time.perf_counter()
+    # ragged shapes; inputs in the bits range, and over the whole int8
+    # range (outside the bits range; unsigned 8-bit values >= 128 stored as
+    # negative int8)
+    for bits in (2, 4, 8):
+        for signed in (True, False):
+            for R in (1, 7, 129, 1000):
+                for C in (2, 6, 482):
+                    w = rand_q(gen, bits, (R, C))
+                    case(w, rand_q(gen, bits, (C,), signed), bits, signed,
+                         "in-range x")
+                    case(w, rand_q(gen, 8, (C,)), bits, signed, "int8 x")
+    # the paper path's shapes (Fig 11)
+    for bits in (2, 4, 8):
+        for R in gm.ROW_SIZES:
+            for C in gm.COL_SIZES:
+                case(rand_q(gen, bits, (R, C)), rand_q(gen, bits, (C,)), bits,
+                     True, "Fig 11")
+    odd = rand_q(gen, 8, (4, 5))
+    try:
+        kern(odd, odd[0], bits=8)
+        need(False, "mac2_mvm_kernel took an odd number of columns")
+    except ValueError:
+        pass
+    print(f"phase 7 mac2 check: {n} cases bit-exact vs plain and w @ x, max "
+          f"abs err {worst} (bits 2/4/8, signed+unsigned, ragged R x C, x in "
+          f"and out of the bits range, the 105 Fig 11 shapes); odd C raises; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # the paper path, through the launcher's own functions, on the card
+    counters = {**_counters(), "mac2_mvm_kernel": kern}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = paper.run(torch.device("cuda"), seed=0)
+    got = {k: fn.launches for k, fn in counters.items()}
+    need(out["gemvs"] == 105 and got["mac2_mvm_kernel"] == 105,
+         f"paper path: {out['gemvs']} GEMVs, {got['mac2_mvm_kernel']} "
+         f"mac2_mvm_kernel launches (want 105 each)")
+    need(all(v == 0 for k, v in got.items() if k != "mac2_mvm_kernel"),
+         f"paper path launched other kernels: {got}")
+    need(out["max_abs_err"] == 0, "paper path: a Fig 11 GEMV differed")
+    base = _baseline_rows()
+    need(len(base) == 23, f"baseline.json has {len(base)} paper rows, not 23")
+    diff = {k: (out["derived"].get(k), v) for k, v in base.items()
+            if out["derived"].get(k) != v}
+    need(not diff and out["derived"].keys() == base.keys(),
+         f"paper rows differ from benchmarks/baseline.json: {diff}")
+    print(f"phase 7 paper path: {len(base)} table2/fig rows equal "
+          f"benchmarks/baseline.json; 105 Fig 11 GEMVs bit-exact; launches "
+          f"{got}; {time.perf_counter() - t0:.1f} s")
+    report["mac2_mvm_kernel"] = dict(
+        name="mac2_mvm_kernel", route="cuda",
+        source="src/repro_torch/kernels/csrc/mac2_kernel.cu",
+        replaces="src/repro/kernels/mac2_kernel.py:35",
+        launches=got["mac2_mvm_kernel"])
+
+    # full width: every granite-8b linear as a GEMV (R = out, C = in)
+    rows = []
+    for name, (K, N) in GRANITE_SHAPES.items():
+        R, C = N, K
+        lib_name, lib_ms = None, None
+        for bits in (2, 4, 8):
+            w, x = rand_q(gen, bits, (R, C)), rand_q(gen, bits, (C,))
+            case(w, x, bits, True, f"granite {name}")
+            ms = time_cold(lambda: kern(w, x, bits=bits))
+            plain_ms = time_cold(lambda: plain(w, x, bits=bits), iters=5)
+            nbytes = R * C + C + 4 * R
+            ops = 2 * R * C
+            bound = max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3
+            by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / INT8_OPS_PER_S \
+                else "operations"
+            if lib_ms is None:
+                lib_name, lib_ms = _gemv_library_ms(w, x)
+            rows.append(dict(shape=name, R=R, C=C, bits=bits, ms=ms,
+                             plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                             library=lib_name, library_ms=lib_ms))
+            print(f"  mac2_mvm_kernel {name} R={R} C={C} bits={bits}: "
+                  f"{ms:.4f} ms (bound {bound:.4f} ms by {by}, plain "
+                  f"{plain_ms:.4f} ms, {lib_name} {lib_ms:.4f} ms)")
+            del w, x
+        torch.cuda.empty_cache()
+    main = next(r for r in rows
+                if r["shape"] == "w_gate/w_up" and r["bits"] == 8)
+    report["mac2_mvm_kernel"].update(
+        max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=main["library_ms"], shapes=rows)
+    print(f"phase 7 mac2 full width: {len(rows)} granite-8b GEMVs timed; "
+          f"{n} cases bit-exact in all, max abs err {worst}")
+
+
+def _gemv_library_ms(w, x):
+    """One PyTorch call as a yardstick: torch._int_mm of x repeated to 32
+    rows against w.T (the same int8 weights, read once); if its layout
+    rules refuse the shape, f32 torch.mv over copies cast beforehand."""
+    xr = x[None].repeat(32, 1).contiguous()
+    try:
+        torch._int_mm(xr, w.T)
+        torch.cuda.synchronize()
+    except RuntimeError:
+        wf, xf = w.float(), x.float()
+        return "f32 torch.mv", time_cold(lambda: torch.mv(wf, xf))
+    return "torch._int_mm", time_cold(lambda: torch._int_mm(xr, w.T))
+
+
+# ---------------------------------------------------------------------------
 # phase 5: granite-8b at full size through the Engine
 # ---------------------------------------------------------------------------
 
@@ -550,12 +734,16 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     phase_matmul(gen, report)
     phase_paged(gen, report)
+    phase_mac2(gen, report)
     phase_serve(report)
     phase_streams()
+    print(f"timing: {len(HOST_BOUND)} readings in which an enqueue outlasted "
+          f"the device spin" + (f": {HOST_BOUND}" if HOST_BOUND else ""))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: report[n][k] for k in keys}
-               for n in ("bramac_matmul", "paged_decode", "paged_decode_q")]
+               for n in ("bramac_matmul", "paged_decode", "paged_decode_q",
+                         "mac2_mvm_kernel")]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("bramac_matmul", "paged_attention")
+SOURCES = ("bramac_matmul", "paged_attention", "mac2_kernel")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -33,6 +33,7 @@ _SIGNATURES = {
     "bramac_matmul": {"bramac_matmul_launch": "ppppppiiiiiiiip"},
     "paged_attention": {"paged_decode_launch": "pppppppiiiiiiiifp",
                         "paged_decode_q_launch": "ppppppppppiiiiiiifp"},
+    "mac2_kernel": {"mac2_mvm_launch": "pppiiiip"},
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
