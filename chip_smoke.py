@@ -179,11 +179,36 @@ def phase_matmul(gen, report):
                                  per_channel)
                             n += 1
     # contiguous views whose storage starts off a 4-byte boundary (K and N
-    # multiples of 4, where the kernel would otherwise load 4-byte words)
+    # multiples of 4): the kernel reads such chunks byte by byte
     for off in (1, 2, 3):
         for packed in (False, True):
             case(8, 64, 128, 4, True, packed, torch.float32, True, off=off)
+            case(64, 256, 256, 4, True, packed, torch.bfloat16, True,
+                 off=off)
+            n += 2
+    # the tile edges of the tensor-core kernel: rows around its 16- and
+    # 64-row blocks, K off its 128-byte steps, N off its 128-column blocks,
+    # packed weights in a 64-row block, and K split across many blocks
+    for M in (1, 15, 16, 17, 63, 64, 65, 128):
+        case(M, 200, 136, 8, True, False, torch.bfloat16, True)
+        case(M, 192, 128, 4, False, True, torch.float32, True)
+        n += 2
+    for K in (96, 100, 4100):
+        for M in (4, 64):
+            case(M, K, 128, 8, True, False, torch.float32, True)
             n += 1
+    for N in (77, 136):
+        for M in (16, 64):
+            case(M, 256, N, 2, True, False, torch.float32, False)
+            n += 1
+    case(64, 4096, 1024, 4, True, True, torch.bfloat16, True)
+    n += 1
+    for M in (4, 64):
+        case(M, 14336, 256, 8, True, False, torch.bfloat16, True)
+        n += 1
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    need(bm._plan(64, 14336, 256, sms)[1] > 1 and
+         bm._plan(4, 4100, 128, sms)[1] > 1, "split-K cases do not split K")
     rows = []
     for name, (K, N) in GRANITE_SHAPES.items():
         for M in (4, 64):
@@ -211,9 +236,25 @@ def phase_matmul(gen, report):
             print(f"  bramac_matmul {name} M={M} K={K} N={N}: {ms:.4f} ms "
                   f"(bound {bound:.4f} ms by {by}, plain {plain_ms:.4f} ms, "
                   f"{lib_name} {lib_ms:.4f} ms)")
+    # what the digit passes cost: unembed again at 2 and 4 bits (1 and 2
+    # digit passes) beside its 8-bit row (4 passes)
+    K, N = GRANITE_SHAPES["unembed"]
+    for M in (4, 64):
+        by_digits = {}
+        for bits in (2, 4):
+            x, w, xs, ws, kw = case(M, K, N, bits, True, False,
+                                    torch.bfloat16, True)
+            n += 1
+            by_digits[bits] = time_cold(
+                lambda: bm.bramac_matmul(x, w, xs, ws, **kw))
+        r8 = next(r for r in rows if r["shape"] == "unembed" and r["M"] == M)
+        print(f"  bramac_matmul unembed M={M} by digit passes: 1 (2-bit) "
+              f"{by_digits[2]:.4f} ms, 2 (4-bit) {by_digits[4]:.4f} ms, 4 "
+              f"(8-bit) {r8['ms']:.4f} ms")
     print(f"phase 2 bramac_matmul: {n} cases bit-exact vs plain, max abs "
           f"err {worst:.3g} (bits 2/4/8, signed+unsigned, 4-bit packed, "
-          f"f32+bf16 out, scalar and per-channel scales, ragged, unaligned "
+          f"f32+bf16 out, scalar and per-channel scales, ragged M/K/N at the "
+          f"16/64-row, 128-byte and 128-column tile edges, split K, unaligned "
           f"views and granite shapes)")
     main = next(r for r in rows if r["shape"] == "w_gate/w_up" and r["M"] == 4)
     report["bramac_matmul"] = dict(
@@ -223,6 +264,41 @@ def phase_matmul(gen, report):
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
         bound_by=main["bound_by"], library_ms=main["library_ms"],
         shapes=rows)
+
+
+def matmul_build(ptxas: str | None) -> str:
+    """What the accumulate kernel was built to: registers and local (spill)
+    memory per thread from the loaded library, for all 24 instantiations;
+    spill stores from this run's ptxas report when it compiled now."""
+    import ctypes
+    from repro_torch.kernels import build
+    lib = build.library("bramac_matmul")
+    info = (ctypes.c_int * 4)()
+    parts = []
+    for bm_ in (16, 64):
+        regs, local = [], []
+        for bits in (2, 4, 8):
+            for sgn in (0, 1):
+                for packed in (0, 1):
+                    build.check(lib.bramac_matmul_info(
+                        bm_, bits, sgn, packed, ctypes.addressof(info)),
+                        "bramac_matmul_info")
+                    regs.append(info[0])
+                    local.append(info[1])
+        build.check(lib.bramac_matmul_info(bm_, 8, 1, 0,
+                                           ctypes.addressof(info)),
+                    "bramac_matmul_info")
+        parts.append(f"BM={bm_}: {info[3]} threads, {info[2]} B dynamic "
+                     f"shared memory, {min(regs)}-{max(regs)} registers/thread "
+                     f"({info[0]} at 8-bit signed), {max(local)} B local "
+                     f"memory")
+    spills = "not compiled in this run"
+    if ptxas:
+        found = [int(v) for chunk in ptxas.split("Compiling entry function")
+                 if "bramac_accumulate" in chunk
+                 for v in re.findall(r"(\d+) bytes spill stores", chunk)]
+        spills = f"{sum(found)} bytes spill stores over {len(found)} entries"
+    return "; ".join(parts) + f"; ptxas: {spills}"
 
 
 # ---------------------------------------------------------------------------
@@ -664,12 +740,16 @@ def profile_serve(cfg, params, prompts):
         print("phase 5 profile: the profiler saw no device kernels; device "
               "time not measured")
         return {"device_busy_ms": None, "wall_ms": wall}
+    # the matmul's kernels under every template instantiation
+    matmul = {k: sum(t for n, t in by_name.items() if k in n)
+              for k in ("bramac_accumulate", "bramac_epilogue")}
     print(f"phase 5 profile (4 requests x 8 tokens, bf16 KV): device busy "
           f"{busy:.1f} ms of {wall:.1f} ms wall ({100 * busy / wall:.1f}%); "
-          f"top kernels (ms): " + "; ".join(
-              f"{n[:60]}={t:.1f}" for n, t in top))
+          f"bramac_matmul accumulate {matmul['bramac_accumulate']:.1f} ms + "
+          f"epilogue {matmul['bramac_epilogue']:.1f} ms; top kernels (ms): "
+          + "; ".join(f"{n[:60]}={t:.1f}" for n, t in top))
     return {"device_busy_ms": busy, "wall_ms": wall, "forwards":
-            run["forwards"], "steps": run["steps"],
+            run["forwards"], "steps": run["steps"], "matmul_ms": matmul,
             "top_kernels_ms": dict(top)}
 
 
@@ -730,6 +810,8 @@ def main() -> int:
         built = "cached build, nothing compiled"
     print(f"phase 1 device: {smi}; kernels ready in "
           f"{time.perf_counter() - t0:.1f} s, {built}")
+    print(f"  bramac_accumulate: "
+          f"{matmul_build(reports.get('bramac_matmul'))}")
     report: dict = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
     phase_matmul(gen, report)

@@ -2,8 +2,12 @@
 
 Replaces the Pallas TPU kernel `repro/kernels/bramac_matmul.py::_kernel`
 (its `pl.pallas_call` at bramac_matmul.py:126).  The kernel source is
-`csrc/bramac_matmul.cu`; its header note gives the H100 bound (weight bytes
-at decode) and what the design does about it.
+`csrc/bramac_matmul.cu`: one int8 tensor-core MMA (`mma.sync` s8) per
+radix-4 digit pass, weights streamed through a `cp.async` ring in shared
+memory, one weight read per 16 (decode) or 64 rows; its header note gives
+the H100 bounds (weight bytes at decode, the int8 crossover at M=64) and
+what the design does about them.  `_plan` picks the block rows and the
+split of K that fill the card.
 
 `bramac_matmul` launches the kernel for CUDA tensors and runs the plain
 PyTorch version (`bramac_matmul_plain`, the radix-4 digit reference) for
@@ -12,14 +16,28 @@ no fallback: a CUDA tensor the kernel does not take raises.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
 from repro_torch.core import quant
 from repro_torch.kernels import build, ref
 
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
+BN, BK = 128, 128         # the kernel's block columns and K step (bytes)
+
+
+def _plan(M: int, K: int, N: int, sms: int) -> tuple[int, int, int]:
+    """Launch plan -> (bm, splits, k_per_split).
+
+    bm, the block's rows, is 16 for M <= 16 (decode) and 64 above.  K is
+    split into `splits` ranges of k_per_split (a whole number of BK steps;
+    the last range may be shorter) so that about two waves of blocks cover
+    the `sms` SMs, as far as K has steps to split."""
+    bm = 16 if M <= 16 else 64
+    tiles = -(-N // BN) * -(-M // bm)
+    steps = max(1, -(-K // BK))
+    want = max(1, min(-(-2 * sms // tiles), steps))
+    per = -(-steps // want)
+    return bm, -(-steps // per), per * BK
 
 
 def bramac_matmul_plain(x_q, w_q, x_scale, w_scale, *, bits_a: int,
@@ -92,16 +110,13 @@ def bramac_matmul(x_q, w_q, x_scale, w_scale, *, bits_a: int, bits_w: int,
     xs = x_scale.to(torch.float32).expand(M, 1).reshape(M).contiguous()
     ws = w_scale.to(torch.float32).expand(1, N).reshape(N).contiguous()
     acc = torch.empty((M, N), dtype=torch.int32, device=dev)
-    groups = max(1, -(-K // 4))
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    tiles = -(-N // 128) * -(-M // 4)
-    splits = max(1, min(math.ceil(2 * sms / tiles), -(-groups // 64)))
-    gps = -(-groups // splits)
+    bm, _, k_per_split = _plan(
+        M, K, N, torch.cuda.get_device_properties(dev).multi_processor_count)
     lib = build.library("bramac_matmul")
     err = lib.bramac_matmul_launch(
         x_q.data_ptr(), w_q.data_ptr(), xs.data_ptr(), ws.data_ptr(),
         acc.data_ptr(), out.data_ptr(), M, K, N, bits_a, int(signed),
-        int(w_packed), int(out_dtype == torch.bfloat16), gps,
+        int(w_packed), int(out_dtype == torch.bfloat16), bm, k_per_split,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "bramac_matmul")
     bramac_matmul.launches += 1

@@ -30,7 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # C signatures: "p" = pointer / stream (c_void_p), "i" = int, "f" = float
 _SIGNATURES = {
-    "bramac_matmul": {"bramac_matmul_launch": "ppppppiiiiiiiip"},
+    "bramac_matmul": {"bramac_matmul_launch": "ppppppiiiiiiiiip",
+                      "bramac_matmul_info": "iiiip"},
     "paged_attention": {"paged_decode_launch": "pppppppiiiiiiiifp",
                         "paged_decode_q_launch": "ppppppppppiiiiiiifp"},
     "mac2_kernel": {"mac2_mvm_launch": "pppiiiip"},

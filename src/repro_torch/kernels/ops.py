@@ -2,10 +2,11 @@
 `repro.kernels.ops.quant_matmul`).
 
 The tensors' device decides the route: a CUDA tensor launches the
-hand-written kernel (`kernels.bramac_matmul`), a CPU tensor takes its
-plain digit-pass version.  No padding to blocks is needed: the CUDA
-kernel masks the ragged edge itself.  The QAT `bramac_dense`
-(straight-through gradients) belongs to the training slice.
+hand-written kernel (`kernels.bramac_matmul`: one int8 tensor-core pass
+per radix-4 digit), a CPU tensor takes its plain digit-pass version.  No
+padding to blocks is needed: the CUDA kernel zero-fills the ragged edges
+of its tiles itself.  The QAT `bramac_dense` (straight-through gradients)
+belongs to the training slice.
 """
 from __future__ import annotations
 

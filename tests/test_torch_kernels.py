@@ -118,6 +118,31 @@ def test_bramac_matmul_wrapper_packed_and_block_independent():
         np.asarray(jref.mac2_mvm_ref(jnp.asarray(w), jnp.asarray(x))))
 
 
+GRANITE_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+              (4096, 49152)]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 8])
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 64])
+@pytest.mark.parametrize("KN", GRANITE_KN + [(100, 77), (4100, 136), (0, 8)])
+def test_bramac_matmul_launch_plan(KN, M, sms):
+    """The CUDA kernel's launch plan: 16-row blocks up to M=16 and 64-row
+    blocks above; the K ranges of the splits cover K exactly once, every
+    one but the last a whole number of 64-byte K steps; the grid fills at
+    least one wave of SMs wherever the K steps allow it."""
+    K, N = KN
+    bm, splits, kps = tbm._plan(M, K, N, sms)
+    assert bm == (16 if M <= 16 else 64)
+    assert kps > 0 and kps % tbm.BK == 0
+    ranges = [(s * kps, min(K, (s + 1) * kps)) for s in range(splits)]
+    assert all(b < e for b, e in ranges) or K == 0
+    covered = [k for b, e in ranges for k in range(b, e)]
+    assert covered == list(range(K))
+    tiles = -(-N // tbm.BN) * -(-M // bm)
+    steps = max(1, -(-K // tbm.BK))
+    assert tiles * splits >= min(sms, tiles * steps)
+
+
 # --- paged decode -----------------------------------------------------------
 
 PS = 16
