@@ -128,19 +128,20 @@ def rand_q(gen, bits, shape, signed=True):
 # phase 2: bramac_matmul
 # ---------------------------------------------------------------------------
 
+def _offset_view(t, off):
+    """The same values in a contiguous view that starts `off` elements into
+    its storage, so the base pointer is off the allocation's alignment."""
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    v = buf[off:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
 def phase_matmul(gen, report):
     from repro_torch.core import quant
     from repro_torch.kernels import bramac_matmul as bm
 
     worst = 0.0
-
-    def offset_view(t, off):
-        # the same values in a contiguous view that starts `off` bytes into
-        # its storage, so the base pointer is not 4-byte aligned
-        buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
-        v = buf[off:].view(t.shape)
-        v.copy_(t)
-        return v
 
     def case(M, K, N, bits, signed, packed, od, per_channel, off=0):
         nonlocal worst
@@ -154,7 +155,7 @@ def phase_matmul(gen, report):
             ws = torch.full((1, 1), 1.25, device="cuda")
         wq = quant.pack_bits(w.T, 4).T.contiguous() if packed else w
         if off:
-            x, wq = offset_view(x, off), offset_view(wq, 4 - off)
+            x, wq = _offset_view(x, off), _offset_view(wq, 4 - off)
             need(x.is_contiguous() and x.data_ptr() % 4 == off,
                  "offset view is not what the case needs")
         kw = dict(bits_a=bits, bits_w=bits, signed=signed, out_dtype=od,
@@ -301,6 +302,58 @@ def matmul_build(ptxas: str | None) -> str:
     return "; ".join(parts) + f"; ptxas: {spills}"
 
 
+def paged_q_build() -> str:
+    """Registers and local (spill) memory per thread of the int8 decode
+    kernel's four instantiations (f32/bf16 out x g <= 4 / g <= 16)."""
+    import ctypes
+    from repro_torch.kernels import build
+    lib = build.library("paged_attention")
+    info = (ctypes.c_int * 4)()
+    parts = []
+    for g_large in (0, 1):
+        for bf16 in (0, 1):
+            build.check(lib.paged_decode_q_info(bf16, g_large,
+                                                ctypes.addressof(info)),
+                        "paged_decode_q_info")
+            parts.append(f"g<={16 if g_large else 4} "
+                         f"{'bf16' if bf16 else 'f32'}: {info[0]} registers, "
+                         f"{info[1]} B local")
+    return (f"{info[3]} threads, dynamic shared memory up to {info[2]} B; "
+            + "; ".join(parts))
+
+
+def mac2_build(ptxas: str | None) -> str:
+    """What the dummy-array kernel was built to: registers and local
+    (spill) memory per thread for its 12 instantiations (bits x signed x
+    16-byte or byte loads), and spill stores from this run's ptxas report
+    when it compiled now."""
+    import ctypes
+    from repro_torch.kernels import build
+    lib = build.library("mac2_kernel")
+    info = (ctypes.c_int * 4)()
+    parts = []
+    for vec in (1, 0):
+        regs, local = [], []
+        for bits in (2, 4, 8):
+            for sgn in (0, 1):
+                build.check(lib.mac2_mvm_info(bits, sgn, vec,
+                                              ctypes.addressof(info)),
+                            "mac2_mvm_info")
+                regs.append(info[0])
+                local.append(info[1])
+        parts.append(f"{'16-byte' if vec else 'byte'} loads: "
+                     f"{min(regs)}-{max(regs)} registers/thread ({regs[-1]} "
+                     f"at 8-bit signed), {max(local)} B local memory")
+    spills = "not compiled in this run"
+    if ptxas:
+        found = [int(v) for chunk in ptxas.split("Compiling entry function")
+                 if "mac2_mvm" in chunk
+                 for v in re.findall(r"(\d+) bytes spill stores", chunk)]
+        spills = f"{sum(found)} bytes spill stores over {len(found)} entries"
+    return (f"{info[3]} threads, up to {info[2]} B dynamic shared memory; "
+            + "; ".join(parts) + f"; ptxas: {spills}")
+
+
 # ---------------------------------------------------------------------------
 # phases 3-4: paged decode kernels
 # ---------------------------------------------------------------------------
@@ -314,15 +367,30 @@ CASES = {                          # (lengths, n_pages): below / at / across
 }
 
 
-def _pool_case(gen, lengths, n_pages):
-    """Block tables over a pool of B*MAXP pages, and the (P, ps) mask of
-    the rows the reference reads: the first min(n_pages, ceil(len/ps))
-    pages of each table, rows below the length.  Everything else (pages no
-    table lists, owned pages past the length, rows past the length in the
-    last page) is to be poisoned by the caller."""
-    P = B * MAXP
-    tables = torch.randperm(P, generator=gen, device="cuda")[:B * MAXP] \
-        .reshape(B, MAXP).to(torch.int32)
+# the int8 kernel's cluster split at its edges: (lengths, n_pages, H, Hkv,
+# max_pages).  max_pages 256 splits a walk over 8 blocks of 32 pages, and
+# lengths up to 4096 make all 8 active; H/Hkv = 16 and H = Hkv; max_pages
+# 1024 at H/Hkv = 16 keeps the scores in the device scratch buffer
+Q_CASES = {
+    "long": ((4096, 3000, 1500, 4000), (256, 188, 94, 256), H, HKV, 256),
+    "long_g16": ((4096, 2500, 1, 3333), (256, 160, 1, 209), 32, 2, 256),
+    "g1": ((57, 104, 121, 136), (4, 7, 8, 9), 8, 8, MAXP),
+    "scratch_g16": ((16384, 9000, 20, 12000), (1024, 563, 2, 750), 32, 2,
+                    1024),
+}
+
+
+def _pool_case(gen, lengths, n_pages, maxp=MAXP):
+    """Block tables over a pool of B*maxp pages (B = len(lengths)), and the
+    (P, ps) mask of the rows the reference reads: the first
+    min(n_pages, ceil(len/ps)) pages of each table, rows below the length.
+    Everything else (pages no table lists, owned pages past the length,
+    rows past the length in the last page) is to be poisoned by the
+    caller."""
+    B = len(lengths)
+    P = B * maxp
+    tables = torch.randperm(P, generator=gen, device="cuda")[:B * maxp] \
+        .reshape(B, maxp).to(torch.int32)
     read = torch.zeros(P, PS, dtype=torch.bool, device="cuda")
     for b, (L, n) in enumerate(zip(lengths, n_pages)):
         for j in range(min(n, -(-L // PS))):
@@ -395,67 +463,83 @@ def phase_paged(gen, report):
           f"unread pages and rows ignored; free slot emits zeros")
 
     worst = 0.0
-    for dt in (torch.float32, torch.bfloat16):
-        for cname, (lengths, n_pages) in CASES.items():
-            tables, npg, lens, read = _pool_case(gen, lengths, n_pages)
-            P = B * MAXP
-            k = torch.randint(-127, 128, (P, PS, HKV, HD), generator=gen,
-                              device="cuda").to(torch.int8)
-            v = torch.randint(-127, 128, (P, PS, HKV, HD), generator=gen,
-                              device="cuda").to(torch.int8)
-            ks = torch.rand(P, PS, HKV, generator=gen, device="cuda") * 0.02
-            vs = torch.rand(P, PS, HKV, generator=gen, device="cuda") * 0.02
-            qq = torch.randint(-127, 128, (B, H, HD), generator=gen,
-                               device="cuda").to(torch.int8)
-            qs = torch.rand(B, H, generator=gen, device="cuda") * 0.02
-            args = (qq, qs, k, ks, v, vs, tables, npg, lens)
-            got = pa.paged_decode_q(*args, dt)
-            want, pscale = pa._q_plain(*args, dt)
-            # rows the reference does not read, poisoned: no change
-            ok = read[:, :, None]
-            got_p = pa.paged_decode_q(
-                qq, qs, torch.where(ok[..., None], k, 127),
-                torch.where(ok, ks, 1e3), torch.where(ok[..., None], v, 127),
-                torch.where(ok, vs, 1e3), tables, npg, lens, dt)
-            torch.cuda.synchronize()
-            need(torch.equal(got, got_p),
-                 f"paged_decode_q {cname} {dt}: poisoned rows changed output")
-            # the normalizer is summed in another order; a last-bit change
-            # can move a requantized probability across a rounding edge,
-            # which changes an output by at most 127*pscale per flip: allow
-            # two flips, plus one bf16 rounding of the output
-            tol = 2 * 127 * pscale[..., None] + 1e-6
-            if dt == torch.bfloat16:
-                tol = tol + want.float().abs() * 2 ** -7
-            diff = (got.float() - want.float()).abs()
-            worst = max(worst, diff.max().item())
-            need(bool((diff <= tol).all()),
-                 f"paged_decode_q {cname} {dt}: max err {diff.max().item()}")
-            if cname == "serve" and dt == torch.bfloat16:
-                rows = _live_rows(lengths, n_pages)
-                nbytes = 2 * rows * HKV * (HD + 4) + B * H * (HD + 4) \
-                    + 2 * B * H * HD + 4 * (B * MAXP + 2 * B)
-                ops = 4 * rows * H * HD
-                bound = max(nbytes / HBM_BYTES_PER_S,
-                            ops / INT8_OPS_PER_S) * 1e3
-                by = "bytes" if nbytes / HBM_BYTES_PER_S >= \
-                    ops / INT8_OPS_PER_S else "operations"
-                ms = time_cold(lambda: pa.paged_decode_q(*args, dt))
-                plain_ms = time_cold(lambda: pa.paged_decode_q_plain(
-                    *args, dt))
+    timed = []
+
+    def q_case(cname, lengths, n_pages, dt, H, Hkv, maxp):
+        nonlocal worst
+        B = len(lengths)
+        tables, npg, lens, read = _pool_case(gen, lengths, n_pages, maxp)
+        P = B * maxp
+        k = torch.randint(-127, 128, (P, PS, Hkv, HD), generator=gen,
+                          device="cuda").to(torch.int8)
+        v = torch.randint(-127, 128, (P, PS, Hkv, HD), generator=gen,
+                          device="cuda").to(torch.int8)
+        ks = torch.rand(P, PS, Hkv, generator=gen, device="cuda") * 0.02
+        vs = torch.rand(P, PS, Hkv, generator=gen, device="cuda") * 0.02
+        qq = torch.randint(-127, 128, (B, H, HD), generator=gen,
+                           device="cuda").to(torch.int8)
+        qs = torch.rand(B, H, generator=gen, device="cuda") * 0.02
+        args = (qq, qs, k, ks, v, vs, tables, npg, lens)
+        got = pa.paged_decode_q(*args, dt)
+        want, pscale = pa._q_plain(*args, dt)
+        # rows the reference does not read, poisoned: no change
+        ok = read[:, :, None]
+        got_p = pa.paged_decode_q(
+            qq, qs, torch.where(ok[..., None], k, 127),
+            torch.where(ok, ks, 1e3), torch.where(ok[..., None], v, 127),
+            torch.where(ok, vs, 1e3), tables, npg, lens, dt)
+        torch.cuda.synchronize()
+        need(torch.equal(got, got_p),
+             f"paged_decode_q {cname} {dt}: poisoned rows changed output")
+        # the normalizer is summed in another order; a last-bit change
+        # can move a requantized probability across a rounding edge,
+        # which changes an output by at most 127*pscale per flip: allow
+        # two flips, plus one bf16 rounding of the output
+        tol = 2 * 127 * pscale[..., None] + 1e-6
+        if dt == torch.bfloat16:
+            tol = tol + want.float().abs() * 2 ** -7
+        diff = (got.float() - want.float()).abs()
+        worst = max(worst, diff.max().item())
+        need(bool((diff <= tol).all()),
+             f"paged_decode_q {cname} {dt}: max err {diff.max().item()}")
+        if cname in ("serve", "long") and dt == torch.bfloat16:
+            rows = _live_rows(lengths, n_pages)
+            nbytes = 2 * rows * Hkv * (HD + 4) + B * H * (HD + 4) \
+                + 2 * B * H * HD + 4 * (B * maxp + 2 * B)
+            ops = 4 * rows * H * HD
+            bound = max(nbytes / HBM_BYTES_PER_S,
+                        ops / INT8_OPS_PER_S) * 1e3
+            by = "bytes" if nbytes / HBM_BYTES_PER_S >= \
+                ops / INT8_OPS_PER_S else "operations"
+            ms = time_cold(lambda: pa.paged_decode_q(*args, dt))
+            plain_ms = time_cold(lambda: pa.paged_decode_q_plain(*args, dt))
+            timed.append((cname, ms, plain_ms))
+            if cname == "serve":
                 report["paged_decode_q"] = dict(
                     name="paged_decode_q", route="cuda",
                     source="src/repro_torch/kernels/csrc/paged_attention.cu",
                     replaces="src/repro/kernels/paged_attention.py:111",
                     ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                     library_ms=None)
-                print(f"  paged_decode_q bf16 B={B} lengths={lengths}: "
-                      f"{ms:.4f} ms (bound {bound:.5f} ms by {by}, plain "
-                      f"{plain_ms:.4f} ms)")
+            print(f"  paged_decode_q {cname} bf16 B={B} H={H} Hkv={Hkv} "
+                  f"max_pages={maxp} lengths={lengths}: {ms:.4f} ms (bound "
+                  f"{bound:.5f} ms by {by}, plain {plain_ms:.4f} ms)")
+
+    n = 0
+    for dt in (torch.float32, torch.bfloat16):
+        for cname, (lengths, n_pages) in CASES.items():
+            q_case(cname, lengths, n_pages, dt, H, HKV, MAXP)
+            n += 1
+        for cname, (lengths, n_pages, H_, Hkv_, maxp) in Q_CASES.items():
+            q_case(cname, lengths, n_pages, dt, H_, Hkv_, maxp)
+            n += 1
+    need(all(ms < plain_ms for _, ms, plain_ms in timed),
+         f"paged_decode_q slower than its plain version: {timed}")
     report["paged_decode_q"]["max_abs_err"] = worst
-    print(f"phase 4 paged_decode_q: {2 * len(CASES)} cases within "
-          f"tolerance (<= 2 requantization flips), max abs err {worst:.3g}; "
-          f"poisoned unread pages and rows ignored")
+    print(f"phase 4 paged_decode_q: {n} cases within tolerance (<= 2 "
+          f"requantization flips), max abs err {worst:.3g}; poisoned unread "
+          f"pages and rows ignored; cluster split up to 8 blocks at "
+          f"max_pages 256 and 1024 (scratch), H/Hkv 16 and 1")
 
 
 # ---------------------------------------------------------------------------
@@ -511,6 +595,29 @@ def phase_mac2(gen, report):
                     case(w, rand_q(gen, bits, (C,), signed), bits, signed,
                          "in-range x")
                     case(w, rand_q(gen, 8, (C,)), bits, signed, "int8 x")
+    # the tensor-core kernel's edges: rows around its 16-row MMA tiles, K
+    # split into many ranges, and operands whose storage starts 1 byte off
+    # 16 (byte loads)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    need(mk._plan(64, 14336, sms)[1] >= 4,
+         "the R=64, C=14336 case does not split K 4 ways")
+    for bits in (2, 4, 8):
+        for signed in (True, False):
+            for R in (15, 16, 17):
+                case(rand_q(gen, bits, (R, 4096)),
+                     rand_q(gen, bits, (4096,), signed), bits, signed,
+                     "row tile edge")
+            for R in (64, 4096):
+                case(rand_q(gen, bits, (R, 14336)),
+                     rand_q(gen, bits, (14336,), signed), bits, signed,
+                     "split K")
+            for R, C in ((17, 4096), (64, 482)):
+                w = _offset_view(rand_q(gen, bits, (R, C)), 1)
+                x = rand_q(gen, bits, (C,), signed)
+                need(w.data_ptr() % 16 == 1, "offset view is not off 16")
+                case(w, x, bits, signed, "w at storage offset 1")
+                case(w, _offset_view(x, 1), bits, signed,
+                     "w and x at storage offset 1")
     # the paper path's shapes (Fig 11)
     for bits in (2, 4, 8):
         for R in gm.ROW_SIZES:
@@ -525,7 +632,8 @@ def phase_mac2(gen, report):
         pass
     print(f"phase 7 mac2 check: {n} cases bit-exact vs plain and w @ x, max "
           f"abs err {worst} (bits 2/4/8, signed+unsigned, ragged R x C, x in "
-          f"and out of the bits range, the 105 Fig 11 shapes); odd C raises; "
+          f"and out of the bits range, R 15/16/17 at C=4096, C=14336 split "
+          f"K, storage offset 1, the 105 Fig 11 shapes); odd C raises; "
           f"{time.perf_counter() - t0:.1f} s")
 
     # the paper path, through the launcher's own functions, on the card
@@ -714,15 +822,17 @@ def phase_serve(report):
         need(n > 0, f"{k} was never launched on the main path")
         report[k]["launches"] = n
     report["profile"] = profile_serve(cfg, params, prompts[:4])
+    report["profile_int8_kv"] = profile_serve(cfg.replace(quant_kv=True),
+                                              params, prompts[:4])
     del params
     torch.cuda.empty_cache()
 
 
 def profile_serve(cfg, params, prompts):
-    """Where the time goes: one short bf16-KV serve (4 requests x 8 tokens)
-    under torch.profiler; device-busy share of the wall time and device
-    time by kernel name.  The profiler slows the host, so its wall time is
-    not the serve's tok/s."""
+    """Where the time goes: one short serve (4 requests x 8 tokens) under
+    torch.profiler; device-busy share of the wall time and device time by
+    kernel name.  The profiler slows the host, so its wall time is not the
+    serve's tok/s."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -743,14 +853,19 @@ def profile_serve(cfg, params, prompts):
     # the matmul's kernels under every template instantiation
     matmul = {k: sum(t for n, t in by_name.items() if k in n)
               for k in ("bramac_accumulate", "bramac_epilogue")}
-    print(f"phase 5 profile (4 requests x 8 tokens, bf16 KV): device busy "
+    attn_name = "paged_decode_q_kernel" if cfg.quant_kv else \
+        "paged_decode_kernel"
+    attn = sum(t for n, t in by_name.items() if attn_name in n)
+    print(f"phase 5 profile (4 requests x 8 tokens, "
+          f"{'int8' if cfg.quant_kv else 'bf16'} KV): device busy "
           f"{busy:.1f} ms of {wall:.1f} ms wall ({100 * busy / wall:.1f}%); "
           f"bramac_matmul accumulate {matmul['bramac_accumulate']:.1f} ms + "
-          f"epilogue {matmul['bramac_epilogue']:.1f} ms; top kernels (ms): "
+          f"epilogue {matmul['bramac_epilogue']:.1f} ms; {attn_name} "
+          f"{attn:.1f} ms; top kernels (ms): "
           + "; ".join(f"{n[:60]}={t:.1f}" for n, t in top))
     return {"device_busy_ms": busy, "wall_ms": wall, "forwards":
             run["forwards"], "steps": run["steps"], "matmul_ms": matmul,
-            "top_kernels_ms": dict(top)}
+            "attention_ms": attn, "top_kernels_ms": dict(top)}
 
 
 # ---------------------------------------------------------------------------
@@ -812,6 +927,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s, {built}")
     print(f"  bramac_accumulate: "
           f"{matmul_build(reports.get('bramac_matmul'))}")
+    print(f"  mac2_mvm: {mac2_build(reports.get('mac2_kernel'))}")
+    print(f"  paged_decode_q: {paged_q_build()}")
     report: dict = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
     phase_matmul(gen, report)

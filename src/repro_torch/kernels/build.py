@@ -33,8 +33,10 @@ _SIGNATURES = {
     "bramac_matmul": {"bramac_matmul_launch": "ppppppiiiiiiiiip",
                       "bramac_matmul_info": "iiiip"},
     "paged_attention": {"paged_decode_launch": "pppppppiiiiiiiifp",
-                        "paged_decode_q_launch": "ppppppppppiiiiiiifp"},
-    "mac2_kernel": {"mac2_mvm_launch": "pppiiiip"},
+                        "paged_decode_q_launch": "pppppppppppiiiiiiiiifp",
+                        "paged_decode_q_info": "iip"},
+    "mac2_kernel": {"mac2_mvm_launch": "pppiiiiiip",
+                    "mac2_mvm_info": "iiip"},
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

@@ -1,37 +1,60 @@
 // Paged-KV decode attention for Hopper (sm_90a): block-table walks, no gather.
 //
-// paged_decode_kernel replaces the Pallas TPU kernel
-//   src/repro/kernels/paged_attention.py::_fp_kernel (pallas_call at :214);
-// paged_decode_q_kernel replaces
-//   src/repro/kernels/paged_attention.py::_q_kernel (pallas_call at :258).
+// Both kernels compute Sq=1 GQA decode attention straight off the shared
+// page pool (P, page_size, Hkv, hd), walking only the
+// min(n_pages, ceil(len/ps)) pages a sequence owns, never max_seq rows.
 //
-// Both compute Sq=1 GQA decode attention straight off the shared page pool
-// (P, page_size, Hkv, hd), walking only the min(n_pages, ceil(len/ps))
-// pages a sequence owns, never max_seq rows:
-//   * fp: fp32 scores q.k / sqrt(hd), rows >= len masked to -1e30, online
-//     softmax (running max, normalizer, rescaled accumulator); a sequence
-//     with no pages emits zeros;
-//   * int8: the three page walks of the TPU kernel, which replay
-//     attention.decode_attention_q — (1) the global max of
-//     (q_i8.k_i8)*qs*ks/sqrt(hd); (2) l = sum exp(s-m) and
-//     u = max(exp(s-m)*vs), pscale = max(u/l, 1e-6)/127; (3) probabilities
-//     requantized pq = clip(rint(exp(s-m)/l*vs/pscale), +-127) and an int32
-//     pq.v_i8 accumulation, out = acc*pscale.  The cache stays int8: no fp
-//     copy of the pool is ever made.
+// paged_decode_kernel (fp) replaces the Pallas TPU kernel
+//   src/repro/kernels/paged_attention.py::_fp_kernel (pallas_call at :214):
+// fp32 scores q.k / sqrt(hd), rows >= len masked to -1e30, online softmax
+// (running max, normalizer, rescaled accumulator); a sequence with no pages
+// emits zeros.  Bound on the H100: the live KV bytes over 3.35 TB/s.  Grid
+// (sequence, KV head); each block reads one (ps, hd) K and V slice of its
+// head per page (coalesced rows) and serves the H/Hkv query heads of its
+// group from that one read.  Later work: the int8 kernel's cluster split.
 //
-// Bound on the H100: the live KV bytes, sum_b ceil(len_b/ps)*ps * Hkv * hd
-// * 2 * itemsize (+ the f32 row scales for int8), over 3.35 TB/s; the
-// arithmetic is a few FLOPs per byte.  Design: the grid is (sequence, KV
-// head) rather than the TPU's one program per sequence, so B*Hkv blocks
-// stream independent KV slices; each block loads its own table row, reads
-// one (ps, hd) K and V slice of its head per page (contiguous hd-element
-// rows, coalesced across threads) and serves the H/Hkv query heads of its
-// group from that one read.  Math follows the reference: expf (not
-// __expf), division by sqrt(hd) (passed in from the host as the reference's
-// f32 constant), rintf (half to even, as jnp.round).  Later work: split the
-// page walk across blocks for long sequences (flash-decoding) and
-// cp.async/TMA double buffering of the page slices.
+// paged_decode_q_kernel (int8 KV) replaces
+//   src/repro/kernels/paged_attention.py::_q_kernel (pallas_call at :258),
+// which replays attention.decode_attention_q: scores
+// ((float)(q_i8.k_i8) * qs) * ks / sqrt(hd), m = their global max,
+// l = sum exp(s-m), u = max exp(s-m)*vs, pscale = max(u/l, 1e-6)/127, the
+// probabilities requantized pq = clip(rint(exp(s-m)/l*vs/pscale), +-127),
+// an int32 pq.v_i8 accumulation, out = acc*pscale.  The cache stays int8.
+// Bound on the H100: the live K and V bytes (+ their f32 row scales),
+// about 150 KB at the serve shape, i.e. 0.3 us at 3.35 TB/s; the arithmetic
+// is a few operations per byte.  What holds such a kernel is latency: m is
+// needed before l and u, and pscale before any pq, so the TPU kernel walks
+// the pages three times.  Design:
+//   * one walk: the grid is (S, Hkv, B) and the S <= 8 blocks of one
+//     (sequence, KV head) form a thread block cluster (S chosen on the host
+//     from max_pages alone, kernels/paged_attention._plan_q, so no length is
+//     read on the host).  Block s owns a contiguous range of the table's
+//     pages; blocks whose range lies past the walked pages read no K or V
+//     but still arrive at every cluster barrier;
+//   * each block reads its K rows once (16-byte loads), computes every
+//     score once as an exact int32 dot (__dp4a, the hd chunks of a row on
+//     adjacent lanes, summed by shuffles) and keeps the scores and V row
+//     scales in shared memory (in a global scratch slice that the wrapper
+//     allocates when a long range does not fit).  q (by cp.async), the
+//     table entries, the first pass of K with its row scales and four
+//     passes of V words all go out before anything waits, so at the serve
+//     shape a block's reads cost about two round trips;
+//   * the global max, then l and u, meet across the cluster through
+//     distributed shared memory (one warp per head reads the S blocks'
+//     partials; every block sums them in the same order, so all use the same
+//     l and pscale), and exp(s-m) and pq are each computed once per
+//     (head, row), in parallel;
+//   * V is read once, one 4-byte word of a row per thread, as an int32 PV
+//     over (head, dim) spread over all threads; the int32 partials meet
+//     exactly in shared memory, then in rank 0's by distributed shared
+//     memory atomics (integer: any order gives the same sum), and rank 0
+//     writes acc*pscale after the third and last cluster barrier.
+// Scores, m and u are bit-identical to the reference's; only the association
+// of l differs.  Math follows the reference: expf (not __expf), division by
+// sqrt(hd) (passed in as the reference's f32 constant), rintf (half to even,
+// as jnp.round).
 #include <cuda_bf16.h>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -53,11 +76,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ int warp_sum(int v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
@@ -153,136 +171,339 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
   }
 }
 
-// Masked fp32 scores of page j for every query head of the group, exactly
-// as the reference: ((float(q_i8.k_i8) * qs) * ks) / sqrt(hd); also stages
-// the page's V row scales.
-__device__ __forceinline__ void q_page_scores(
-    const int* q_s, const float* qsv, const int8_t* __restrict__ kp,
-    const float* __restrict__ ksp, const float* __restrict__ vsp, float* s_s,
-    float* vs_s, int pid, int j, int L, int g, int h, int Hkv, int hd, int ps,
-    float div, int lane, int warp) {
-  for (int r = warp; r < ps; r += kWarps) {
-    const size_t row = ((size_t)pid * ps + r) * Hkv + h;
-    const int8_t* krow = kp + row * hd;
-    const float ks = ksp[row];
-    for (int gi = 0; gi < g; ++gi) {
-      int part = 0;
-      for (int d = lane; d < hd; d += 32) part += q_s[gi * hd + d] * (int)krow[d];
-      part = warp_sum(part);
-      if (lane == 0) {
-        const float s = (float)part * qsv[gi] * ks / div;
-        s_s[gi * ps + r] = (j * ps + r < L) ? s : -1e30f;
-      }
-    }
-    if (lane == 0) vs_s[r] = vsp[row];
-  }
+constexpr int kQThreads = 256;             // 8 warps
+constexpr int kQWarps = kQThreads / 32;
+constexpr int kVDepth = 4;                 // passes of V words in flight
+
+struct QArgs {
+  const int8_t* q;       // (B, H, hd)
+  const float* qs;       // (B, H)
+  const int8_t* kp;      // (P, ps, Hkv, hd)
+  const float* ksp;      // (P, ps, Hkv)
+  const int8_t* vp;
+  const float* vsp;
+  const int* tables;     // (B, max_pages)
+  const int* n_pages;    // (B,)
+  const int* lengths;    // (B,)
+  void* out;             // (B, H, hd) f32 or bf16
+  float* scratch;        // scores past shared memory, or null
+  int H, Hkv, hd, ps, max_pages, pps;
+  int kvec, vvec;        // 16-byte K loads / 4-byte V loads allowed
+  float div;
+};
+
+__device__ __forceinline__ int pow2_at_least(int v) {
+  int p = 1;
+  while (p < v) p <<= 1;
+  return p;
+}
+
+// 16 bytes of a K row from byte c16, zero past hd
+__device__ __forceinline__ uint4 k_chunk(const int8_t* row, int c16, int hd,
+                                         bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const uint4*>(row + c16));
+  uint32_t u[4] = {0u, 0u, 0u, 0u};
+  for (int i = 0; i < 16 && c16 + i < hd; ++i)
+    u[i >> 2] |= (uint32_t)(uint8_t)row[c16 + i] << (8 * (i & 3));
+  return make_uint4(u[0], u[1], u[2], u[3]);
+}
+
+// 4 bytes of a V row from byte d4, zero past hd
+__device__ __forceinline__ uint32_t v_word(const int8_t* row, int d4, int hd,
+                                           bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const uint32_t*>(row + d4));
+  uint32_t u = 0u;
+  for (int i = 0; i < 4 && d4 + i < hd; ++i)
+    u |= (uint32_t)(uint8_t)row[d4 + i] << (8 * i);
+  return u;
+}
+
+__device__ __forceinline__ int dp4a16(uint4 a, uint4 b, int c) {
+  c = __dp4a((int)a.x, (int)b.x, c);
+  c = __dp4a((int)a.y, (int)b.y, c);
+  c = __dp4a((int)a.z, (int)b.z, c);
+  return __dp4a((int)a.w, (int)b.w, c);
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
 }
 
 template <typename TO, int GM>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_q_kernel(const int8_t* __restrict__ q, const float* __restrict__ qs,
-                      const int8_t* __restrict__ kp, const float* __restrict__ ksp,
-                      const int8_t* __restrict__ vp, const float* __restrict__ vsp,
-                      const int* __restrict__ tables, const int* __restrict__ n_pages,
-                      const int* __restrict__ lengths, TO* __restrict__ out,
-                      int H, int Hkv, int hd, int ps, int max_pages, float div) {
-  const int b = blockIdx.x, h = blockIdx.y, g = H / Hkv;
+__global__ void __launch_bounds__(kQThreads)
+paged_decode_q_kernel(const QArgs a) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = gridDim.x, s = blockIdx.x;   // the cluster spans x: rank s
+  const int h = blockIdx.y, b = blockIdx.z, g = a.H / a.Hkv;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  extern __shared__ int qsmem[];
-  int* q_s = qsmem;                                        // (g, hd)
-  float* qsv = reinterpret_cast<float*>(qsmem + g * hd);   // (g,)
-  float* s_s = qsv + g;                                    // (g, ps)
-  float* vs_s = s_s + g * ps;                              // (ps,)
-  const size_t q_off = ((size_t)b * H + (size_t)h * g) * hd;
-  for (int i = tid; i < g * hd; i += kThreads) q_s[i] = (int)q[q_off + i];
-  for (int i = tid; i < g; i += kThreads) qsv[i] = qs[(size_t)b * H + (size_t)h * g + i];
-  const int L = lengths[b];
-  const int n_eff = min(n_pages[b], (L + ps - 1) / ps);
-  const int* trow = tables + (size_t)b * max_pages;
+  const int hd = a.hd, ps = a.ps, rb = a.pps * ps;   // rows a block may own
+  const int nc = (hd + 15) / 16, ncp = pow2_at_least(nc);
+  const int nw = (hd + 3) / 4, nwp = pow2_at_least(nw);
+  const int qld = ncp * 16;
+
+  extern __shared__ __align__(16) unsigned char qsmem[];
+  int8_t* q_s = reinterpret_cast<int8_t*>(qsmem);                 // (g, qld)
+  float* qs_s = reinterpret_cast<float*>(qsmem + g * qld);          // (g,)
+  float* m_blk = qs_s + g;       // this block's partials, read by the cluster
+  float* l_blk = m_blk + g;
+  float* u_blk = l_blk + g;
+  float* ps_s = u_blk + g;       // pscale
+  int* acc_s = reinterpret_cast<int*>(ps_s + g + ((-5 * g) & 3));  // (g, hd)
+  float* sc = a.scratch          // (g, rb) scores, then exp(s-m), then pq
+      ? a.scratch + (((size_t)b * a.Hkv + h) * S + s) * (size_t)(g + 1) * rb
+      : reinterpret_cast<float*>(acc_s + g * hd);
+  float* vs_s = sc + (size_t)g * rb;                                // (rb,)
+
+  // q goes global -> shared first (16-byte cp.async where hd allows), so
+  // its latency hides behind the loads below; the lengths and the table
+  // entries of this block's first rows go out together: the entries are
+  // read whatever the length (they are inside the table) and used only for
+  // rows below it
+  const int8_t* qg = a.q + ((size_t)b * a.H + (size_t)h * g) * hd;
+  const bool qvec = hd % 16 == 0 && (reinterpret_cast<uintptr_t>(qg) & 15) == 0;
+  if (qvec) {
+    for (int i = tid; i < g * qld / 16; i += kQThreads) {
+      const int gi = i / (qld / 16), c16 = 16 * (i % (qld / 16));
+      int8_t* dst = q_s + gi * qld + c16;
+      if (c16 < hd) {
+        const uint32_t sa = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa),
+                     "l"(qg + gi * hd + c16)
+                     : "memory");
+      } else {
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  const int L = a.lengths[b], np = a.n_pages[b];
+  const int j0 = s * a.pps;
+  const int* trow = a.tables + (size_t)b * a.max_pages + j0;
+  auto page_of = [&](int rl) {   // speculative: any page id inside the table
+    return j0 + rl / ps < a.max_pages ? trow[rl / ps] : 0;
+  };
+  auto pool_row = [&](int pid, int rl) {   // (pid * ps + r) * Hkv + h
+    return ((size_t)pid * ps + rl % ps) * a.Hkv + h;
+  };
+
+  // phase 1 mapping: ncp lanes per K row (chunk c), 256 / ncp rows a pass
+  const int c = tid & (ncp - 1), rg1 = tid / ncp, rp1 = kQThreads / ncp;
+  // PV mapping: one 4-byte V word (w4) of a row per thread, 256 / nwp rows
+  // a pass, kVDepth passes of V words in flight
+  const int w4 = tid & (nwp - 1), rg3 = tid / nwp, rp3 = kQThreads / nwp;
+  const int pid_k = page_of(rg1);
+  int pid_v[kVDepth];
+#pragma unroll
+  for (int i = 0; i < kVDepth; ++i) pid_v[i] = page_of(rg3 + i * rp3);
+
+  const int n_eff = min(min(np, (L + ps - 1) / ps), a.max_pages);
+  const int j1 = min(j0 + a.pps, n_eff);
+  const int rows = j1 > j0 ? (j1 - j0) * ps : 0;
+  const int passes1 = (rows + rp1 - 1) / rp1;
+  auto load_k = [&](int rl, int pid, float& ks, float& vs) {
+    if (rl >= rows) return make_uint4(0u, 0u, 0u, 0u);
+    const size_t pr = pool_row(pid, rl);
+    ks = a.ksp[pr];
+    vs = a.vsp[pr];
+    return c < nc ? k_chunk(a.kp + pr * hd, 16 * c, hd, a.kvec)
+                  : make_uint4(0u, 0u, 0u, 0u);
+  };
+  auto load_v = [&](int rl, int pid) {
+    return rl < rows && w4 < nw
+        ? v_word(a.vp + pool_row(pid, rl) * hd, 4 * w4, hd, a.vvec) : 0u;
+  };
+  // every first load goes out before anything waits
+  float ks_cur = 0.f, vs_cur = 0.f;
+  uint4 k_cur = load_k(rg1, pid_k, ks_cur, vs_cur);
+  uint32_t v_buf[kVDepth];
+#pragma unroll
+  for (int i = 0; i < kVDepth; ++i) v_buf[i] = load_v(rg3 + i * rp3, pid_v[i]);
+
+  if (!qvec) {
+    for (int i = tid; i < g * qld; i += kQThreads) {
+      const int gi = i / qld, d = i % qld;
+      q_s[i] = d < hd ? qg[gi * hd + d] : 0;
+    }
+  }
+  for (int i = tid; i < g; i += kQThreads)
+    qs_s[i] = a.qs[(size_t)b * a.H + (size_t)h * g + i];
+  for (int i = tid; i < g * hd; i += kQThreads) acc_s[i] = 0;
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
 
-  // walk 1: global max of the masked scores
-  float m[GM];
-#pragma unroll
-  for (int gi = 0; gi < GM; ++gi) m[gi] = -INFINITY;
-  for (int j = 0; j < n_eff; ++j) {
-    q_page_scores(q_s, qsv, kp, ksp, vsp, s_s, vs_s, trow[j], j, L, g, h, Hkv,
-                  hd, ps, div, lane, warp);
-    __syncthreads();
-#pragma unroll
-    for (int gi = 0; gi < GM; ++gi) {
-      if (gi >= g) break;
-      for (int r = 0; r < ps; ++r) m[gi] = fmaxf(m[gi], s_s[gi * ps + r]);
-    }
-    __syncthreads();
-  }
-  // walk 2: normalizer and the probability row's quantization scale
-  float l[GM], u[GM];
-#pragma unroll
-  for (int gi = 0; gi < GM; ++gi) { l[gi] = 0.f; u[gi] = 0.f; }
-  for (int j = 0; j < n_eff; ++j) {
-    q_page_scores(q_s, qsv, kp, ksp, vsp, s_s, vs_s, trow[j], j, L, g, h, Hkv,
-                  hd, ps, div, lane, warp);
-    __syncthreads();
+  // phase 1: every score once, as an exact int32 dot, masked past the length
+  for (int p = 0; p < passes1; ++p) {
+    const int rl = rg1 + p * rp1;
+    float ks_nxt = 0.f, vs_nxt = 0.f;
+    const uint4 k_nxt = p + 1 < passes1
+        ? load_k(rl + rp1, page_of(rl + rp1), ks_nxt, vs_nxt)
+        : make_uint4(0u, 0u, 0u, 0u);
+    int part[GM];
 #pragma unroll
     for (int gi = 0; gi < GM; ++gi) {
-      if (gi >= g) break;
-      float psum = 0.f;
-      for (int r = 0; r < ps; ++r) {
-        const float p = expf(s_s[gi * ps + r] - m[gi]);
-        psum += p;
-        u[gi] = fmaxf(u[gi], p * vs_s[r]);
-      }
-      l[gi] += psum;
+      part[gi] = 0;
+      if (gi < g)
+        part[gi] = dp4a16(k_cur, *reinterpret_cast<const uint4*>(
+                                     q_s + gi * qld + 16 * c), 0);
     }
-    __syncthreads();
-  }
-  float pscale[GM];
+    for (int o = ncp >> 1; o > 0; o >>= 1)
 #pragma unroll
-  for (int gi = 0; gi < GM; ++gi) {
-    if (gi >= g) break;
-    l[gi] = l[gi] > 0.f ? l[gi] : 1.f;   // no pages: zeros
-    pscale[gi] = fmaxf(u[gi] / l[gi], 1e-6f) / 127.0f;
+      for (int gi = 0; gi < GM; ++gi)
+        part[gi] += __shfl_xor_sync(0xffffffffu, part[gi], o);
+    if (rl < rows) {
+      const bool live = j0 * ps + rl < L;
+#pragma unroll
+      for (int gi = 0; gi < GM; ++gi)
+        if (gi < g && (gi & (ncp - 1)) == c) {
+          const float sv = (float)part[gi] * qs_s[gi] * ks_cur / a.div;
+          sc[(size_t)gi * rb + rl] = live ? sv : -1e30f;
+        }
+      if (c == 0) vs_s[rl] = live ? vs_cur : 0.f;
+    }
+    k_cur = k_nxt;
+    ks_cur = ks_nxt;
+    vs_cur = vs_nxt;
   }
-  // walk 3: requantized probabilities, integer PV accumulation
-  int acc[GM][kDpt];
+  __syncthreads();
+  for (int gi = warp; gi < g; gi += kQWarps) {
+    float mx = -INFINITY;
+    for (int rl = lane; rl < rows; rl += 32) mx = fmaxf(mx, sc[(size_t)gi * rb + rl]);
+    mx = warp_max(mx);
+    if (lane == 0) m_blk[gi] = mx;
+  }
+  cluster.sync();   // 1: every block's max is out
+
+  // phase 2: the global max, then exp(s-m) once per (head, row), l and u
+  for (int gi = warp; gi < g; gi += kQWarps) {
+    float m = lane < S ? *cluster.map_shared_rank(m_blk + gi, lane) : -INFINITY;
+    m = warp_max(m);
+    float l = 0.f, u = 0.f;
+    for (int rl = lane; rl < rows; rl += 32) {
+      const float e = expf(sc[(size_t)gi * rb + rl] - m);
+      sc[(size_t)gi * rb + rl] = e;
+      l += e;
+      u = fmaxf(u, e * vs_s[rl]);
+    }
+    l = warp_sum(l);
+    u = warp_max(u);
+    if (lane == 0) {
+      l_blk[gi] = l;
+      u_blk[gi] = u;
+    }
+  }
+  cluster.sync();   // 2: every block's l and u are out
+
+  // phase 3: pscale, then pq once per (head, row)
+  for (int gi = warp; gi < g; gi += kQWarps) {
+    float l = lane < S ? *cluster.map_shared_rank(l_blk + gi, lane) : 0.f;
+    float u = lane < S ? *cluster.map_shared_rank(u_blk + gi, lane) : 0.f;
+    l = warp_sum(l);   // the same order in every block of the cluster
+    u = warp_max(u);
+    l = l > 0.f ? l : 1.f;   // no pages: zeros
+    const float pscale = fmaxf(u / l, 1e-6f) / 127.0f;
+    if (lane == 0) ps_s[gi] = pscale;
+    for (int rl = lane; rl < rows; rl += 32) {
+      const float pr = sc[(size_t)gi * rb + rl] / l * vs_s[rl];
+      // pq replaces exp(s-m) in place, its bits stored as a float's
+      sc[(size_t)gi * rb + rl] = __int_as_float(
+          (int)fminf(fmaxf(rintf(pr / pscale), -127.f), 127.f));
+    }
+  }
+  __syncthreads();
+
+  // the int32 PV: V read once, a word of a row per thread
+  int acc[GM][4];
 #pragma unroll
   for (int gi = 0; gi < GM; ++gi)
 #pragma unroll
-    for (int di = 0; di < kDpt; ++di) acc[gi][di] = 0;
-  for (int j = 0; j < n_eff; ++j) {
-    const int pid = trow[j];
-    q_page_scores(q_s, qsv, kp, ksp, vsp, s_s, vs_s, pid, j, L, g, h, Hkv,
-                  hd, ps, div, lane, warp);
-    __syncthreads();
-    for (int r = 0; r < ps; ++r) {
-      const int8_t* vrow = vp + (((size_t)pid * ps + r) * Hkv + h) * hd;
-      int vv[kDpt];
+    for (int e = 0; e < 4; ++e) acc[gi][e] = 0;
+  for (int base = rg3; base < rows; base += kVDepth * rp3) {
+    uint32_t v_nxt[kVDepth];
 #pragma unroll
-      for (int di = 0; di < kDpt; ++di) {
-        const int d = tid + di * kThreads;
-        vv[di] = d < hd ? (int)vrow[d] : 0;
-      }
+    for (int i = 0; i < kVDepth; ++i) {
+      const int rn = base + (kVDepth + i) * rp3;
+      v_nxt[i] = rn < rows ? load_v(rn, page_of(rn)) : 0u;
+    }
+#pragma unroll
+    for (int i = 0; i < kVDepth; ++i) {
+      const int rl = base + i * rp3;
+      if (rl >= rows) break;
+      int vb[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) vb[e] = (int)(int8_t)(v_buf[i] >> (8 * e));
 #pragma unroll
       for (int gi = 0; gi < GM; ++gi) {
         if (gi >= g) break;
-        const float p = expf(s_s[gi * ps + r] - m[gi]) / l[gi] * vs_s[r];
-        const int pq = (int)fminf(fmaxf(rintf(p / pscale[gi]), -127.f), 127.f);
+        const int pv = __float_as_int(sc[(size_t)gi * rb + rl]);
 #pragma unroll
-        for (int di = 0; di < kDpt; ++di) acc[gi][di] += pq * vv[di];
+        for (int e = 0; e < 4; ++e) acc[gi][e] += pv * vb[e];
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kVDepth; ++i) v_buf[i] = v_nxt[i];
   }
+  // the block's int32 partial in shared memory, then added exactly into
+  // rank 0's by distributed shared memory atomics
+  if (w4 < nw && rg3 < rows) {
 #pragma unroll
-  for (int gi = 0; gi < GM; ++gi) {
-    if (gi >= g) break;
+    for (int gi = 0; gi < GM; ++gi) {
+      if (gi >= g) break;
 #pragma unroll
-    for (int di = 0; di < kDpt; ++di) {
-      const int d = tid + di * kThreads;
-      if (d < hd) out[q_off + (size_t)gi * hd + d] = from_f<TO>((float)acc[gi][di] * pscale[gi]);
+      for (int e = 0; e < 4; ++e)
+        if (4 * w4 + e < hd) atomicAdd(acc_s + gi * hd + 4 * w4 + e, acc[gi][e]);
     }
   }
+  if (s != 0 && rows > 0) {
+    __syncthreads();
+    int* acc0 = cluster.map_shared_rank(acc_s, 0);
+    for (int i = tid; i < g * hd; i += kQThreads) atomicAdd(acc0 + i, acc_s[i]);
+  }
+  cluster.sync();   // 3: every partial is in rank 0; no block's shared
+                    // memory is read after this, so the others may exit
+
+  if (s == 0) {
+    TO* out = static_cast<TO*>(a.out) + ((size_t)b * a.H + (size_t)h * g) * hd;
+    for (int i = tid; i < g * hd; i += kQThreads)
+      out[i] = from_f<TO>((float)acc_s[i] * ps_s[i / hd]);
+  }
+}
+
+// Dynamic shared memory of a block: q, its scales, the partials and the
+// int32 PV tile, then (without scratch) the scores and V row scales.
+size_t q_smem_bytes(int g, int hd, int rb, bool scratch) {
+  const int ncp = [&] { int p = 1; while (p < (hd + 15) / 16) p <<= 1; return p; }();
+  size_t bytes = (size_t)g * ncp * 16 + 4 * (5 * g + ((-5 * g) & 3)) +
+                 (size_t)4 * g * hd;
+  if (!scratch) bytes += (size_t)4 * (g + 1) * rb;
+  return bytes;
+}
+
+constexpr int kQSmemMax = 200 * 1024;   // the attribute set on the kernel
+
+template <typename TO, int GM>
+cudaError_t launch_q(const QArgs& a, int B, int S, size_t smem,
+                     cudaStream_t st) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      paged_decode_q_kernel<TO, GM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kQSmemMax);
+  if (attr != cudaSuccess) return attr;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(S, a.Hkv, B);
+  cfg.blockDim = dim3(kQThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = S;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, paged_decode_q_kernel<TO, GM>, a);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename TQ, typename TKV>
@@ -298,23 +519,6 @@ void launch_fp(dim3 grid, size_t smem, cudaStream_t st, int g, const void* q,
   };
   if (g <= 4) args(paged_decode_kernel<TQ, TKV, 4>);
   else args(paged_decode_kernel<TQ, TKV, 16>);
-}
-
-template <typename TO>
-void launch_q(dim3 grid, size_t smem, cudaStream_t st, int g, const void* q,
-              const void* qs, const void* k, const void* ks, const void* v,
-              const void* vs, const int* tables, const int* n_pages,
-              const int* lengths, void* out, int H, int Hkv, int hd, int ps,
-              int max_pages, float div) {
-  auto args = [&](auto kern) {
-    kern<<<grid, kThreads, smem, st>>>(
-        static_cast<const int8_t*>(q), static_cast<const float*>(qs),
-        static_cast<const int8_t*>(k), static_cast<const float*>(ks),
-        static_cast<const int8_t*>(v), static_cast<const float*>(vs), tables,
-        n_pages, lengths, static_cast<TO*>(out), H, Hkv, hd, ps, max_pages, div);
-  };
-  if (g <= 4) args(paged_decode_q_kernel<TO, 4>);
-  else args(paged_decode_q_kernel<TO, 16>);
 }
 
 }  // namespace
@@ -347,25 +551,62 @@ extern "C" int paged_decode_launch(const void* q, const void* k, const void* v,
 }
 
 // q (B,H,hd) int8 + qs (B,H) f32; k/v pools (P,ps,Hkv,hd) int8 with
-// (P,ps,Hkv) f32 row scales; out (B,H,hd) f32|bf16.
+// (P,ps,Hkv) f32 row scales; out (B,H,hd) f32|bf16.  The S blocks of a
+// cluster each own pps consecutive pages of the table (S <= 8, S * pps >=
+// max_pages).  scratch: null, or (B, Hkv, S, g + 1, pps * ps) f32 for the
+// scores and V row scales that do not fit in shared memory.
 extern "C" int paged_decode_q_launch(const void* q, const void* qs,
                                      const void* k, const void* ks,
                                      const void* v, const void* vs,
                                      const void* tables, const void* n_pages,
-                                     const void* lengths, void* out, int B,
-                                     int H, int Hkv, int hd, int ps,
-                                     int max_pages, int out_bf16, float div,
+                                     const void* lengths, void* out,
+                                     void* scratch, int B, int H, int Hkv,
+                                     int hd, int ps, int max_pages, int splits,
+                                     int pps, int out_bf16, float div,
                                      void* stream) {
+  if (splits < 1 || splits > 8 || pps < 1 || splits * pps < max_pages)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int g = H / Hkv;
-  dim3 grid(B, Hkv);
-  const size_t smem = (size_t)(g * hd) * sizeof(int) + (size_t)(g + g * ps + ps) * sizeof(float);
-  const auto* t = static_cast<const int*>(tables);
-  const auto* n = static_cast<const int*>(n_pages);
-  const auto* len = static_cast<const int*>(lengths);
+  const size_t smem = q_smem_bytes(g, hd, pps * ps, scratch != nullptr);
+  if (smem > (size_t)kQSmemMax) return (int)cudaErrorInvalidValue;
+  auto aligned = [](const void* p, uintptr_t n) {
+    return (reinterpret_cast<uintptr_t>(p) & (n - 1)) == 0;
+  };
+  const QArgs a{static_cast<const int8_t*>(q), static_cast<const float*>(qs),
+                static_cast<const int8_t*>(k), static_cast<const float*>(ks),
+                static_cast<const int8_t*>(v), static_cast<const float*>(vs),
+                static_cast<const int*>(tables), static_cast<const int*>(n_pages),
+                static_cast<const int*>(lengths), out,
+                static_cast<float*>(scratch), H, Hkv, hd, ps, max_pages, pps,
+                hd % 16 == 0 && aligned(k, 16), hd % 4 == 0 && aligned(v, 4),
+                div};
+  cudaError_t err;
   if (out_bf16)
-    launch_q<__nv_bfloat16>(grid, smem, st, g, q, qs, k, ks, v, vs, t, n, len, out, H, Hkv, hd, ps, max_pages, div);
+    err = g <= 4 ? launch_q<__nv_bfloat16, 4>(a, B, splits, smem, st)
+                 : launch_q<__nv_bfloat16, 16>(a, B, splits, smem, st);
   else
-    launch_q<float>(grid, smem, st, g, q, qs, k, ks, v, vs, t, n, len, out, H, Hkv, hd, ps, max_pages, div);
-  return (int)cudaGetLastError();
+    err = g <= 4 ? launch_q<float, 4>(a, B, splits, smem, st)
+                 : launch_q<float, 16>(a, B, splits, smem, st);
+  return (int)err;
+}
+
+// The int8 kernel's build for out dtype (f32/bf16) and group size class:
+// out[0] registers per thread, out[1] local (spill) bytes per thread,
+// out[2] the dynamic shared memory attribute, out[3] threads per block.
+extern "C" int paged_decode_q_info(int out_bf16, int g_large, void* out) {
+  cudaFuncAttributes attr;
+  const void* fn =
+      out_bf16 ? (g_large ? (const void*)paged_decode_q_kernel<__nv_bfloat16, 16>
+                          : (const void*)paged_decode_q_kernel<__nv_bfloat16, 4>)
+               : (g_large ? (const void*)paged_decode_q_kernel<float, 16>
+                          : (const void*)paged_decode_q_kernel<float, 4>);
+  const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  int* o = static_cast<int*>(out);
+  o[0] = attr.numRegs;
+  o[1] = (int)attr.localSizeBytes;
+  o[2] = kQSmemMax;
+  o[3] = kQThreads;
+  return 0;
 }

@@ -14,6 +14,10 @@ the int8 variant keeps the cache int8 and replays
 `attention.decode_attention_q`'s arithmetic (probabilities requantized to
 int8 before an integer PV dot).
 
+The int8 kernel splits each sequence's page walk over a thread block
+cluster of up to 8 blocks; `_plan_q` picks the split from `max_pages`
+alone (host-known), never from the lengths, which live on the device.
+
 CPU tensors take the plain versions below; CUDA tensors launch the kernels
 or raise.  The plain versions gather the table's pages into a padded view
 and mask every row outside the walked pages — the same function, summed
@@ -28,6 +32,34 @@ import torch
 from repro_torch.kernels import build
 
 _KV_DTYPES = (torch.float32, torch.bfloat16)
+MAX_SPLITS = 8                 # blocks of one cluster: the portable size
+Q_SMEM_LIMIT = 96 * 1024       # scores stay in shared memory up to this
+
+
+def _q_smem(g: int, hd: int, rows: int, scratch: bool) -> int:
+    """Dynamic shared memory of one int8 block (as the kernel lays it out):
+    q padded to 16-byte chunks, 5 per-head floats padded to 16 bytes, the
+    int32 PV tile, then, without scratch, the (g + 1, rows) f32 scores and
+    V row scales."""
+    ncp = 1 << (-(-hd // 16) - 1).bit_length()
+    fixed = g * ncp * 16 + 4 * (5 * g + (-5 * g) % 4) + 4 * g * hd
+    return fixed + (0 if scratch else 4 * (g + 1) * rows)
+
+
+def _plan_q(max_pages: int, page_size: int, g: int,
+            hd: int) -> tuple[int, int, bool]:
+    """Launch plan of the int8 kernel -> (splits, pages_per_split, scratch).
+
+    Each (sequence, KV head) gets a cluster of `splits` <= MAX_SPLITS
+    blocks; block s walks table pages [s * pages_per_split, (s + 1) *
+    pages_per_split), so every block's range starts inside the table.  The
+    scores of a block's rows live in shared memory unless that would pass
+    Q_SMEM_LIMIT; then `scratch`, and the wrapper allocates them in device
+    memory.  Only host-known sizes enter: no length."""
+    splits = max(1, min(MAX_SPLITS, max_pages))
+    pps = max(1, -(-max_pages // splits))
+    splits = max(1, -(-max_pages // pps))
+    return splits, pps, _q_smem(g, hd, pps * page_size, False) > Q_SMEM_LIMIT
 
 
 def _gather_valid(tables, n_pages, lengths, page_size, P):
@@ -200,11 +232,17 @@ def paged_decode_q(q_int8, q_scale, k_pool, k_scales, v_pool, v_scales,
     out = torch.empty((B, H, hd), dtype=out_dtype, device=q_int8.device)
     if B == 0:
         return out
+    max_pages, g = tables.shape[1], H // Hkv
+    splits, pps, scratch = _plan_q(max_pages, ps, g, hd)
+    buf = torch.empty((B * Hkv * splits * (g + 1) * pps * ps,),
+                      dtype=torch.float32, device=q_int8.device) \
+        if scratch else None
     lib = build.library("paged_attention")
     err = lib.paged_decode_q_launch(
-        *(t.data_ptr() for t in args), out.data_ptr(), B, H, Hkv, hd, ps,
-        tables.shape[1], int(out_dtype == torch.bfloat16), math.sqrt(hd),
-        torch.cuda.current_stream(q_int8.device).cuda_stream)
+        *(t.data_ptr() for t in args), out.data_ptr(),
+        None if buf is None else buf.data_ptr(), B, H, Hkv, hd, ps,
+        max_pages, splits, pps, int(out_dtype == torch.bfloat16),
+        math.sqrt(hd), torch.cuda.current_stream(q_int8.device).cuda_stream)
     build.check(err, "paged_decode_q")
     paged_decode_q.launches += 1
     return out

@@ -4,6 +4,9 @@ package's Pallas kernels in interpret mode and its jnp oracles.
 A CPU tensor takes the plain version and never launches a kernel: the
 launch counters stay at 0.  The CUDA kernels themselves are held against
 these plain versions on the card by chip_smoke.py."""
+import inspect
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -213,6 +216,117 @@ def test_paged_decode_q_matches_jax(lengths):
     want = jpk.paged_decode_q(*map(jnp.asarray, args), jnp.float32)
     got = tpk.paged_decode_q(*_t(*args), torch.float32)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
+def _q_split_emulation(q, qs, k, ks, v, vs, tables, n_pages, lengths):
+    """paged_decode_q as the CUDA kernel splits it, in f32 as the kernel
+    computes: a cluster of S blocks per (sequence, KV head) from
+    `_plan_q`, block s over pages [s*pps, (s+1)*pps) of the walked ones;
+    per-block max, then the cluster max; per-block l = sum exp(s-m) and
+    u = max exp(s-m)*vs, summed in rank order and maxed; pq per row; the
+    blocks' int32 partial PVs summed exactly; rank 0's acc*pscale."""
+    B, H, hd = q.shape
+    P, ps, Hkv = k.shape[:3]
+    g, mp = H // Hkv, tables.shape[1]
+    S, pps, _ = tpk._plan_q(mp, ps, g, hd)
+    f32 = torch.float32
+    out = torch.zeros((B, H, hd), dtype=f32)
+    for b in range(B):
+        L = int(lengths[b])
+        n_eff = min(int(n_pages[b]), -(-L // ps), mp)
+        for h in range(Hkv):
+            qh = q[b, h * g:(h + 1) * g].to(torch.int64)       # (g, hd)
+            qsh = qs[b, h * g:(h + 1) * g].to(f32)
+            blocks = []
+            for s in range(S):
+                pages = range(s * pps, min((s + 1) * pps, n_eff))
+                if not pages:
+                    blocks.append(None)
+                    continue
+                pids = [int(tables[b, j]) for j in pages]
+                kr = k[pids, :, h].reshape(-1, hd).to(torch.int64)
+                dot = (qh @ kr.T).to(f32)                       # exact
+                sc = dot * qsh[:, None] * ks[pids, :, h].reshape(1, -1) \
+                    / torch.tensor(math.sqrt(hd), dtype=f32)
+                rows = torch.arange(len(pids) * ps) + pages[0] * ps
+                live = rows < L
+                sc = torch.where(live[None], sc, torch.tensor(-1e30, dtype=f32))
+                vsr = torch.where(live, vs[pids, :, h].reshape(-1), 0.0)
+                blocks.append((sc, vsr, v[pids, :, h].reshape(-1, hd)))
+            neg = torch.full((g,), -math.inf, dtype=f32)
+            m = torch.stack([neg if bl is None else bl[0].amax(1)
+                             for bl in blocks]).amax(0)
+            l, u = torch.zeros(g, dtype=f32), torch.zeros(g, dtype=f32)
+            es = []
+            for bl in blocks:                                   # rank order
+                if bl is None:
+                    es.append(None)
+                    continue
+                e = torch.exp(bl[0] - m[:, None])
+                es.append(e)
+                l = l + e.sum(1)
+                u = torch.maximum(u, (e * bl[1][None]).amax(1))
+            l = torch.where(l > 0, l, torch.ones_like(l))
+            pscale = torch.clamp(u / l, min=1e-6) / 127.0
+            acc = torch.zeros((g, hd), dtype=torch.int64)
+            for bl, e in zip(blocks, es):
+                if bl is None:
+                    continue
+                p = e / l[:, None] * bl[1][None]
+                pq = torch.clamp(torch.round(p / pscale[:, None]), -127, 127)
+                acc += pq.to(torch.int64) @ bl[2].to(torch.int64)
+            out[b, h * g:(h + 1) * g] = acc.to(f32) * pscale[:, None]
+    return out
+
+
+def test_paged_decode_q_cluster_split_matches_jax():
+    """The int8 kernel's S-way cluster split, emulated on the CPU, against
+    the plain version and the Pallas kernel (interpret), atol 1e-6 as the
+    existing int8 test: max_pages 16 gives 8 blocks of 2 pages, and the
+    lengths walk 1, 3 and 8 of them, beside a free slot (n_pages = 0)."""
+    B, H, mp = 4, 4, 16
+    lengths, n_pages = (20, 90, 250, 5), [2, 6, 16, 0]
+    assert tpk._plan_q(mp, PS, 2, 16)[:2] == (8, 2)
+    pages = [-(-n // PS) for n in lengths[:3]]
+    assert [-(-p // 2) for p in pages] == [1, 3, 8]        # blocks walked
+    k, v, tables, npg = _pool(5, B, n_pages, max_pages=mp, P=64)
+    kq, kss = JA._quant_rows(jnp.asarray(k))
+    vq, vss = JA._quant_rows(jnp.asarray(v))
+    q = np.random.default_rng(13).normal(size=(B, 1, H, 16)).astype(np.float32)
+    qq, qs = JA._quant_rows(jnp.asarray(q))
+    lens = np.asarray(lengths, np.int32)
+    args = [np.asarray(a) for a in (qq[:, 0], qs[:, 0], kq, kss, vq, vss)] \
+        + [tables, npg, lens]
+    got = _q_split_emulation(*_t(*args))
+    plain = tpk.paged_decode_q(*_t(*args), torch.float32)
+    want = jpk.paged_decode_q(*map(jnp.asarray, args), jnp.float32)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+    assert (got[3] == 0).all()
+
+
+@pytest.mark.parametrize("max_pages", [0, 1, 3, 8, 16, 17, 100, 256, 1024])
+@pytest.mark.parametrize("g,hd", [(1, 128), (4, 128), (16, 128), (4, 16),
+                                  (16, 256), (2, 100)])
+def test_paged_decode_q_split_plan(max_pages, g, hd):
+    """The int8 kernel's cluster split comes from host-known sizes alone
+    (no lengths argument): at most 8 blocks, each starting inside the
+    table, whose page ranges cover the table exactly once; scores in
+    shared memory up to the limit, else a device scratch buffer."""
+    assert list(inspect.signature(tpk._plan_q).parameters) == \
+        ["max_pages", "page_size", "g", "hd"]
+    S, pps, scratch = tpk._plan_q(max_pages, PS, g, hd)
+    assert 1 <= S <= tpk.MAX_SPLITS and pps >= 1
+    assert (S - 1) * pps < max(1, max_pages) <= S * pps or max_pages == 0
+    covered = [j for s in range(S)
+               for j in range(s * pps, min((s + 1) * pps, max_pages))]
+    assert covered == list(range(max_pages))
+    assert scratch == (tpk._q_smem(g, hd, pps * PS, False) > tpk.Q_SMEM_LIMIT)
+    assert tpk._q_smem(g, hd, pps * PS, scratch) <= tpk.Q_SMEM_LIMIT
+    if max_pages == 16 and g == 4:                     # the serve shape
+        assert (S, pps, scratch) == (8, 2, False)
+    if max_pages == 1024 and g == 16:
+        assert scratch
 
 
 def test_cpu_tensors_launch_no_kernel():

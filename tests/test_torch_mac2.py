@@ -184,3 +184,127 @@ def test_cpu_call_launches_no_kernel():
                              _t(rand_q(rng, 8, (4,))), bits=8)
     assert out.device.type == "cpu"
     assert before == 0 and tk.mac2_mvm_kernel.launches == 0
+
+
+# --- the CUDA kernel's arithmetic, reconstructed on the CPU -------------------
+
+def _planes(x, bits):
+    """(8, C) s8 bit planes of the unsigned bits-bit view of x; planes at or
+    past `bits` are zero (the MMA's unused columns)."""
+    u = x.astype(np.int64) & ((1 << bits) - 1)
+    return np.stack([(u >> i) & 1 if i < bits else np.zeros_like(u)
+                     for i in range(8)])
+
+
+def _mma_from_fragments(a, b):
+    """mma.sync m16n8k32 s8 from per-lane registers, in PTX's fragment
+    layout: a[lane] = 4 words of 4 bytes (rows g, g+8 x k 4t.., 16+4t..),
+    b[lane] = 2 words (k 4t.., 16+4t.. x column g).  Returns the (16, 8)
+    int64 product, and checks every element of A and B was set once."""
+    A = np.full((16, 32), -999, np.int64)
+    B = np.full((32, 8), -999, np.int64)
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        for i in range(4):
+            A[g, 4 * t + i], A[g + 8, 4 * t + i] = a[lane][0][i], a[lane][1][i]
+            A[g, 16 + 4 * t + i] = a[lane][2][i]
+            A[g + 8, 16 + 4 * t + i] = a[lane][3][i]
+            B[4 * t + i, g], B[16 + 4 * t + i, g] = b[lane][0][i], b[lane][1][i]
+    assert (A != -999).all() and (B != -999).all()
+    return A @ B
+
+
+def _kernel_emulation(w, x, bits, signed, sms, chunk=tk.CHUNK):
+    """mac2_mvm_kernel's arithmetic as the CUDA kernel does it: the launch
+    plan's K ranges, each taken in chunks of at most `chunk` columns; per
+    16-row tile and 64-byte window, lane (g, t) takes bytes [16t, 16t+16)
+    of rows g and g+8 and of x, and MMA j uses bytes 8j.. of them (the
+    permuted K order); C's columns are the bit passes, weighted by 2^i with
+    the MSB negated when signed and folded into uint32 after each chunk;
+    the splits' sums add in uint32."""
+    R, C = w.shape
+    _, splits, kps = tk._plan(R, C, sms)
+    out = np.zeros(R, np.uint64)
+    wt = np.asarray([0 if i >= bits else (1 << i) * (-1 if signed and
+                     i == bits - 1 else 1) for i in range(8)], np.int64)
+    Rp = -(-R // 16) * 16
+    for s in range(splits):
+        for kb in range(s * kps, min(C, (s + 1) * kps), chunk):
+            ke = min(C, (s + 1) * kps, kb + chunk)
+            nwin = -(-(ke - kb) // tk.WIN)
+            wp = np.zeros((Rp, nwin * tk.WIN), np.int64)
+            wp[:R, :ke - kb] = w[:, kb:ke]
+            pl = np.zeros((8, nwin * tk.WIN), np.int64)
+            pl[:, :ke - kb] = _planes(x[kb:ke], bits)
+            S = np.zeros((Rp, 8), np.int64)
+            for r0 in range(0, Rp, 16):
+                for k in range(0, nwin * tk.WIN, tk.WIN):
+                    for j in (0, 1):
+                        a, b = [], []
+                        for lane in range(32):
+                            g, t = lane >> 2, lane & 3
+                            c0 = k + 16 * t + 8 * j
+                            a.append([wp[r0 + g, c0:c0 + 4],
+                                      wp[r0 + g + 8, c0:c0 + 4],
+                                      wp[r0 + g, c0 + 4:c0 + 8],
+                                      wp[r0 + g + 8, c0 + 4:c0 + 8]])
+                            b.append([pl[g, c0:c0 + 4], pl[g, c0 + 4:c0 + 8]])
+                        S[r0:r0 + 16] += _mma_from_fragments(a, b)
+            assert np.abs(S).max() < 2 ** 31      # the int32 sums are exact
+            part = (S[:R] % 2 ** 32).astype(np.uint64) \
+                * (wt % 2 ** 32).astype(np.uint64)
+            out = (out + part.sum(axis=1)) % 2 ** 32
+    return out.astype(np.uint32).view(np.int32)
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("signed", [True, False])
+@pytest.mark.parametrize("shape,sms,chunk", [((16, 64), 132, tk.CHUNK),
+                                             ((40, 200), 8, tk.CHUNK),
+                                             ((17, 138), 132, tk.CHUNK),
+                                             ((20, 520), 1, 128)])
+def test_kernel_bit_planes_match_jax_kernel(bits, signed, shape, sms, chunk):
+    """The CUDA kernel's bit-plane MMA arithmetic (reconstructed lane by
+    lane, K split as the plan splits it, and folded per chunk: one chunk
+    here is cut to 128 columns so that the fold runs several times) equals
+    the Pallas kernel in interpret mode and `core.mac2.mac2_mvm`: x in the
+    bits range, over the whole int8 range (outside it), and unsigned 8-bit
+    inputs stored as negative int8."""
+    R, C = shape
+    rng = np.random.default_rng(hash((bits, signed, shape)) % 2**31)
+    w = rand_q(rng, bits, (R, C))
+    for x in (rand_q(rng, bits, (C,), signed=signed),
+              rng.integers(-128, 128, size=(C,)).astype(np.int8)):
+        got = _kernel_emulation(w, x, bits, signed, sms, chunk)
+        want = j_kernel(jnp.asarray(w), jnp.asarray(x), bits=bits,
+                        signed=signed, block=R if R % 8 else 8,
+                        interpret=True)
+        np.testing.assert_array_equal(got, np.asarray(want))
+        np.testing.assert_array_equal(
+            got, tm.mac2_mvm(_t(w), _t(x), bits, signed_inputs=signed).numpy())
+
+
+GRANITE_GEMV = [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336),
+                (49152, 4096)]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 8])
+@pytest.mark.parametrize("RC", GRANITE_GEMV + [(1, 2), (17, 482), (64, 14336),
+                                               (3, 40000), (100000, 2),
+                                               (8, 2000000)])
+def test_mac2_kernel_launch_plan(RC, sms):
+    """The kernel's launch plan: 64-, 32- or 16-row blocks; at most 8 K
+    ranges (one thread block cluster), each a whole number of 64-byte
+    windows, covering C exactly once; the MMA sums at most CHUNK columns
+    before folding, below 2^24, so its int32 sums of 0/1 planes are exact;
+    at every granite shape at least two blocks per SM."""
+    R, C = RC
+    rows, splits, kps = tk._plan(R, C, sms)
+    assert rows in tk.BLOCK_ROWS and 1 <= splits <= tk.MAX_SPLITS
+    assert kps > 0 and kps % tk.WIN == 0 and tk.CHUNK < 2 ** 24
+    ranges = [(s * kps, min(C, (s + 1) * kps)) for s in range(splits)]
+    assert all(b < e for b, e in ranges)
+    assert ranges[0][0] == 0 and ranges[-1][1] == C
+    assert all(ranges[i][1] == ranges[i + 1][0] for i in range(splits - 1))
+    if RC in GRANITE_GEMV and sms == 132:
+        assert -(-R // rows) * splits >= 2 * sms
