@@ -302,6 +302,29 @@ def matmul_build(ptxas: str | None) -> str:
     return "; ".join(parts) + f"; ptxas: {spills}"
 
 
+def paged_fp_build() -> str:
+    """Registers and local (spill) memory per thread of the fp decode
+    kernel's eight instantiations (q f32/bf16 x KV f32/bf16 x g <= 4 /
+    g <= 16)."""
+    import ctypes
+    from repro_torch.kernels import build
+    lib = build.library("paged_attention")
+    info = (ctypes.c_int * 4)()
+    parts = []
+    for g_large in (0, 1):
+        for q_bf16 in (0, 1):
+            for kv_bf16 in (0, 1):
+                build.check(lib.paged_decode_info(q_bf16, kv_bf16, g_large,
+                                                  ctypes.addressof(info)),
+                            "paged_decode_info")
+                parts.append(f"g<={16 if g_large else 4} q "
+                             f"{'bf16' if q_bf16 else 'f32'} KV "
+                             f"{'bf16' if kv_bf16 else 'f32'}: {info[0]} "
+                             f"registers, {info[1]} B local")
+    return (f"{info[3]} threads, dynamic shared memory up to {info[2]} B; "
+            + "; ".join(parts))
+
+
 def paged_q_build() -> str:
     """Registers and local (spill) memory per thread of the int8 decode
     kernel's four instantiations (f32/bf16 out x g <= 4 / g <= 16)."""
@@ -380,7 +403,23 @@ Q_CASES = {
 }
 
 
-def _pool_case(gen, lengths, n_pages, maxp=MAXP):
+# the fp kernel's cluster split and ring at the int8 cases' edges (random
+# fp pools), and one case off the serve geometry: (lengths, n_pages, H,
+# Hkv, max_pages, hd, page_size).  "hd100_ps12" has 12-row pages, so the
+# ring's 32-row tiles end inside pages, and bf16 rows of 200 bytes, which
+# the kernel copies element by element.  At hd 256 the f32 rows pass 512
+# bytes, so the ring takes 16-row tiles (bf16: 32); "hd256_g16" is the
+# largest plan the wrapper accepts (H/Hkv 16, 128 pages a block; its bf16
+# run holds the most shared memory of any plan)
+FP_CASES = {
+    **{name: Q_CASES[name] + (HD, PS) for name in ("long", "long_g16", "g1")},
+    "hd100_ps12": ((450, 13, 0, 200), (38, 2, 0, 40), 8, 2, 40, 100, 12),
+    "hd256": CASES["serve"] + (H, HKV, MAXP, 256, PS),
+    "hd256_g16": Q_CASES["scratch_g16"] + (256, PS),
+}
+
+
+def _pool_case(gen, lengths, n_pages, maxp=MAXP, ps=PS):
     """Block tables over a pool of B*maxp pages (B = len(lengths)), and the
     (P, ps) mask of the rows the reference reads: the first
     min(n_pages, ceil(len/ps)) pages of each table, rows below the length.
@@ -391,76 +430,130 @@ def _pool_case(gen, lengths, n_pages, maxp=MAXP):
     P = B * maxp
     tables = torch.randperm(P, generator=gen, device="cuda")[:B * maxp] \
         .reshape(B, maxp).to(torch.int32)
-    read = torch.zeros(P, PS, dtype=torch.bool, device="cuda")
+    read = torch.zeros(P, ps, dtype=torch.bool, device="cuda")
     for b, (L, n) in enumerate(zip(lengths, n_pages)):
-        for j in range(min(n, -(-L // PS))):
-            read[tables[b, j].long(), :max(0, min(PS, L - j * PS))] = True
+        for j in range(min(n, -(-L // ps))):
+            read[tables[b, j].long(), :max(0, min(ps, L - j * ps))] = True
     return (tables, torch.tensor(n_pages, dtype=torch.int32, device="cuda"),
             torch.tensor(lengths, dtype=torch.int32, device="cuda"), read)
 
 
-def _live_rows(lengths, n_pages):
-    return sum(min(n, -(-L // PS)) * PS for L, n in zip(lengths, n_pages))
+def _live_rows(lengths, n_pages, ps=PS):
+    """-> (rows, pages): the K/V rows the function needs (those below each
+    length in the walked pages) and the table entries it walks."""
+    walked = [min(n, -(-L // ps)) for L, n in zip(lengths, n_pages)]
+    return (sum(min(L, w * ps) for L, w in zip(lengths, walked)),
+            sum(walked))
+
+
+def _sdpa_yardstick(pa, q, k, v, tables, npg, lens):
+    """One torch.nn.functional.scaled_dot_product_attention call over the
+    same live rows, as a yardstick: K and V gathered beforehand into
+    contiguous (B, H, Lmax, hd) tensors with the GQA groups expanded, and a
+    (B, 1, 1, Lmax) mask of the rows below each length, all built outside
+    the timed call (so its time leaves out the gather).  Returns (ms, max
+    abs difference from the plain version)."""
+    B, H, hd = q.shape
+    P, ps, Hkv = k.shape[:3]
+    n_eff = torch.minimum(npg, (lens + ps - 1) // ps)
+    lmax = int(n_eff.max()) * ps
+    valid, tbl = pa._gather_valid(tables, npg, lens, ps, P)
+    kv = [pa._view(pool, tbl)[:, :lmax].permute(0, 2, 1, 3)
+          .repeat_interleave(H // Hkv, dim=1).contiguous() for pool in (k, v)]
+    mask = valid[:, None, None, :lmax].contiguous()
+    q4 = q[:, :, None, :].contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def call():
+        return sdpa(q4, kv[0], kv[1], attn_mask=mask)
+    want = pa.paged_decode_plain(q, k, v, tables, npg, lens)
+    err = (call()[:, :, 0].float() - want.float()).abs().max().item()
+    return time_cold(call), err
 
 
 def phase_paged(gen, report):
     from repro_torch.kernels import paged_attention as pa
     worst = 0.0
-    for dt, atol in ((torch.float32, 2e-6), (torch.bfloat16, 8e-3)):
+    timed, rows = [], []
+
+    def fp_case(cname, lengths, n_pages, dt, H, Hkv, maxp, hd, ps):
         # f32: fp32 reassociation (pages summed online vs one softmax), the
         # reference suite's own kernel-vs-oracle bound; bf16: the same
         # sums rounded once to bf16 (2^-8 relative on O(1) outputs)
+        nonlocal worst
+        atol = 2e-6 if dt == torch.float32 else 8e-3
+        B = len(lengths)
+        tables, npg, lens, read = _pool_case(gen, lengths, n_pages, maxp, ps)
+        q = torch.randn(B, H, hd, generator=gen, device="cuda").to(dt)
+        k = torch.randn(B * maxp, ps, Hkv, hd, generator=gen,
+                        device="cuda").to(dt)
+        v = torch.randn(B * maxp, ps, Hkv, hd, generator=gen,
+                        device="cuda").to(dt)
+        got = pa.paged_decode(q, k, v, tables, npg, lens)
+        again = pa.paged_decode(q, k, v, tables, npg, lens)
+        want = pa.paged_decode_plain(q, k, v, tables, npg, lens)
+        # every row the reference does not read is poisoned: the output
+        # must not move
+        ok = read[:, :, None, None]
+        got_p = pa.paged_decode(q, torch.where(ok, k, 1e9),
+                                torch.where(ok, v, 1e9), tables, npg, lens)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        worst = max(worst, err)
+        need(err <= atol + atol * want.float().abs().max().item(),
+             f"paged_decode {cname} {dt}: max err {err} > {atol}")
+        need(torch.equal(got, again),
+             f"paged_decode {cname} {dt}: two launches differ")
+        need(torch.equal(got, got_p),
+             f"paged_decode {cname} {dt}: poisoned pages changed output")
+        if 0 in n_pages:
+            need(bool((got[list(n_pages).index(0)] == 0).all()),
+                 "paged_decode: a slot without pages must emit zeros")
+        if cname in ("serve", "long") and dt == torch.bfloat16:
+            live, walked = _live_rows(lengths, n_pages, ps)
+            nbytes = 2 * live * Hkv * hd * 2 + 2 * (2 * B * H * hd) \
+                + 4 * (walked + 2 * B)
+            ops = 4 * live * H * hd
+            bound = max(nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
+            by = "bytes" if nbytes / HBM_BYTES_PER_S >= \
+                ops / FP32_OPS_PER_S else "operations"
+            ms = time_cold(lambda: pa.paged_decode(q, k, v, tables, npg,
+                                                   lens))
+            plain_ms = time_cold(lambda: pa.paged_decode_plain(
+                q, k, v, tables, npg, lens))
+            lib_ms, lib_err = _sdpa_yardstick(pa, q, k, v, tables, npg, lens)
+            timed.append((cname, ms, plain_ms))
+            rows.append(dict(case=cname, B=B, H=H, Hkv=Hkv, max_pages=maxp,
+                             lengths=lengths, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound, bound_by=by, library_ms=lib_ms))
+            print(f"  paged_decode {cname} bf16 B={B} H={H} Hkv={Hkv} "
+                  f"max_pages={maxp} lengths={lengths}: {ms:.4f} ms (bound "
+                  f"{bound:.5f} ms by {by}, plain {plain_ms:.4f} ms, sdpa "
+                  f"yardstick {lib_ms:.4f} ms, max abs diff {lib_err:.3g})")
+
+    n = 0
+    for dt in (torch.float32, torch.bfloat16):
         for cname, (lengths, n_pages) in CASES.items():
-            tables, npg, lens, read = _pool_case(gen, lengths, n_pages)
-            q = torch.randn(B, H, HD, generator=gen, device="cuda").to(dt)
-            k = torch.randn(B * MAXP, PS, HKV, HD, generator=gen,
-                            device="cuda").to(dt)
-            v = torch.randn(B * MAXP, PS, HKV, HD, generator=gen,
-                            device="cuda").to(dt)
-            got = pa.paged_decode(q, k, v, tables, npg, lens)
-            want = pa.paged_decode_plain(q, k, v, tables, npg, lens)
-            # every row the reference does not read is poisoned: the output
-            # must not move
-            ok = read[:, :, None, None]
-            got_p = pa.paged_decode(q, torch.where(ok, k, 1e9),
-                                    torch.where(ok, v, 1e9), tables, npg,
-                                    lens)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            worst = max(worst, err)
-            need(err <= atol + atol * want.float().abs().max().item(),
-                 f"paged_decode {cname} {dt}: max err {err} > {atol}")
-            need(torch.equal(got, got_p),
-                 f"paged_decode {cname} {dt}: poisoned pages changed output")
-            if 0 in n_pages:
-                need(bool((got[list(n_pages).index(0)] == 0).all()),
-                     "paged_decode: a slot without pages must emit zeros")
-            if cname == "serve" and dt == torch.bfloat16:
-                rows = _live_rows(lengths, n_pages)
-                nbytes = 2 * rows * HKV * HD * 2 + 2 * (2 * B * H * HD) \
-                    + 4 * (B * MAXP + 2 * B)
-                ops = 4 * rows * H * HD
-                bound = max(nbytes / HBM_BYTES_PER_S,
-                            ops / FP32_OPS_PER_S) * 1e3
-                by = "bytes" if nbytes / HBM_BYTES_PER_S >= \
-                    ops / FP32_OPS_PER_S else "operations"
-                ms = time_cold(lambda: pa.paged_decode(q, k, v, tables, npg,
-                                                       lens))
-                plain_ms = time_cold(lambda: pa.paged_decode_plain(
-                    q, k, v, tables, npg, lens))
-                report["paged_decode"] = dict(
-                    name="paged_decode", route="cuda",
-                    source="src/repro_torch/kernels/csrc/paged_attention.cu",
-                    replaces="src/repro/kernels/paged_attention.py:79",
-                    ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                    library_ms=None)
-                print(f"  paged_decode bf16 B={B} lengths={lengths}: "
-                      f"{ms:.4f} ms (bound {bound:.5f} ms by {by}, plain "
-                      f"{plain_ms:.4f} ms)")
-    report["paged_decode"]["max_abs_err"] = worst
-    print(f"phase 3 paged_decode: {2 * len(CASES)} cases within tolerance "
-          f"(f32 atol 2e-6, bf16 8e-3), max abs err {worst:.3g}; poisoned "
-          f"unread pages and rows ignored; free slot emits zeros")
+            fp_case(cname, lengths, n_pages, dt, H, HKV, MAXP, HD, PS)
+            n += 1
+        for cname, case in FP_CASES.items():
+            fp_case(cname, *case[:2], dt, *case[2:])
+            n += 1
+    need(all(ms < plain_ms for _, ms, plain_ms in timed),
+         f"paged_decode slower than its plain version: {timed}")
+    main = next(r for r in rows if r["case"] == "serve")
+    report["paged_decode"] = dict(
+        name="paged_decode", route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:79", max_abs_err=worst,
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=main["library_ms"], shapes=rows)
+    print(f"phase 3 paged_decode: {n} cases within tolerance (f32 atol "
+          f"2e-6, bf16 8e-3), max abs err {worst:.3g}; two launches "
+          f"bit-identical; poisoned unread pages and rows ignored; free slot "
+          f"emits zeros; cluster split up to 8 blocks at max_pages 256, H/Hkv "
+          f"16 and 1, 12-row pages, hd 100, and hd 256 (f32: 16-row ring "
+          f"tiles) up to H/Hkv 16 at max_pages 1024")
 
     worst = 0.0
     timed = []
@@ -503,9 +596,9 @@ def phase_paged(gen, report):
         need(bool((diff <= tol).all()),
              f"paged_decode_q {cname} {dt}: max err {diff.max().item()}")
         if cname in ("serve", "long") and dt == torch.bfloat16:
-            rows = _live_rows(lengths, n_pages)
+            rows, walked = _live_rows(lengths, n_pages)
             nbytes = 2 * rows * Hkv * (HD + 4) + B * H * (HD + 4) \
-                + 2 * B * H * HD + 4 * (B * maxp + 2 * B)
+                + 2 * B * H * HD + 4 * (walked + 2 * B)
             ops = 4 * rows * H * HD
             bound = max(nbytes / HBM_BYTES_PER_S,
                         ops / INT8_OPS_PER_S) * 1e3
@@ -928,6 +1021,7 @@ def main() -> int:
     print(f"  bramac_accumulate: "
           f"{matmul_build(reports.get('bramac_matmul'))}")
     print(f"  mac2_mvm: {mac2_build(reports.get('mac2_kernel'))}")
+    print(f"  paged_decode: {paged_fp_build()}")
     print(f"  paged_decode_q: {paged_q_build()}")
     report: dict = {}
     gen = torch.Generator(device="cuda").manual_seed(0)

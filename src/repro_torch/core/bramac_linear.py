@@ -5,7 +5,7 @@ quantized **once** offline (`prepare_serving`) into int8/packed storage —
 the "main BRAM" resident layout — and every call quantizes activations on
 the fly and runs the integer kernel (`serve_dense`).  The QAT path
 (`ops.bramac_dense`, straight-through gradients) belongs to the training
-slice of the port (ROADMAP queue 1, item 10).
+slice of the port, which is not written yet.
 
 `QuantConfig.bits ∈ {2,4,8}` selects the MAC precision exactly as BRAMAC's
 `prec` instruction field does.
@@ -49,7 +49,7 @@ def dense(x: torch.Tensor, w, cfg: QuantConfig | None) -> torch.Tensor:
         return x @ w
     raise NotImplementedError(
         "quantized training (bramac_dense with straight-through gradients) "
-        "is not ported yet (ROADMAP queue 1, item 10); quantize the weights "
+        "is not ported yet; quantize the weights "
         "for serving with tree_prepare_serving")
 
 

@@ -32,8 +32,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _SIGNATURES = {
     "bramac_matmul": {"bramac_matmul_launch": "ppppppiiiiiiiiip",
                       "bramac_matmul_info": "iiiip"},
-    "paged_attention": {"paged_decode_launch": "pppppppiiiiiiiifp",
+    "paged_attention": {"paged_decode_launch": "pppppppiiiiiiiiiiifp",
                         "paged_decode_q_launch": "pppppppppppiiiiiiiiifp",
+                        "paged_decode_info": "iiip",
                         "paged_decode_q_info": "iip"},
     "mac2_kernel": {"mac2_mvm_launch": "pppiiiiiip",
                     "mac2_mvm_info": "iiip"},

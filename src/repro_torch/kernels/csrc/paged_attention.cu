@@ -3,15 +3,47 @@
 // Both kernels compute Sq=1 GQA decode attention straight off the shared
 // page pool (P, page_size, Hkv, hd), walking only the
 // min(n_pages, ceil(len/ps)) pages a sequence owns, never max_seq rows.
+// Both split that walk the same way: the grid is (S, Hkv, B) and the S <= 8
+// blocks of one (sequence, KV head) form a thread block cluster, S and the
+// pages per block chosen on the host from max_pages alone
+// (kernels/paged_attention._split), so no length is read on the host.
+// Block s owns a contiguous range of the table's pages; a block whose range
+// lies past the walked pages reads no K or V but still arrives at every
+// cluster barrier.
 //
 // paged_decode_kernel (fp) replaces the Pallas TPU kernel
 //   src/repro/kernels/paged_attention.py::_fp_kernel (pallas_call at :214):
 // fp32 scores q.k / sqrt(hd), rows >= len masked to -1e30, online softmax
 // (running max, normalizer, rescaled accumulator); a sequence with no pages
-// emits zeros.  Bound on the H100: the live KV bytes over 3.35 TB/s.  Grid
-// (sequence, KV head); each block reads one (ps, hd) K and V slice of its
-// head per page (coalesced rows) and serves the H/Hkv query heads of its
-// group from that one read.  Later work: the int8 kernel's cluster split.
+// emits zeros.  Bound on the H100: the live K and V bytes over 3.35 TB/s
+// (about 0.6 us at the serve shape; a few FLOPs per byte).  What holds such
+// a kernel at decode lengths is latency, so:
+//   * the lengths, the block's table entries and q go out together, then
+//     K and V of the block's live rows (rows past the length are masked to
+//     -1e30 by the reference, i.e. weigh exactly 0, and are not read)
+//     stream through a ring of kFpStages shared-memory tiles of `tile` rows
+//     (16-byte cp.async copies where hd * itemsize is a multiple of 16 and
+//     the pools are aligned, element loads otherwise), two tiles in flight
+//     while one is computed; one ring serves a 2-page range and a 32-page
+//     one alike;
+//   * warp w serves query heads w, w + 4, ... of the group, a lane per
+//     row of the tile: every score once (the row's 16-byte chunks read
+//     from shared memory at an odd chunk stride, so the lanes' rows do not
+//     conflict; q broadcast), exp(s - m) once per (head, row) in registers,
+//     then p.V with the lane's 8-byte units of each V row; the tiles fold
+//     into a running (m, l, acc) with the reference's rescale
+//     (acc * corr + p.V).  One block barrier a tile, for the ring;
+//   * the blocks meet once: each leaves m, l and its f32 acc in its shared
+//     memory, and after one cluster barrier rank s combines a slice of the
+//     (g, hd) outputs from all S partials through distributed shared memory
+//     (M = max m_s, w_s = l_s > 0 ? exp(m_s - M) : 0, l and acc summed in
+//     rank order, out = acc / (l > 0 ? l : 1)); a second barrier keeps every
+//     block's shared memory alive until it has been read.  No atomics: the
+//     same inputs give the same bits on every launch.
+// Math follows the reference: expf (not __expf), division by sqrt(hd)
+// (passed in as the reference's f32 constant), fp32 throughout, one
+// rounding to the output dtype at the store.  Only the association of the
+// fp32 sums differs.
 //
 // paged_decode_q_kernel (int8 KV) replaces
 //   src/repro/kernels/paged_attention.py::_q_kernel (pallas_call at :258),
@@ -25,12 +57,8 @@
 // is a few operations per byte.  What holds such a kernel is latency: m is
 // needed before l and u, and pscale before any pq, so the TPU kernel walks
 // the pages three times.  Design:
-//   * one walk: the grid is (S, Hkv, B) and the S <= 8 blocks of one
-//     (sequence, KV head) form a thread block cluster (S chosen on the host
-//     from max_pages alone, kernels/paged_attention._plan_q, so no length is
-//     read on the host).  Block s owns a contiguous range of the table's
-//     pages; blocks whose range lies past the walked pages read no K or V
-//     but still arrive at every cluster barrier;
+//   * one walk over the cluster split above (kernels/paged_attention._plan_q
+//     adds whether the scores go to a device scratch buffer);
 //   * each block reads its K rows once (16-byte loads), computes every
 //     score once as an exact int32 dot (__dp4a, the hd chunks of a row on
 //     adjacent lanes, summed by shuffles) and keeps the scores and V row
@@ -61,14 +89,8 @@
 
 namespace {
 
-constexpr int kThreads = 128;              // 4 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kHdMax = 256;
-constexpr int kDpt = kHdMax / kThreads;    // head dims per thread
-
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
@@ -79,96 +101,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-template <typename TQ, typename TKV, int GM>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
-                    const TKV* __restrict__ vp, const int* __restrict__ tables,
-                    const int* __restrict__ n_pages,
-                    const int* __restrict__ lengths, TQ* __restrict__ out,
-                    int H, int Hkv, int hd, int ps, int max_pages, float div) {
-  const int b = blockIdx.x, h = blockIdx.y, g = H / Hkv;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  extern __shared__ float smem[];
-  float* q_s = smem;               // (g, hd)
-  float* s_s = smem + g * hd;      // (g, ps) masked scores of one page
-  const size_t q_off = ((size_t)b * H + (size_t)h * g) * hd;
-  for (int i = tid; i < g * hd; i += kThreads) q_s[i] = to_f(q[q_off + i]);
-  const int L = lengths[b];
-  const int n_eff = min(n_pages[b], (L + ps - 1) / ps);
-
-  float m[GM], l[GM], acc[GM][kDpt];
-#pragma unroll
-  for (int gi = 0; gi < GM; ++gi) {
-    m[gi] = -INFINITY;
-    l[gi] = 0.f;
-#pragma unroll
-    for (int di = 0; di < kDpt; ++di) acc[gi][di] = 0.f;
-  }
-  __syncthreads();
-
-  for (int j = 0; j < n_eff; ++j) {
-    const int pid = tables[(size_t)b * max_pages + j];
-    for (int r = warp; r < ps; r += kWarps) {
-      const TKV* krow = kp + (((size_t)pid * ps + r) * Hkv + h) * hd;
-      for (int gi = 0; gi < g; ++gi) {
-        float part = 0.f;
-        for (int d = lane; d < hd; d += 32) part += q_s[gi * hd + d] * to_f(krow[d]);
-        part = warp_sum(part);
-        if (lane == 0) s_s[gi * ps + r] = (j * ps + r < L) ? part / div : -1e30f;
-      }
-    }
-    __syncthreads();
-    float mn[GM], corr[GM], psum[GM], pv[GM][kDpt];
-#pragma unroll
-    for (int gi = 0; gi < GM; ++gi) {
-      if (gi >= g) break;
-      float mx = -INFINITY;
-      for (int r = 0; r < ps; ++r) mx = fmaxf(mx, s_s[gi * ps + r]);
-      mn[gi] = fmaxf(m[gi], mx);
-      corr[gi] = expf(m[gi] - mn[gi]);
-      psum[gi] = 0.f;
-#pragma unroll
-      for (int di = 0; di < kDpt; ++di) pv[gi][di] = 0.f;
-    }
-    for (int r = 0; r < ps; ++r) {
-      const TKV* vrow = vp + (((size_t)pid * ps + r) * Hkv + h) * hd;
-      float vv[kDpt];
-#pragma unroll
-      for (int di = 0; di < kDpt; ++di) {
-        const int d = tid + di * kThreads;
-        vv[di] = d < hd ? to_f(vrow[d]) : 0.f;
-      }
-#pragma unroll
-      for (int gi = 0; gi < GM; ++gi) {
-        if (gi >= g) break;
-        const float p = expf(s_s[gi * ps + r] - mn[gi]);
-        psum[gi] += p;
-#pragma unroll
-        for (int di = 0; di < kDpt; ++di) pv[gi][di] += p * vv[di];
-      }
-    }
-#pragma unroll
-    for (int gi = 0; gi < GM; ++gi) {
-      if (gi >= g) break;
-      l[gi] = l[gi] * corr[gi] + psum[gi];
-#pragma unroll
-      for (int di = 0; di < kDpt; ++di) acc[gi][di] = acc[gi][di] * corr[gi] + pv[gi][di];
-      m[gi] = mn[gi];
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int gi = 0; gi < GM; ++gi) {
-    if (gi >= g) break;
-    const float denom = l[gi] > 0.f ? l[gi] : 1.f;   // no pages: zeros
-#pragma unroll
-    for (int di = 0; di < kDpt; ++di) {
-      const int d = tid + di * kThreads;
-      if (d < hd) out[q_off + (size_t)gi * hd + d] = from_f<TQ>(acc[gi][di] / denom);
-    }
-  }
 }
 
 constexpr int kQThreads = 256;             // 8 warps
@@ -506,48 +438,436 @@ cudaError_t launch_q(const QArgs& a, int B, int S, size_t smem,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <typename TQ, typename TKV>
-void launch_fp(dim3 grid, size_t smem, cudaStream_t st, int g, const void* q,
-               const void* k, const void* v, const int* tables,
-               const int* n_pages, const int* lengths, void* out, int H,
-               int Hkv, int hd, int ps, int max_pages, float div) {
-  auto args = [&](auto kern) {
-    kern<<<grid, kThreads, smem, st>>>(
-        static_cast<const TQ*>(q), static_cast<const TKV*>(k),
-        static_cast<const TKV*>(v), tables, n_pages, lengths,
-        static_cast<TQ*>(out), H, Hkv, hd, ps, max_pages, div);
+constexpr int kFpThreads = 128;            // 4 warps
+constexpr int kFpWarps = kFpThreads / 32;
+constexpr int kFpStages = 3;               // K/V tiles in the ring
+constexpr int kFpHdMax = 256;
+constexpr int kFpSmemMax = 200 * 1024;     // the attribute set on the kernel
+constexpr int kFpQLoads = 8;               // q loads in flight per thread
+
+struct FpArgs {
+  const void* q;         // (B, H, hd) f32 | bf16
+  const void* kp;        // (P, ps, Hkv, hd) f32 | bf16
+  const void* vp;
+  const int* tables;     // (B, max_pages)
+  const int* n_pages;    // (B,)
+  const int* lengths;    // (B,)
+  void* out;             // (B, H, hd) in q's dtype
+  int H, Hkv, hd, ps, max_pages, pps, tile;
+  int kvec;              // 16-byte cp.async copies allowed
+  float div;
+};
+
+// Byte offsets of a block's dynamic shared memory.  A K or V row holds nc
+// 16-byte chunks of the KV dtype (hd rounded up) at a stride of nc | 1
+// chunks: an odd stride puts the same chunk of 8 consecutive rows on 8
+// different bank groups, so lanes reading one row each do not conflict.
+struct FpSmem {
+  size_t q;      // (g, nc * E) f32 queries, zero past hd
+  size_t sc;     // (g, tile) f32 exp(s - m) of the tile's rows
+  size_t stats;  // m, l, the combined l (16 each), the weights w (8 x 16)
+  size_t acc;    // (g, hd) f32 partial accumulator, read by the cluster
+  size_t tbl;    // (pps,) i32 table entries of the block's range
+  size_t ring;   // kFpStages x {K, V} x (tile, (nc | 1) chunks)
+  size_t total;
+};
+
+__host__ __device__ inline size_t up16(size_t v) { return (v + 15) & ~(size_t)15; }
+
+__host__ __device__ inline FpSmem fp_smem(int g, int hd, int isz, int tile,
+                                          int pps) {
+  const size_t nc = up16((size_t)hd * isz) / 16;
+  FpSmem s;
+  s.q = 0;
+  s.sc = s.q + 4 * (size_t)g * nc * (16 / isz);
+  s.stats = s.sc + 4 * (size_t)g * tile;
+  s.acc = s.stats + 4 * (3 * 16 + 8 * 16);
+  s.tbl = s.acc + up16(4 * (size_t)g * hd);
+  s.ring = s.tbl + up16(4 * (size_t)pps);
+  s.total = s.ring + (size_t)kFpStages * 2 * tile * (nc | 1) * 16;
+  return s;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t sa = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa), "l"(src)
+               : "memory");
+}
+
+// 16 (chunk) or 8 (PV unit) bytes of shared memory as floats
+__device__ __forceinline__ void chunk_f(const float* p, float (&f)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+}
+__device__ __forceinline__ void chunk_f(const __nv_bfloat16* p, float (&f)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void unit_f(const float* p, float (&f)[2]) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  f[0] = v.x; f[1] = v.y;
+}
+__device__ __forceinline__ void unit_f(const __nv_bfloat16* p, float (&f)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  f[0] = __uint_as_float(u.x << 16);
+  f[1] = __uint_as_float(u.x & 0xffff0000u);
+  f[2] = __uint_as_float(u.y << 16);
+  f[3] = __uint_as_float(u.y & 0xffff0000u);
+}
+
+template <typename TQ, typename TKV, int GM>
+__global__ void __launch_bounds__(kFpThreads)
+paged_decode_kernel(const FpArgs a) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  constexpr int E = 16 / sizeof(TKV);      // elements of a 16-byte chunk
+  constexpr int EU = 8 / sizeof(TKV);      // elements of an 8-byte PV unit
+  constexpr int UL = kFpHdMax / (32 * EU); // PV units per lane at most
+  constexpr int GW = GM / kFpWarps;        // heads per warp at most
+  constexpr int RL = 2;                    // rows per lane at most (tile <= 64)
+  const int S = gridDim.x, s = blockIdx.x;   // the cluster spans x: rank s
+  const int h = blockIdx.y, b = blockIdx.z, g = a.H / a.Hkv;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int hd = a.hd, ps = a.ps, T = a.tile;
+  const int nc = (hd + E - 1) / E, ld = nc * E, lds = (nc | 1) * E;
+  const int nu = (hd + EU - 1) / EU;         // PV units holding dims < hd
+  const FpSmem lay = fp_smem(g, hd, sizeof(TKV), T, a.pps);
+  extern __shared__ __align__(16) unsigned char fsmem[];
+  float* q_s = reinterpret_cast<float*>(fsmem + lay.q);
+  float* sc = reinterpret_cast<float*>(fsmem + lay.sc);
+  float* m_s = reinterpret_cast<float*>(fsmem + lay.stats);
+  float* l_s = m_s + 16;
+  float* tot_s = l_s + 16;                   // combined l per head
+  float* w_s = tot_s + 16;                   // (8, 16) combine weights
+  float* acc_s = reinterpret_cast<float*>(fsmem + lay.acc);
+  int* tbl_s = reinterpret_cast<int*>(fsmem + lay.tbl);
+  TKV* ring = reinterpret_cast<TKV*>(fsmem + lay.ring);
+  const size_t stage = (size_t)T * lds;      // elements of one K or V tile
+  const TKV* kp = static_cast<const TKV*>(a.kp);
+  const TKV* vp = static_cast<const TKV*>(a.vp);
+
+  // first round trip: the length, n_pages, the block's table entries and
+  // q all go out before anything waits
+  const int L = a.lengths[b], np = a.n_pages[b];
+  const int j0 = s * a.pps;
+  const int* trow = a.tables + (size_t)b * a.max_pages + j0;
+  for (int i = tid; i < a.pps; i += kFpThreads)
+    tbl_s[i] = j0 + i < a.max_pages ? trow[i] : 0;
+  const TQ* qg = static_cast<const TQ*>(a.q) + ((size_t)b * a.H + (size_t)h * g) * hd;
+  for (int i0 = 0; i0 < g * ld; i0 += kFpQLoads * kFpThreads) {
+    float qv[kFpQLoads];         // all loads of a batch before its stores
+#pragma unroll
+    for (int u = 0; u < kFpQLoads; ++u) {
+      const int i = i0 + u * kFpThreads + tid, gi = i / ld, d = i - gi * ld;
+      qv[u] = i < g * ld && d < hd ? to_f(qg[gi * hd + d]) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kFpQLoads; ++u) {
+      const int i = i0 + u * kFpThreads + tid;
+      if (i < g * ld) q_s[i] = qv[u];
+    }
+  }
+  // the block's rows: the live rows (below the length) of its walked pages
+  const int n_eff = min(min(np, (L + ps - 1) / ps), a.max_pages);
+  const int j1 = min(j0 + a.pps, n_eff);
+  const int rows = j1 > j0 ? min((j1 - j0) * ps, L - j0 * ps) : 0;
+  const int ntiles = (rows + T - 1) / T;
+  __syncthreads();
+
+  // tile t of the block's rows -> ring stage t % kFpStages, one commit
+  // group: cpr threads a row (adjacent 16-byte chunks, two rows' K or V
+  // per warp instruction at hd 128 bf16), rows r1, r1 + rstep, ... of the
+  // tile, their pages followed without a division per row
+  int cpr = 1;
+  while (cpr < nc && cpr < 32) cpr <<= 1;
+  const int c0 = tid & (cpr - 1), r1 = tid / cpr, rstep = kFpThreads / cpr;
+  auto issue = [&](int t) {
+    if (t < ntiles) {
+      TKV* ks = ring + (size_t)(t % kFpStages) * 2 * stage;
+      TKV* vs = ks + stage;
+      const int r0 = t * T, tr = min(T, rows - r0);
+      int pg = (r0 + r1) / ps, rp = r0 + r1 - pg * ps;
+      for (int r = r1; r < tr; r += rstep) {
+        const size_t off = (((size_t)tbl_s[pg] * ps + rp) * a.Hkv + h) * hd;
+        if (a.kvec) {
+          for (int c = c0; c < nc; c += cpr) {
+            cp_async16(ks + r * lds + c * E, kp + off + c * E);
+            cp_async16(vs + r * lds + c * E, vp + off + c * E);
+          }
+        } else {
+          for (int d = c0; d < ld; d += cpr) {
+            ks[r * lds + d] = d < hd ? kp[off + d] : from_f<TKV>(0.f);
+            vs[r * lds + d] = d < hd ? vp[off + d] : from_f<TKV>(0.f);
+          }
+        }
+        for (rp += rstep; rp >= ps; rp -= ps) ++pg;
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
   };
-  if (g <= 4) args(paged_decode_kernel<TQ, TKV, 4>);
-  else args(paged_decode_kernel<TQ, TKV, 16>);
+#pragma unroll
+  for (int t = 0; t < kFpStages - 1; ++t) issue(t);
+
+  // warp w serves heads w, w + 4, ...: their running m and l (the same in
+  // every lane) and the dims of PV units lane, lane + 32, ... of their acc
+  float m_r[GW], l_r[GW], acc[GW][UL][EU];
+#pragma unroll
+  for (int k = 0; k < GW; ++k) {
+    m_r[k] = -INFINITY;
+    l_r[k] = 0.f;
+#pragma unroll
+    for (int j = 0; j < UL; ++j)
+#pragma unroll
+      for (int e = 0; e < EU; ++e) acc[k][j][e] = 0.f;
+  }
+
+  for (int t = 0; t < ntiles; ++t) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kFpStages - 2) : "memory");
+    __syncthreads();   // tile t is in; nobody reads tile t - 1's stage now
+    issue(t + kFpStages - 1);
+    const TKV* ks = ring + (size_t)(t % kFpStages) * 2 * stage;
+    const TKV* vs = ks + stage;
+    const int tr = min(T, rows - t * T);
+
+    // every score once: a lane per row, its heads' dots over the row's
+    // chunks (q broadcast from shared memory), two partial sums each
+    float sr[GW][RL];
+#pragma unroll
+    for (int rr = 0; rr < RL; ++rr) {
+      const int r = lane + 32 * rr;
+      float pa[GW], pb[GW];
+#pragma unroll
+      for (int k = 0; k < GW; ++k) pa[k] = pb[k] = 0.f;
+      if (32 * rr < tr && warp < g) {
+        const TKV* krow = ks + (r < tr ? r : 0) * lds;
+#pragma unroll 4
+        for (int c = 0; c < nc; ++c) {
+          float kf[E];
+          chunk_f(krow + c * E, kf);
+#pragma unroll
+          for (int k = 0; k < GW; ++k) {
+            const int gi = warp + kFpWarps * k;
+            if (gi >= g) break;
+            const float4* qc = reinterpret_cast<const float4*>(q_s + gi * ld + c * E);
+#pragma unroll
+            for (int e4 = 0; e4 < E / 4; ++e4) {
+              const float4 q4 = qc[e4];
+              float& p = (e4 & 1) ? pb[k] : pa[k];
+              p = fmaf(q4.x, kf[4 * e4], p);
+              p = fmaf(q4.y, kf[4 * e4 + 1], p);
+              p = fmaf(q4.z, kf[4 * e4 + 2], p);
+              p = fmaf(q4.w, kf[4 * e4 + 3], p);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < GW; ++k)
+        sr[k][rr] = r < tr ? (pa[k] + pb[k]) / a.div : -INFINITY;
+    }
+
+    // exp(s - m) once per (head, row), then acc = acc * corr + p.V with V
+    // read once per warp for all of its heads
+#pragma unroll
+    for (int k = 0; k < GW; ++k) {
+      const int gi = warp + kFpWarps * k;
+      if (gi >= g) break;
+      float mx = fmaxf(sr[k][0], sr[k][1]);
+      for (int o = 16; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m_r[k], mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int rr = 0; rr < RL; ++rr) {
+        const float e = expf(sr[k][rr] - m_new);   // 0 past the tile
+        if (lane + 32 * rr < T) sc[gi * T + lane + 32 * rr] = e;
+        sum += e;
+      }
+      sum = warp_sum(sum);
+      const float corr = expf(m_r[k] - m_new);
+      l_r[k] = l_r[k] * corr + sum;
+      m_r[k] = m_new;
+#pragma unroll
+      for (int j = 0; j < UL; ++j)
+#pragma unroll
+        for (int e = 0; e < EU; ++e) acc[k][j][e] *= corr;
+    }
+    __syncwarp();
+    float pv[GW][UL][EU];
+#pragma unroll
+    for (int k = 0; k < GW; ++k)
+#pragma unroll
+      for (int j = 0; j < UL; ++j)
+#pragma unroll
+        for (int e = 0; e < EU; ++e) pv[k][j][e] = 0.f;
+    if (warp < g) {
+#pragma unroll 4
+      for (int r = 0; r < tr; ++r) {
+        float vf[UL][EU];
+#pragma unroll
+        for (int j = 0; j < UL; ++j) {
+          const int u = lane + 32 * j;
+          if (u < nu) unit_f(vs + r * lds + u * EU, vf[j]);
+        }
+#pragma unroll
+        for (int k = 0; k < GW; ++k) {
+          const int gi = warp + kFpWarps * k;
+          if (gi >= g) break;
+          const float p = sc[gi * T + r];
+#pragma unroll
+          for (int j = 0; j < UL; ++j)
+            if (lane + 32 * j < nu)
+#pragma unroll
+              for (int e = 0; e < EU; ++e) pv[k][j][e] = fmaf(p, vf[j][e], pv[k][j][e]);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < GW; ++k)
+#pragma unroll
+      for (int j = 0; j < UL; ++j)
+#pragma unroll
+        for (int e = 0; e < EU; ++e) acc[k][j][e] += pv[k][j][e];
+  }
+
+  // the block's partial (m, l, acc) in its shared memory
+#pragma unroll
+  for (int k = 0; k < GW; ++k) {
+    const int gi = warp + kFpWarps * k;
+    if (gi >= g) break;
+    if (lane == 0) {
+      m_s[gi] = m_r[k];
+      l_s[gi] = l_r[k];
+    }
+#pragma unroll
+    for (int j = 0; j < UL; ++j)
+#pragma unroll
+      for (int e = 0; e < EU; ++e) {
+        const int d = (lane + 32 * j) * EU + e;
+        if (d < hd) acc_s[gi * hd + d] = acc[k][j][e];
+      }
+  }
+  cluster.sync();   // 1: every block's partial is out
+
+  // one thread per head: the S blocks' weights, and l
+  if (tid < g) {
+    float ms[8], ls[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      ms[r] = r < S ? *cluster.map_shared_rank(m_s + tid, r) : -INFINITY;
+      ls[r] = r < S ? *cluster.map_shared_rank(l_s + tid, r) : 0.f;
+    }
+    float M = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) M = fmaxf(M, ms[r]);
+    float l = 0.f;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const float w = ls[r] > 0.f ? expf(ms[r] - M) : 0.f;
+      w_s[r * 16 + tid] = w;
+      l += w * ls[r];              // rank order
+    }
+    tot_s[tid] = l > 0.f ? l : 1.f;   // no pages: zeros
+  }
+  __syncthreads();
+  // rank s writes its slice of the (g, hd) outputs, summing in rank order
+  const int n_out = g * hd, per = (n_out + S - 1) / S;
+  TQ* out = static_cast<TQ*>(a.out) + ((size_t)b * a.H + (size_t)h * g) * hd;
+  for (int i = s * per + tid; i < min(n_out, (s + 1) * per); i += kFpThreads) {
+    const int gi = i / hd;
+    float part[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      part[r] = r < S ? *cluster.map_shared_rank(acc_s + i, r) : 0.f;
+    float v = 0.f;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) v += w_s[r * 16 + gi] * part[r];
+    out[i] = from_f<TQ>(v / tot_s[gi]);
+  }
+  cluster.sync();   // 2: no block leaves while its partial may be read
+}
+
+template <typename TQ, typename TKV, int GM>
+cudaError_t launch_fp(const FpArgs& a, int B, int S, size_t smem,
+                      cudaStream_t st) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      paged_decode_kernel<TQ, TKV, GM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kFpSmemMax);
+  if (attr != cudaSuccess) return attr;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(S, a.Hkv, B);
+  cfg.blockDim = dim3(kFpThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = S;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, paged_decode_kernel<TQ, TKV, GM>, a);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename TQ, typename TKV>
+cudaError_t launch_fp_g(const FpArgs& a, int B, int S, size_t smem,
+                        cudaStream_t st) {
+  return a.H / a.Hkv <= 4 ? launch_fp<TQ, TKV, 4>(a, B, S, smem, st)
+                          : launch_fp<TQ, TKV, 16>(a, B, S, smem, st);
+}
+
+template <typename TQ, typename TKV>
+const void* fp_kernel(int g_large) {
+  return g_large ? (const void*)paged_decode_kernel<TQ, TKV, 16>
+                 : (const void*)paged_decode_kernel<TQ, TKV, 4>;
 }
 
 }  // namespace
 
 // q (B,H,hd) f32|bf16; k/v pools (P,ps,Hkv,hd) f32|bf16; tables (B,max_pages)
 // i32; n_pages, lengths (B,) i32; out (B,H,hd) in q's dtype.  H/Hkv <= 16,
-// hd <= 256 (checked by the wrapper).  Returns cudaGetLastError().
+// hd <= 256 (checked by the wrapper).  The S blocks of a cluster each own
+// pps consecutive pages of the table (S <= 8, S * pps >= max_pages); K and
+// V stream through the ring in tiles of `tile` rows.  Returns the launch's
+// cudaError_t.
 extern "C" int paged_decode_launch(const void* q, const void* k, const void* v,
                                    const void* tables, const void* n_pages,
                                    const void* lengths, void* out, int B, int H,
                                    int Hkv, int hd, int ps, int max_pages,
-                                   int q_bf16, int kv_bf16, float div,
-                                   void* stream) {
+                                   int splits, int pps, int tile, int q_bf16,
+                                   int kv_bf16, float div, void* stream) {
+  if (splits < 1 || splits > 8 || pps < 1 || splits * pps < max_pages ||
+      tile < 16 || tile > 64 || tile % 16)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int g = H / Hkv;
-  dim3 grid(B, Hkv);
-  const size_t smem = (size_t)(g * hd + g * ps) * sizeof(float);
-  const auto* t = static_cast<const int*>(tables);
-  const auto* n = static_cast<const int*>(n_pages);
-  const auto* len = static_cast<const int*>(lengths);
+  const int isz = kv_bf16 ? 2 : 4;
+  const size_t smem = fp_smem(H / Hkv, hd, isz, tile, pps).total;
+  if (smem > (size_t)kFpSmemMax) return (int)cudaErrorInvalidValue;
+  auto aligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
+  const FpArgs a{q, k, v, static_cast<const int*>(tables),
+                 static_cast<const int*>(n_pages),
+                 static_cast<const int*>(lengths), out, H, Hkv, hd, ps,
+                 max_pages, pps, tile,
+                 (hd * isz) % 16 == 0 && aligned(k) && aligned(v), div};
+  cudaError_t err;
   if (q_bf16 && kv_bf16)
-    launch_fp<__nv_bfloat16, __nv_bfloat16>(grid, smem, st, g, q, k, v, t, n, len, out, H, Hkv, hd, ps, max_pages, div);
+    err = launch_fp_g<__nv_bfloat16, __nv_bfloat16>(a, B, splits, smem, st);
   else if (q_bf16)
-    launch_fp<__nv_bfloat16, float>(grid, smem, st, g, q, k, v, t, n, len, out, H, Hkv, hd, ps, max_pages, div);
+    err = launch_fp_g<__nv_bfloat16, float>(a, B, splits, smem, st);
   else if (kv_bf16)
-    launch_fp<float, __nv_bfloat16>(grid, smem, st, g, q, k, v, t, n, len, out, H, Hkv, hd, ps, max_pages, div);
+    err = launch_fp_g<float, __nv_bfloat16>(a, B, splits, smem, st);
   else
-    launch_fp<float, float>(grid, smem, st, g, q, k, v, t, n, len, out, H, Hkv, hd, ps, max_pages, div);
-  return (int)cudaGetLastError();
+    err = launch_fp_g<float, float>(a, B, splits, smem, st);
+  return (int)err;
 }
 
 // q (B,H,hd) int8 + qs (B,H) f32; k/v pools (P,ps,Hkv,hd) int8 with
@@ -608,5 +928,26 @@ extern "C" int paged_decode_q_info(int out_bf16, int g_large, void* out) {
   o[1] = (int)attr.localSizeBytes;
   o[2] = kQSmemMax;
   o[3] = kQThreads;
+  return 0;
+}
+
+// The fp kernel's build for q dtype, KV dtype (f32/bf16) and group size
+// class: out[0] registers per thread, out[1] local (spill) bytes per thread,
+// out[2] the dynamic shared memory attribute, out[3] threads per block.
+extern "C" int paged_decode_info(int q_bf16, int kv_bf16, int g_large,
+                                 void* out) {
+  cudaFuncAttributes attr;
+  const void* fn =
+      q_bf16 ? (kv_bf16 ? fp_kernel<__nv_bfloat16, __nv_bfloat16>(g_large)
+                        : fp_kernel<__nv_bfloat16, float>(g_large))
+             : (kv_bf16 ? fp_kernel<float, __nv_bfloat16>(g_large)
+                        : fp_kernel<float, float>(g_large));
+  const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  int* o = static_cast<int*>(out);
+  o[0] = attr.numRegs;
+  o[1] = (int)attr.localSizeBytes;
+  o[2] = kFpSmemMax;
+  o[3] = kFpThreads;
   return 0;
 }

@@ -14,9 +14,11 @@ the int8 variant keeps the cache int8 and replays
 `attention.decode_attention_q`'s arithmetic (probabilities requantized to
 int8 before an integer PV dot).
 
-The int8 kernel splits each sequence's page walk over a thread block
-cluster of up to 8 blocks; `_plan_q` picks the split from `max_pages`
-alone (host-known), never from the lengths, which live on the device.
+Both kernels split each sequence's page walk over a thread block cluster
+of up to 8 blocks; `_split` picks the split from `max_pages` alone
+(host-known), never from the lengths, which live on the device.  `_plan_fp`
+adds the fp kernel's ring tile, `_plan_q` whether the int8 kernel's scores
+spill to a device scratch buffer.
 
 CPU tensors take the plain versions below; CUDA tensors launch the kernels
 or raise.  The plain versions gather the table's pages into a padded view
@@ -34,6 +36,33 @@ from repro_torch.kernels import build
 _KV_DTYPES = (torch.float32, torch.bfloat16)
 MAX_SPLITS = 8                 # blocks of one cluster: the portable size
 Q_SMEM_LIMIT = 96 * 1024       # scores stay in shared memory up to this
+FP_TILE_BYTES = 16384          # bytes of one K tile of the ring, at most
+
+
+def _split(max_pages: int) -> tuple[int, int]:
+    """-> (splits, pages_per_split): each (sequence, KV head) gets a cluster
+    of `splits` <= MAX_SPLITS blocks, and block s walks table pages
+    [s * pages_per_split, (s + 1) * pages_per_split), so every block's
+    range starts inside the table."""
+    splits = max(1, min(MAX_SPLITS, max_pages))
+    pps = max(1, -(-max_pages // splits))
+    return max(1, -(-max_pages // pps)), pps
+
+
+def _up16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _plan_fp(max_pages: int, hd: int,
+             kv_itemsize: int) -> tuple[int, int, int]:
+    """Launch plan of the fp kernel -> (splits, pages_per_split, tile).
+
+    The split is `_split`'s; `tile` is the rows of one ring stage: 32 (a
+    row per lane), or 16 where a 32-row K tile would pass FP_TILE_BYTES
+    (hd * itemsize > 512).  Only host-known sizes enter: no length."""
+    splits, pps = _split(max_pages)
+    tile = 32 if 32 * _up16(hd * kv_itemsize) <= FP_TILE_BYTES else 16
+    return splits, pps, tile
 
 
 def _q_smem(g: int, hd: int, rows: int, scratch: bool) -> int:
@@ -50,15 +79,11 @@ def _plan_q(max_pages: int, page_size: int, g: int,
             hd: int) -> tuple[int, int, bool]:
     """Launch plan of the int8 kernel -> (splits, pages_per_split, scratch).
 
-    Each (sequence, KV head) gets a cluster of `splits` <= MAX_SPLITS
-    blocks; block s walks table pages [s * pages_per_split, (s + 1) *
-    pages_per_split), so every block's range starts inside the table.  The
-    scores of a block's rows live in shared memory unless that would pass
-    Q_SMEM_LIMIT; then `scratch`, and the wrapper allocates them in device
-    memory.  Only host-known sizes enter: no length."""
-    splits = max(1, min(MAX_SPLITS, max_pages))
-    pps = max(1, -(-max_pages // splits))
-    splits = max(1, -(-max_pages // pps))
+    The split is `_split`'s.  The scores of a block's rows live in shared
+    memory unless that would pass Q_SMEM_LIMIT; then `scratch`, and the
+    wrapper allocates them in device memory.  Only host-known sizes enter:
+    no length."""
+    splits, pps = _split(max_pages)
     return splits, pps, _q_smem(g, hd, pps * page_size, False) > Q_SMEM_LIMIT
 
 
@@ -193,11 +218,13 @@ def paged_decode(q, k_pool, v_pool, tables, n_pages, lengths):
     out = torch.empty_like(q)
     if B == 0:
         return out
+    max_pages = tables.shape[1]
+    splits, pps, tile = _plan_fp(max_pages, hd, k_pool.element_size())
     lib = build.library("paged_attention")
     err = lib.paged_decode_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
         n_pages.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, H, Hkv,
-        hd, ps, tables.shape[1], int(q.dtype == torch.bfloat16),
+        hd, ps, max_pages, splits, pps, tile, int(q.dtype == torch.bfloat16),
         int(k_pool.dtype == torch.bfloat16), math.sqrt(hd),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_decode")

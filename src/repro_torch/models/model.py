@@ -40,7 +40,7 @@ def forward(params, batch, cfg: ModelConfig, caches=None, cache_pos=None,
     decode_kernel set, S=1 reads go through the paged-decode kernels."""
     if "tokens" not in batch:
         raise NotImplementedError("only token inputs are ported so far "
-                                  "(frontend stubs: ROADMAP queue 1, item 8)")
+                                  "(not the vision and audio frontend stubs)")
     x = embed(params["embed"], batch["tokens"])
     B, S = x.shape[:2]
     ar = torch.arange(S, dtype=torch.int32, device=x.device)[None]

@@ -27,7 +27,7 @@ def parse_spec(spec: str) -> tuple[str, str]:
     if (mixer, ff) != ("attn", "dense"):
         raise NotImplementedError(
             f"layer {spec!r}: only attn+dense blocks are ported so far; "
-            f"mla/xattn/MoE/Mamba/xLSTM are ROADMAP queue 1, item 8")
+            "the mla, xattn, MoE, Mamba and xLSTM layers are not ported yet")
     return mixer, ff
 
 

@@ -64,5 +64,5 @@ def sample(logits, sc: SamplingConfig):
     if sc.method != "greedy":
         raise NotImplementedError(
             f"{sc.method!r} sampling needs per-request torch.Generator "
-            f"streams, which are not ported yet (ROADMAP queue 1, item 6)")
+            "streams (stochastic sampling), which are not ported yet")
     return torch.argmax(logits, dim=-1).to(torch.int32)

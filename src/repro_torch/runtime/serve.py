@@ -60,18 +60,18 @@ def resolve_device(device=None) -> torch.device:
 def _unported(options: EngineOptions) -> str | None:
     """The first option this slice cannot serve, described, or None."""
     if options.speculation.draft_len > 0:
-        return "speculative decoding (ROADMAP queue 1, item 9)"
+        return "speculative decoding"
     if options.disagg.enabled:
-        return "prefill/decode disaggregation (ROADMAP queue 1, item 9)"
+        return "prefill/decode disaggregation"
     if options.parallel.mesh is not None:
-        return "a device mesh (ROADMAP queue 1, item 11)"
+        return "a device mesh (tensor and expert parallel serving)"
     if options.paging.kv_layout != "paged":
-        return "the dense KV layout in the Engine (ROADMAP queue 1, item 6)"
+        return "the dense KV layout in the Engine"
     if options.sampling.method != "greedy":
         return (f"{options.sampling.method!r} sampling (per-request "
-                f"torch.Generator streams, ROADMAP queue 1, item 6)")
+                "torch.Generator streams)")
     if options.debug.check_invariants:
-        return "check_invariants (ROADMAP queue 1, item 6)"
+        return "check_invariants (the engine's invariant checks)"
     return None
 
 
@@ -107,9 +107,9 @@ class Engine:
             cfg = cfg.replace(moe_capacity_factor=float(par.capacity_factor))
         M.cache_pool_flags(cfg)         # rejects layer kinds not ported yet
         if options.prefix.enabled:
-            warnings.warn("prefix cache: not ported to repro_torch yet "
-                          "(ROADMAP queue 1, item 9); serving without it "
-                          "(greedy streams are unchanged)", stacklevel=3)
+            warnings.warn("prefix cache (refcounted shared prefix pages): "
+                          "not ported to repro_torch yet; serving without "
+                          "it (greedy streams are unchanged)", stacklevel=3)
         self.cfg = cfg
         self.params = tree_map(lambda a: a.to(device), params)
         self.num_slots, self.max_seq = sch.num_slots, sch.max_seq

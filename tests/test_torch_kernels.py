@@ -151,10 +151,10 @@ def test_bramac_matmul_launch_plan(KN, M, sms):
 PS = 16
 
 
-def _pool(seed, B, n_pages, max_pages=4, P=16, Hkv=2, hd=16):
+def _pool(seed, B, n_pages, max_pages=4, P=16, Hkv=2, hd=16, ps=PS):
     rng = np.random.default_rng(seed)
-    k = rng.normal(size=(P, PS, Hkv, hd)).astype(np.float32)
-    v = rng.normal(size=(P, PS, Hkv, hd)).astype(np.float32)
+    k = rng.normal(size=(P, ps, Hkv, hd)).astype(np.float32)
+    v = rng.normal(size=(P, ps, Hkv, hd)).astype(np.float32)
     tables = rng.permutation(P)[:B * max_pages].reshape(B, max_pages) \
         .astype(np.int32)
     return k, v, tables, np.asarray(n_pages, np.int32)
@@ -327,6 +327,124 @@ def test_paged_decode_q_split_plan(max_pages, g, hd):
         assert (S, pps, scratch) == (8, 2, False)
     if max_pages == 1024 and g == 16:
         assert scratch
+
+
+def _fp_split_emulation(q, k, v, tables, n_pages, lengths):
+    """paged_decode as the CUDA kernel splits it, in f32 as the kernel
+    computes: a cluster of S blocks per (sequence, KV head) from
+    `_plan_fp`, block s over the live rows (below the length) of pages
+    [s*pps, (s+1)*pps) of the walked ones, folded `tile` rows at a time
+    (one ring stage) into a running (m, l, acc) with the reference's
+    rescale; then the blocks' partials combined in rank order with weights
+    exp(m_s - M) where l_s > 0 and 0 elsewhere, out = acc / l (l = 0: 1)."""
+    B, H, hd = q.shape
+    P, ps, Hkv = k.shape[:3]
+    g, mp = H // Hkv, tables.shape[1]
+    S, pps, tile = tpk._plan_fp(mp, hd, k.element_size())
+    f32 = torch.float32
+    div = torch.tensor(math.sqrt(hd), dtype=f32)
+    out = torch.zeros((B, H, hd), dtype=f32)
+    for b in range(B):
+        L = int(lengths[b])
+        n_eff = min(int(n_pages[b]), -(-L // ps), mp)
+        for h in range(Hkv):
+            qh = q[b, h * g:(h + 1) * g].to(f32)
+            parts = []
+            for s in range(S):
+                j0, j1 = s * pps, min((s + 1) * pps, n_eff)
+                rows = min((j1 - j0) * ps, L - j0 * ps) if j1 > j0 else 0
+                pids = [int(tables[b, j]) for j in range(j0, j1)]
+                kr = k[pids, :, h].reshape(-1, hd)[:rows].to(f32)
+                vr = v[pids, :, h].reshape(-1, hd)[:rows].to(f32)
+                m = torch.full((g,), -math.inf, dtype=f32)
+                l, acc = torch.zeros(g), torch.zeros((g, hd))
+                for r0 in range(0, rows, tile):
+                    sc = (qh @ kr[r0:r0 + tile].T) / div
+                    m_new = torch.maximum(m, sc.amax(1))
+                    p = torch.exp(sc - m_new[:, None])
+                    corr = torch.exp(m - m_new)
+                    l = l * corr + p.sum(1)
+                    acc = acc * corr[:, None] + p @ vr[r0:r0 + tile]
+                    m = m_new
+                parts.append((m, l, acc))
+            M = torch.stack([m for m, _, _ in parts]).amax(0)
+            l_tot, acc_tot = torch.zeros(g), torch.zeros((g, hd))
+            for m, l, acc in parts:                             # rank order
+                w = torch.where(l > 0, torch.exp(m - M), 0.0)
+                l_tot = l_tot + w * l
+                acc_tot = acc_tot + w[:, None] * acc
+            out[b, h * g:(h + 1) * g] = \
+                acc_tot / torch.where(l_tot > 0, l_tot, 1.0)[:, None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("mp,ps,lengths,n_pages", [
+    # 8 blocks of 2 pages: the lengths walk 1, 3, 8 and 2 blocks (the last
+    # slot owns 6 pages past ceil(40/16) = 3); a free slot
+    (16, 16, (20, 90, 250, 5, 40), (2, 6, 16, 0, 6)),
+    # 8 blocks of 8 pages of 12 rows: three 32-row ring tiles a block,
+    # two ending inside a page; a last block that ends inside its last
+    # page; a free slot; n_pages past ceil(250/12) = 21
+    (64, 12, (700, 250, 13, 40), (64, 30, 2, 0)),
+])
+def test_paged_decode_cluster_split_matches_jax(mp, ps, lengths, n_pages):
+    """The fp kernel's S-way cluster split and ring tiles, emulated on the
+    CPU, against the plain version and the Pallas kernel (interpret) at
+    atol 2e-6, the bound of test_paged_decode_matches_jax: blocks that
+    walk no page, and a free slot, weigh nothing and give zeros."""
+    _check_fp_split(mp, ps, 16, 32, lengths, n_pages)
+
+
+def test_paged_decode_cluster_split_tile16_matches_jax():
+    """As above at hd 160 with f32 pools: 640-byte rows, so the ring takes
+    16-row tiles, here ending inside 12-row pages.  8 blocks of 2 pages;
+    the lengths walk 1, 4, 8 and 2 blocks (the last slot owns 2 pages past
+    ceil(40/12) = 4); a free slot."""
+    _check_fp_split(16, 12, 160, 16, (20, 90, 190, 5, 40), (2, 8, 16, 0, 6))
+
+
+def _check_fp_split(mp, ps, hd, tile_want, lengths, n_pages):
+    B, H = len(lengths), 4
+    S, pps, tile = tpk._plan_fp(mp, hd, 4)
+    assert (S, pps) == (8, mp // 8) and tile == tile_want
+    k, v, tables, npg = _pool(17, B, n_pages, max_pages=mp, P=B * mp, hd=hd,
+                              ps=ps)
+    q = np.random.default_rng(19).normal(size=(B, H, hd)).astype(np.float32)
+    lens = np.asarray(lengths, np.int32)
+    got = _fp_split_emulation(*_t(q, k, v, tables, npg, lens))
+    plain = tpk.paged_decode(*_t(q, k, v, tables, npg, lens))
+    want = jpk.paged_decode(*map(jnp.asarray, (q, k, v, tables, npg, lens)))
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=2e-6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-6)
+    free = list(n_pages).index(0)
+    assert (got[free] == 0).all() and torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("max_pages", [0, 1, 3, 8, 16, 17, 100, 256, 1024])
+@pytest.mark.parametrize("g,hd", [(1, 128), (4, 128), (16, 128), (4, 16),
+                                  (16, 256), (2, 100)])
+def test_paged_decode_fp_split_plan(max_pages, g, hd):
+    """The fp kernel's plan comes from host-known sizes alone (no lengths
+    argument) and splits as the int8 kernel's does: at most 8 blocks, each
+    starting inside the table, whose page ranges cover the table exactly
+    once; ring tiles of 32 rows (16 where 32 rows of K would pass the
+    K-tile budget) for f32 and bf16 pools.  Whether a plan's shared memory
+    fits is the kernel's to say: chip_smoke.py phase 3 launches the largest
+    plan (H/Hkv 16, hd 256, max_pages 1024)."""
+    assert list(inspect.signature(tpk._plan_fp).parameters) == \
+        ["max_pages", "hd", "kv_itemsize"]
+    for itemsize in (4, 2):
+        S, pps, tile = tpk._plan_fp(max_pages, hd, itemsize)
+        assert (S, pps) == tpk._plan_q(max_pages, PS, g, hd)[:2]
+        assert 1 <= S <= tpk.MAX_SPLITS and pps >= 1
+        covered = [j for s in range(S)
+                   for j in range(s * pps, min((s + 1) * pps, max_pages))]
+        assert covered == list(range(max_pages))
+        assert all(s * pps < max_pages for s in range(S)) or max_pages == 0
+        row = -(-hd * itemsize // 16) * 16
+        assert tile == (32 if 32 * row <= tpk.FP_TILE_BYTES else 16)
+    if max_pages == 16 and hd == 128:                  # the serve shape
+        assert tpk._plan_fp(max_pages, hd, 2) == (8, 2, 32)
 
 
 def test_cpu_tensors_launch_no_kernel():
