@@ -11,7 +11,12 @@ as a GEMV, serves granite-8b at full size (36 layers, d=4096, bf16, 8-bit
 BRAMAC weights, random weights from a seed) through the port's Engine with
 fp and int8 KV caches, counts that each path went through its kernels, and
 checks that greedy streams are identical with the decode kernels on and
-off.  Imports torch, numpy and `repro_torch` only.  Exits non-zero,
+off and under the dense layout, and with the prefix cache on and off
+(phase 6, f32).  Phase 8 serves the rest of the Engine at granite-8b full
+size: the prefix cache with copy-on-write splits and invariant checks
+(bf16 and int8 KV, on vs off), abort of a running and a queued request,
+and per-request sampling streams that depend on the seed only.  Imports
+torch, numpy and `repro_torch` only.  Exits non-zero,
 printing no result, when any phase fails or no CUDA device is present.
 
 Output: one line per phase; then a JSON line listing every kernel with its
@@ -819,11 +824,11 @@ def _counters():
 
 
 def serve(cfg, params, prompts, new_tokens, *, decode_kernel=True,
-          num_slots=4, max_seq=256):
+          num_slots=4, max_seq=256, **kw):
     from repro_torch.runtime.serve import Engine
+    kw.setdefault("prefix_cache", False)
     with Engine(cfg, params, num_slots=num_slots, max_seq=max_seq,
-                decode_kernel=decode_kernel, prefix_cache=False,
-                device="cuda") as eng:
+                decode_kernel=decode_kernel, device="cuda", **kw) as eng:
         reqs = [eng.submit(p, new_tokens) for p in prompts]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -917,6 +922,7 @@ def phase_serve(report):
     report["profile"] = profile_serve(cfg, params, prompts[:4])
     report["profile_int8_kv"] = profile_serve(cfg.replace(quant_kv=True),
                                               params, prompts[:4])
+    phase_engine(cfg, params, prompts, report)
     del params
     torch.cuda.empty_cache()
 
@@ -962,6 +968,203 @@ def profile_serve(cfg, params, prompts):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the rest of the single-device Engine at granite-8b full size
+# ---------------------------------------------------------------------------
+
+SYS_LEN = 104                      # 6.5 pages: 6 shared + 1 copy-on-write
+
+
+def _zero_counts():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _read_counts():
+    return {k: fn.launches for k, fn in _counters().items()}
+
+
+def _check_launches(cfg, eng, got, what):
+    """The decode kernel of the run's KV dtype launches once per layer per
+    decode step (none on a dense serve), the other never; bramac_matmul
+    7 x layers + 1 times per forward."""
+    steps = eng.n_ticks * eng.decode_steps
+    forwards = steps + eng.n_admit_calls
+    attn = "paged_decode_q" if cfg.quant_kv else "paged_decode"
+    other = "paged_decode" if cfg.quant_kv else "paged_decode_q"
+    want = steps * cfg.num_layers if eng.kv_layout == "paged" else 0
+    need(got[attn] == want and got[other] == 0,
+         f"{what}: decode kernel launches {got} for {steps} steps x "
+         f"{cfg.num_layers} layers ({eng.kv_layout})")
+    need(got["bramac_matmul"] == (7 * cfg.num_layers + 1) * forwards,
+         f"{what}: bramac_matmul launches {got['bramac_matmul']} != "
+         f"{7 * cfg.num_layers + 1} x {forwards} forwards")
+    return steps, forwards
+
+
+def prefix_serve(cfg, params, prompts, *, prefix_cache=True, abort=False,
+                 device="cuda"):
+    """The producer (prompts[0]) runs to completion, then the other
+    prompts arrive in one wave; with `abort`, one running request (after
+    the wave's first tick) and the last queued one are aborted.  Returns
+    the run's readings."""
+    from repro_torch.runtime.serve import Engine
+    with Engine(cfg, params, num_slots=4, max_seq=256, prefix_chunk=8,
+                prefix_cache=prefix_cache, check_invariants=True,
+                decode_kernel=True, device=device) as eng:
+        _zero_counts()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = eng.submit(prompts[0], 16)
+        eng.run()
+        wave = [eng.submit(p, 16) for p in prompts[1:]]
+        aborted = None
+        if abort:
+            eng.step()
+            # a running request whose decode rows need a page no cached
+            # chain covers, so its abort frees a page at once
+            running = next(i for i, r in enumerate(wave)
+                           if any(r is s for s in eng.slot_req)
+                           and len(r.prompt) % 16 != 1)
+            held = eng.pages_in_use
+            need(eng.abort(wave[running]), "abort of a running request")
+            freed = eng.pages_in_use
+            need(freed < held, f"abort did not free pages at once: "
+                 f"{held} -> {freed}")
+            queued = len(wave) - 1
+            need(any(wave[queued] is r for r in eng.sched.queue)
+                 and eng.abort(wave[queued]), "abort of a queued request")
+            aborted = (running + 1, queued + 1, held, freed)
+        eng.run()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _read_counts()
+        reqs = [first] + wave
+        steps, forwards = _check_launches(cfg, eng, got, "prefix serve")
+        return dict(reqs=reqs, streams=[list(r.out_tokens) for r in reqs],
+                    wall=wall, steps=steps, forwards=forwards, launches=got,
+                    stats=eng.prefix_stats(), checks=eng.n_invariant_checks,
+                    aborted=aborted,
+                    tokens=sum(len(r.out_tokens) for r in reqs),
+                    ttft_warm=float(np.mean([r.result.ttft for r in wave
+                                             if r.result.ttft is not None])))
+
+
+def sampled_serve(cfg, params, prompts, seeds, order, decode_steps=1):
+    from repro_torch.runtime.serve import Engine
+    with Engine(cfg, params, num_slots=4, max_seq=256, sampling="top_p",
+                top_p=0.9, temperature=0.8, decode_steps=decode_steps,
+                decode_kernel=True, device="cuda") as eng:
+        _zero_counts()
+        reqs = {i: eng.submit(prompts[i], 16, seed=seeds[i]) for i in order}
+        eng.run()
+        _check_launches(cfg, eng, _read_counts(), "sampled serve")
+        need(all(r.done for r in reqs.values()), "sampled serve unfinished")
+        return {seeds[i]: list(r.out_tokens) for i, r in reqs.items()}
+
+
+def phase_engine(cfg, params, prompts5, report):
+    """Phase 8: (a) the prefix cache with copy-on-write, bf16 and int8 KV,
+    on vs off; (b) abort of a running and a queued request; (c) per-request
+    sampling streams across order, slots and decode_steps."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(8)
+    sysp = rng.integers(0, cfg.vocab_size, size=SYS_LEN)
+    prompts = [np.concatenate([sysp, rng.integers(0, cfg.vocab_size,
+                                                  size=int(n))])
+               for n in rng.integers(9, 41, size=8)]
+    totals = {}
+    bf16_on = None
+    for quant_kv in (False, True):
+        c = cfg.replace(quant_kv=quant_kv)
+        kv = "int8" if quant_kv else "bf16"
+        torch.cuda.reset_peak_memory_stats()
+        on = prefix_serve(c, params, prompts)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        off = prefix_serve(c, params, prompts, prefix_cache=False)
+        for k, n in on["launches"].items():
+            totals[k] = totals.get(k, 0) + n
+        st = on["stats"]
+        need((st["hits"], st["misses"], st["tokens_skipped"]) ==
+             (7, 1, 7 * SYS_LEN), f"prefix stats ({kv} KV): {st}")
+        warm = on["reqs"][1:]
+        need(all(r.result.pages_shared == SYS_LEN // 16 and
+                 r.result.prefill_tokens == len(r.prompt) - SYS_LEN
+                 for r in warm), "warm requests' pages_shared / "
+             "prefill_tokens")
+        need(on["forwards"] < off["forwards"],
+             f"prefix cache on: {on['forwards']} forwards, off: "
+             f"{off['forwards']}")
+        need(on["streams"] == off["streams"],
+             f"prefix on != off streams ({kv} KV)")
+        need(all(len(s) == 16 and all(0 <= t < cfg.vocab_size for t in s)
+                 for s in on["streams"]), "prefix serve streams malformed")
+        if not quant_kv:
+            bf16_on = on
+        # every hit matched all 104 tokens (728 = 7 x 104), which end 8
+        # rows into page 7: one copy-on-write split per warm admission
+        cow = st["hits"] if SYS_LEN % cfg.page_size else 0
+        print(f"phase 8a prefix serve granite-8b {kv} KV: hits "
+              f"{st['hits']}, misses {st['misses']}, tokens skipped "
+              f"{st['tokens_skipped']} ({st['chunks_skipped']} chunks), "
+              f"evictions {st['evictions']}, {cow} copy-on-write splits; "
+              f"{on['tokens'] / on['wall']:.1f} tok/s on vs "
+              f"{off['tokens'] / off['wall']:.1f} off; warm mean TTFT "
+              f"{1e3 * on['ttft_warm']:.1f} ms on vs "
+              f"{1e3 * off['ttft_warm']:.1f} ms off; forwards "
+              f"{on['forwards']} on vs {off['forwards']} off; "
+              f"{on['steps']} decode steps; peak memory {peak:.2f} GB; "
+              f"{on['checks']} + {off['checks']} invariant checks passed; "
+              f"launches on {on['launches']}, off {off['launches']}")
+        report.setdefault("engine", []).append(dict(
+            kv=kv, tok_s_on=on["tokens"] / on["wall"],
+            tok_s_off=off["tokens"] / off["wall"],
+            ttft_warm_ms_on=1e3 * on["ttft_warm"],
+            ttft_warm_ms_off=1e3 * off["ttft_warm"],
+            forwards_on=on["forwards"], forwards_off=off["forwards"],
+            launches=on["launches"], peak_gb=peak, checks=on["checks"]))
+
+    ab = prefix_serve(cfg, params, prompts, abort=True)
+    running, queued, held, freed = ab["aborted"]
+    for i in (running, queued):
+        need(ab["reqs"][i].result.finish_reason == "aborted",
+             f"request {i} not aborted")
+    kept = ab["streams"][running]
+    need(len(kept) >= 1 and kept == bf16_on["streams"][running][:len(kept)]
+         and not ab["streams"][queued], "aborted requests' tokens")
+    others = [i for i in range(8) if i not in (running, queued)]
+    need(all(ab["streams"][i] == bf16_on["streams"][i] for i in others),
+         "streams beside the aborted requests changed")
+    print(f"phase 8b abort: running request {running} (kept {len(kept)} "
+          f"tokens) and queued request {queued} aborted; pages in use "
+          f"{held} -> {freed} at once; the other {len(others)} streams "
+          f"equal 8a's; {ab['checks']} invariant checks passed; launches "
+          f"{ab['launches']}")
+
+    seeds = list(range(8))
+    fwd = sampled_serve(cfg, params, prompts5, seeds, range(8))
+    rev = sampled_serve(cfg, params, prompts5, seeds, range(7, -1, -1))
+    fused = sampled_serve(cfg, params, prompts5, seeds, range(8),
+                          decode_steps=4)
+    need(fwd == rev == fused, "sampled streams depend on order, slot or "
+         "decode_steps")
+    other = sampled_serve(cfg, params, prompts5, [s + 100 for s in seeds],
+                          range(8))
+    changed = sum(other[s + 100] != fwd[s] for s in seeds)
+    need(changed >= 6, f"seeds + 100 changed only {changed} of 8 streams")
+    need(all(len(t) == 16 and all(0 <= x < cfg.vocab_size for x in t)
+             for t in fwd.values()), "sampled streams malformed")
+    print(f"phase 8c sampled serve (top_p 0.9, temperature 0.8, seeds "
+          f"0-7): streams identical in order, in reverse order and at "
+          f"decode_steps 4; seeds + 100 change {changed} of 8; phase 8 "
+          f"took {time.perf_counter() - t_phase:.1f} s")
+    for k, n in totals.items():
+        need(n > 0, f"{k} was never launched on the prefix serves")
+        report[k]["launches"] += n
+
+
+# ---------------------------------------------------------------------------
 # phase 6: kernel-on == kernel-off greedy streams (f32, full width)
 # ---------------------------------------------------------------------------
 
@@ -974,6 +1177,7 @@ def phase_streams():
     # gather oracle's attention rounds scores and probabilities to bf16
     # (repro/models/attention.py:164,171) while the kernels stay in fp32,
     # so bf16 stream identity is not a contract
+    t_phase = time.perf_counter()
     q8 = QuantConfig(enabled=True, bits_w=8, bits_a=8)
     cfg = get_config("granite-8b").replace(num_layers=2, dtype="float32",
                                            quant=q8)
@@ -982,16 +1186,72 @@ def phase_streams():
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n))
                for n in (15, 16, 17, 33, 5, 48)]
+    # staggered prompts sharing a 44-token stem: at prefix_chunk 8 a warm
+    # match ends at 40 rows, mid-page (2 shared pages + a copy-on-write
+    # page); the third leaves the stem after 30 tokens (match 24: 1 shared
+    # page + a copy-on-write page)
+    stem = rng.integers(0, cfg.vocab_size, size=44)
+    tail = lambda n: rng.integers(0, cfg.vocab_size, size=n)  # noqa: E731
+    staggered_prompts = [np.concatenate([stem, tail(5)]),
+                         np.concatenate([stem, tail(9)]),
+                         np.concatenate([stem[:30], tail(7)]),
+                         np.concatenate([stem, tail(3)])]
     for quant_kv in (False, True):
         c = cfg.replace(quant_kv=quant_kv)
-        on = serve(c, params, prompts, 12, decode_kernel=True, num_slots=3,
-                   max_seq=96)["streams"]
+        kv = "int8" if quant_kv else "fp"
+        _zero_counts()
+        run = serve(c, params, prompts, 12, decode_kernel=True, num_slots=3,
+                    max_seq=96)
+        on, got = run["streams"], _read_counts()
+        attn = "paged_decode_q" if quant_kv else "paged_decode"
+        need(got[attn] == run["steps"] * cfg.num_layers,
+             f"paged serve ({kv} KV): decode launches {got}")
         off = serve(c, params, prompts, 12, decode_kernel=False, num_slots=3,
                     max_seq=96)["streams"]
-        need(on == off, f"kernel-on != kernel-off streams "
-             f"({'int8' if quant_kv else 'fp'} KV): {on} vs {off}")
-    print("phase 6 streams: kernel-on == kernel-off greedy streams at full "
-          "width, 2 layers, f32 (fp KV and int8 KV; 6 requests, 3 slots)")
+        need(on == off, f"kernel-on != kernel-off streams ({kv} KV): {on} "
+             f"vs {off}")
+        _zero_counts()
+        dense = serve(c, params, prompts, 12, num_slots=3, max_seq=96,
+                      kv_layout="dense")["streams"]
+        got = _read_counts()
+        need(got["paged_decode"] == got["paged_decode_q"] == 0,
+             f"dense serve ({kv} KV) launched a decode kernel: {got}")
+        need(dense == on, f"dense != paged kernel-on streams ({kv} KV): "
+             f"{dense} vs {on}")
+        warm = staggered(c, params, staggered_prompts, prefix_cache=True)
+        cold = staggered(c, params, staggered_prompts, prefix_cache=False)
+        st = warm["stats"]
+        need((st["hits"], st["tokens_skipped"]) == (3, 40 + 24 + 40),
+             f"staggered prefix stats ({kv} KV): {st}")
+        need(warm["launches"][attn] == warm["steps"] * cfg.num_layers,
+             f"prefix serve ({kv} KV): decode launches {warm['launches']}")
+        need(warm["streams"] == cold["streams"],
+             f"prefix on != off streams ({kv} KV): {warm['streams']} vs "
+             f"{cold['streams']}")
+    print("phase 6 streams: kernel-on == kernel-off == dense-layout greedy "
+          "streams at full width, 2 layers, f32 (fp KV and int8 KV; 6 "
+          "requests, 3 slots; no decode kernel launch on the dense serves); "
+          "prefix cache on == off over 4 staggered prompts (3 hits, 2 "
+          "shared pages + copy-on-write mid-page, invariants checked after "
+          f"every sync); {time.perf_counter() - t_phase:.1f} s")
+
+
+def staggered(cfg, params, prompts, **kw):
+    """Prompts submitted one at a time, each served to completion before
+    the next arrives (its producer registers before a consumer looks)."""
+    from repro_torch.runtime.serve import Engine
+    with Engine(cfg, params, num_slots=3, max_seq=96, prefix_chunk=8,
+                check_invariants=True, decode_kernel=True, device="cuda",
+                **kw) as eng:
+        _zero_counts()
+        streams = []
+        for p in prompts:
+            r = eng.submit(p, 12)
+            eng.run()
+            streams.append(list(r.out_tokens))
+        return dict(streams=streams, stats=eng.prefix_stats(),
+                    steps=eng.n_ticks * eng.decode_steps,
+                    launches=_read_counts())
 
 
 def main() -> int:

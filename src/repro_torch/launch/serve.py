@@ -2,15 +2,22 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
         [--smoke] [--requests 8] [--new-tokens 12] [--slots 4] \
-        [--max-seq 128] [--quant-bits 8] [--decode-steps 1] \
-        [--prefill-chunk 16] [--page-size 16] [--num-pages 0] \
-        [--decode-kernel auto|on|off] [--device cuda|cpu]
+        [--max-seq 128] [--quant-bits 8] \
+        [--sampling top_p --temperature 0.8 --top-p 0.95] [--seed 0] \
+        [--decode-steps 1] [--prefill-chunk 16] \
+        [--kv-layout paged|dense] [--page-size 16] [--num-pages 0] \
+        [--decode-kernel auto|on|off] \
+        [--prefix-cache on|off] [--prefix-chunk 16] \
+        [--prefix-max-chains 4096] [--shared-prefix 0] \
+        [--check-invariants] [--device cuda|cpu]
 
 Runs on the card by default (`--device cpu` runs the plain PyTorch
 versions of the kernels).  Weights are random (`init_params` from a seeded
 generator) and, with --quant-bits, quantized once for serving.  The flags
-are the subset of the reference launcher's that this slice serves, and the
-report keeps its `N/N requests done, … tok/s` line.
+are the reference launcher's minus speculation, disaggregation and the
+mesh, and the report lines keep its wording: requests done and tok/s,
+syncs and finish reasons, the kv pool, the prefix cache's hit rate and
+refcount histogram, or the dense reservation.
 """
 from __future__ import annotations
 
@@ -24,8 +31,10 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.bramac_linear import QuantConfig, tree_prepare_serving
 from repro_torch.models import model as M
-from repro_torch.runtime.options import (EngineOptions, PagingOptions,
-                                         PrefixOptions, ScheduleOptions)
+from repro_torch.runtime.options import (DebugOptions, EngineOptions,
+                                         PagingOptions, PrefixOptions,
+                                         ScheduleOptions)
+from repro_torch.runtime.sampling import SamplingConfig
 from repro_torch.runtime.serve import Engine, resolve_device
 
 
@@ -38,11 +47,27 @@ def main(argv=None):
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--quant-bits", type=int, default=0, choices=(0, 2, 4, 8))
+    ap.add_argument("--sampling", default="greedy",
+                    choices=("greedy", "temperature", "top_k", "top_p"),
+                    help="on-device sampling method (%(default)s)")
+    ap.add_argument("--temperature", type=float, default=1.0,
+                    help="softmax temperature for stochastic sampling")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="k for --sampling top_k")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus mass for --sampling top_p")
     ap.add_argument("--decode-steps", type=int, default=1,
                     help="decode steps per engine tick: host syncs per "
                          "generated token scale as 1/decode_steps")
     ap.add_argument("--prefill-chunk", type=int, default=16,
                     help="prompt chunk size for admission prefill")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="engine base seed for request sampling streams")
+    ap.add_argument("--kv-layout", default="paged",
+                    choices=("paged", "dense"),
+                    help="KV-cache layout: 'paged' shares a pool of fixed-"
+                         "size pages through per-slot block tables, 'dense' "
+                         "reserves max_seq rows per slot (%(default)s)")
     ap.add_argument("--page-size", type=int, default=0,
                     help="rows per KV page (0 = config default)")
     ap.add_argument("--num-pages", type=int, default=0,
@@ -52,6 +77,22 @@ def main(argv=None):
                     choices=("auto", "on", "off"),
                     help="paged-decode kernels for Sq=1 reads ('auto' = on "
                          "for CUDA; 'off' = the gather oracle)")
+    ap.add_argument("--prefix-cache", default="on", choices=("on", "off"),
+                    help="share cached prompt prefixes across requests "
+                         "(paged layout only; %(default)s)")
+    ap.add_argument("--prefix-chunk", type=int, default=0,
+                    help="prefix-cache hash granularity in tokens "
+                         "(0 = page_size)")
+    ap.add_argument("--prefix-max-chains", type=int, default=4096,
+                    help="prefix-registry capacity; LRU chains beyond it "
+                         "are evicted (%(default)s)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend this many identical 'system prompt' "
+                         "tokens to every request (exercises the prefix "
+                         "cache)")
+    ap.add_argument("--check-invariants", action="store_true",
+                    help="cross-check the host page-pool mirror against "
+                         "the device allocator after every sync")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -69,17 +110,27 @@ def main(argv=None):
     if args.quant_bits:
         params = tree_prepare_serving(params, cfg.quant)
     options = EngineOptions(
+        sampling=SamplingConfig(method=args.sampling,
+                                temperature=args.temperature,
+                                top_k=args.top_k, top_p=args.top_p),
         schedule=ScheduleOptions(num_slots=args.slots, max_seq=args.max_seq,
                                  decode_steps=args.decode_steps,
-                                 prefill_chunk=args.prefill_chunk),
-        paging=PagingOptions(num_pages=args.num_pages or None,
+                                 prefill_chunk=args.prefill_chunk,
+                                 seed=args.seed),
+        paging=PagingOptions(kv_layout=args.kv_layout,
+                             num_pages=args.num_pages or None,
                              decode_kernel=None if args.decode_kernel ==
                              "auto" else args.decode_kernel == "on"),
-        prefix=PrefixOptions(enabled=False))
+        prefix=PrefixOptions(enabled=args.prefix_cache == "on",
+                             chunk=args.prefix_chunk or None,
+                             max_chains=args.prefix_max_chains),
+        debug=DebugOptions(check_invariants=args.check_invariants))
     rng = np.random.default_rng(0)
     with Engine(cfg, params, options=options, device=device) as eng:
-        reqs = [eng.submit(rng.integers(0, cfg.vocab_size,
-                                        size=int(rng.integers(4, 24))),
+        shared = rng.integers(0, cfg.vocab_size, size=args.shared_prefix)
+        reqs = [eng.submit(np.concatenate([
+                    shared, rng.integers(0, cfg.vocab_size,
+                                         size=int(rng.integers(4, 24)))]),
                            args.new_tokens)
                 for _ in range(args.requests)]
         t0 = time.perf_counter()
@@ -94,26 +145,43 @@ def main(argv=None):
         print(f"{done}/{len(reqs)} requests done, {toks} tokens in {dt:.1f}s "
               f"({toks / dt:.1f} tok/s, quant="
               f"{'int%d' % args.quant_bits if args.quant_bits else 'off'}, "
-              f"sampling=greedy, device={device})")
+              f"sampling={args.sampling}, device={device})")
         print(f"  {eng.n_syncs} host syncs for {eng.n_generated} tokens "
               f"({eng.n_syncs / max(eng.n_generated, 1):.2f} syncs/tok at "
               f"decode_steps={args.decode_steps}); mean ttft "
               f"{1e3 * float(np.mean(ttft)) if ttft else 0.0:.0f}ms; "
               f"finish reasons "
               f"{{{', '.join(f'{k}: {v}' for k, v in sorted(reasons.items()))}}}")
-        dense_rows = eng.num_slots * eng.max_seq
-        hw_rows = eng.pages_high_water * eng.page_size
-        print(f"  kv pool: {eng.pages_high_water}/{eng.num_pages} pages "
-              f"high-water x {eng.page_size} rows = {hw_rows} rows "
-              f"({100 * hw_rows / dense_rows:.0f}% of the dense "
-              f"{dense_rows}-row reservation); "
-              f"{eng.pages_in_use} pages still in use")
-        print(f"  kv reads: decode_kernel="
-              f"{'on' if eng.decode_kernel else 'off'}, "
-              f"{eng.kv_bytes_read / max(eng.kv_read_steps, 1):.0f} "
-              f"bytes/step over {eng.kv_read_steps} decode steps "
-              f"({'live-token bounded' if eng.decode_kernel else 'max_seq gather'})")
-        print("  prefix cache: not ported")
+        if eng.kv_layout == "paged":
+            dense_rows = eng.num_slots * eng.max_seq
+            hw_rows = eng.pages_high_water * eng.page_size
+            print(f"  kv pool: {eng.pages_high_water}/{eng.num_pages} pages "
+                  f"high-water x {eng.page_size} rows = {hw_rows} rows "
+                  f"({100 * hw_rows / dense_rows:.0f}% of the dense "
+                  f"{dense_rows}-row reservation); "
+                  f"{eng.pages_in_use} pages still in use")
+            print(f"  kv reads: decode_kernel="
+                  f"{'on' if eng.decode_kernel else 'off'}, "
+                  f"{eng.kv_bytes_read / max(eng.kv_read_steps, 1):.0f} "
+                  f"bytes/step over {eng.kv_read_steps} decode steps "
+                  f"({'live-token bounded' if eng.decode_kernel else 'max_seq gather'})")
+            st = eng.prefix_stats()
+            if st["enabled"]:
+                hist = eng.pool.refcount_hist()
+                print(f"  prefix cache: {st['hits']}/{st['hits'] + st['misses']}"
+                      f" hits ({100 * st['hit_rate']:.0f}%), "
+                      f"{st['tokens_skipped']} prefill tokens skipped "
+                      f"({st['chunks_skipped']} chunks), "
+                      f"{st['evictions']} evictions, "
+                      f"{st['cached_pages']} pages cached; "
+                      f"pages-shared high-water "
+                      f"{eng.pages_shared_high_water}; refcount hist "
+                      f"{{{', '.join(f'{r}: {n}' for r, n in enumerate(hist) if n)}}}")
+            else:
+                print("  prefix cache: off")
+        else:
+            print(f"  kv dense: {eng.num_slots} slots x {eng.max_seq} rows "
+                  f"reserved up front ({eng.num_slots * eng.max_seq} rows)")
 
 
 if __name__ == "__main__":

@@ -13,8 +13,9 @@ reference returns updated copies) and returns the same dict.  Paged reads
 for Sq=1 decode go through the hand-written CUDA kernels
 (`kernels/paged_attention.py`) when the bundle's `decode_kernel` is set;
 the gather (`paged_view` + `chunk_attention`) stays the oracle and the
-Sq>1 path.  MLA, cross-attention and the speculative `DenseKV` view come
-with later slices.
+Sq>1 path.  Dense prefill chunks write through a `DenseKV` bundle, whose
+write mask keeps the rows of slots that are not admitting.  MLA and
+cross-attention come with later slices.
 """
 from __future__ import annotations
 
@@ -58,6 +59,46 @@ class PagedKV:
     decode_kernel: bool = False
 
 
+@dataclasses.dataclass
+class DenseKV:
+    """Write discipline for the dense layout when rows are scattered at
+    per-row positions: write_mask gates whole sequences, and rows at or
+    past max_seq drop instead of sliding back over earlier rows."""
+    write_mask: torch.Tensor                    # (B,) bool
+    max_seq: int
+
+
+def _scatter_drop(buf, index, vals, ok):
+    """buf[index] = vals for rows where `ok`, in place; the other rows drop.
+    Each dropped row is given the target and value of the first kept row,
+    so the scatter writes the same value twice there; when no row is kept,
+    the first row's target gets its own current contents back.  No host
+    sync and no data-dependent shape."""
+    # first kept row, or 0; a 1-element index (a 0-d one would sync)
+    donor = torch.argmax(ok.to(torch.int32)).reshape(1)
+    d_index = tuple(i[donor] for i in index)
+    donor_val = torch.where(ok.any(), vals[donor], buf[d_index])
+    keep = ok.reshape((-1,) + (1,) * (vals.ndim - 1))
+    buf.index_put_(tuple(torch.where(ok, i, d) for i, d in zip(index,
+                                                                 d_index)),
+                   torch.where(keep, vals, donor_val))
+    return buf
+
+
+def dense_update(cache, new, positions, dv: DenseKV):
+    """Write `new` (B, S, …) rows into the dense cache (B, max_seq, …) at
+    absolute `positions` (B, S), in place; masked and out-of-range rows
+    drop (both bounds: a negative position would wrap onto the tail)."""
+    ok = dv.write_mask[:, None] & (positions < dv.max_seq) & (positions >= 0)
+    B, S = positions.shape
+    batch = torch.arange(B, device=positions.device)[:, None].expand(B, S)
+    vals = new.reshape((B * S,) + tuple(cache.shape[2:])).to(cache.dtype)
+    return _scatter_drop(cache, (batch.reshape(-1),
+                                 positions.clamp(0, cache.shape[1] - 1)
+                                 .reshape(-1).long()),
+                         vals, ok.reshape(-1))
+
+
 def paged_update(pool, new, positions, pv: PagedKV):
     """Write `new` (B, S, …) rows at absolute `positions` (B, S) through the
     block table into `pool` ((P, page_size, …)), in place.  Masked /
@@ -69,11 +110,7 @@ def paged_update(pool, new, positions, pv: PagedKV):
     and `% page_size` wraps its row positive — without `positions >= 0` a
     stray padding row would land inside a live page.
 
-    Dropping without a host sync: every dropped row is given the target
-    and value of one kept row (the first), so the scatter writes the same
-    value twice there; when no row is kept, the first row's target gets
-    its own current contents back.  No extra page and no data-dependent
-    shape are involved."""
+    Dropping goes through `_scatter_drop`: no host sync, no extra page."""
     ps, mp = pv.page_size, pv.tables.shape[1]
     pg_idx = torch.div(positions, ps, rounding_mode="floor")
     ok = pv.write_mask[:, None] & (pg_idx < pv.n_pages[:, None]) \
@@ -87,15 +124,7 @@ def paged_update(pool, new, positions, pv: PagedKV):
     row = torch.remainder(positions, ps).reshape(-1).long()
     ok = ok.reshape(-1)
     vals = new.reshape((ok.shape[0],) + tuple(pool.shape[2:])).to(pool.dtype)
-    # first kept row, or 0; a 1-element index (a 0-d one would sync)
-    donor = torch.argmax(ok.to(torch.int32)).reshape(1)
-    d_page, d_row = page[donor], row[donor]
-    donor_val = torch.where(ok.any(), vals[donor], pool[d_page, d_row])
-    keep = ok.reshape((-1,) + (1,) * (vals.ndim - 1))
-    pool.index_put_((torch.where(ok, page, d_page),
-                     torch.where(ok, row, d_row)),
-                    torch.where(keep, vals, donor_val))
-    return pool
+    return _scatter_drop(pool, (page, row), vals, ok)
 
 
 def paged_view(pool, pv: PagedKV):
@@ -195,9 +224,13 @@ def gqa(p, x, cfg, positions, cache=None, cache_pos=None, paged=None):
                 paged.n_pages, (positions[:, 0] + 1).to(torch.int32),
                 q.dtype)[:, None]
         else:
-            view = cache if paged is None else \
-                {key: paged_view(cache[key], paged) for key in cache}
+            view = {key: paged_view(cache[key], paged) for key in cache} \
+                if isinstance(paged, PagedKV) else cache
             out = decode_attention_q(q, view, positions)
+    elif isinstance(paged, DenseKV):
+        dense_update(cache["k"], k, positions, paged)
+        dense_update(cache["v"], v, positions, paged)
+        out = chunk_attention(q, cache["k"], cache["v"], positions)
     elif paged is not None:
         paged_update(cache["k"], k, positions, paged)
         paged_update(cache["v"], v, positions, paged)
@@ -263,7 +296,9 @@ def _update_cache_q(cache, k, v, pos, paged=None, positions=None):
     kq, ks = _quant_rows(k)
     vq, vs = _quant_rows(v)
     for key, val in (("k", kq), ("ks", ks), ("v", vq), ("vs", vs)):
-        if paged is not None:
+        if isinstance(paged, DenseKV):
+            dense_update(cache[key], val, positions, paged)
+        elif paged is not None:
             paged_update(cache[key], val, positions, paged)
         else:
             _update_cache(cache[key], val, pos)

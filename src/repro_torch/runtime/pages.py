@@ -1,24 +1,36 @@
-"""Refcounted KV page allocator (port of the allocator half of
-`repro.runtime.pages`).
+"""Refcounted KV page allocator with copy-on-write prefix sharing (port
+of `repro.runtime.pages`, without speculative rollback and page transfer).
 
-  PagePool — the device-resident allocator state (per-page refcounts,
-             per-slot block tables, per-slot ownership bits).  Mutation
-             goes through `admit_update` (evict → share → grant →
-             register, in that order) and `release` (refcount decrement;
-             zero reclaims).
-  HostPool — the host-side numpy mirror replaying the same rules, so the
-             engine knows every granted page id without a device sync.
+  PagePool    — the device-resident allocator state (per-page refcounts,
+                per-slot block tables, per-slot ownership bits).  Mutation
+                goes through `admit_update` (evict → share → grant →
+                register, in that order), `release` (refcount decrement;
+                zero reclaims), `cow_copy` (a shared page's rows copied into
+                a freshly granted private page at admission, never written
+                in place) and `apply_refs_delta` (bare registry deltas — the
+                commit of an eviction round that admitted no slot).
+  HostPool    — the host-side numpy mirror replaying the same rules, so the
+                engine knows every granted page id without a device sync.
+  PrefixCache — the host-side prefix registry: chunk-incremental blake2b
+                keys over the prompt's int32 bytes, mapped to the pool
+                pages holding those rows; one cache reference per distinct
+                page; LRU eviction when admission would stall or the
+                registry passes `max_chains`.  Pure numpy and hashlib: every
+                host decision equals the reference's on the same schedule.
 
-Invariants kept from the reference: refcounts never go negative; a page is
-free iff its refcount is 0; grants take the lowest free page id first,
-admitting slots in ascending order.  The prefix cache, copy-on-write,
-speculative rollback and page transfer come with later slices.
+Invariants kept from the reference (I1–I5 of its module docstring):
+refcounts never go negative; a page is free iff its refcount is 0;
+sum(n_pages) == sum(refs) - cached_pages; grants take the lowest free page
+id first, admitting slots in ascending order; at most one slot owns a
+page, and shared mappings are never written.
 
 The reference's scatter-with-drop (`.at[...].add(mode="drop")`) becomes a
 scatter-add whose masked entries add 0 — no extra page, no host sync.
 """
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 from typing import NamedTuple
 
 import numpy as np
@@ -93,6 +105,48 @@ def admit_update(pool: PagePool, admitting, shared, n_shared, new_pages,
                     owned)
 
 
+def apply_refs_delta(pool: PagePool, delta) -> PagePool:
+    """Bare refcount delta ((P,) i32) with no table changes — the device
+    commit of an eviction round that admitted no slot: the host registry
+    already dropped its chains, so the -1 cache refs must land here too or
+    the evicted pages leak as phantom-occupied."""
+    return pool._replace(refs=pool.refs + delta)
+
+
+def cow_copy(caches, pool_flags, src, dst):
+    """Copy-on-write split, in place: for every slot s with src[s] >= 0,
+    copy page src[s]'s rows into page dst[s] in every shared pool leaf
+    (all layers).  The source — a cached page holding a prefix that
+    diverges from the admitting prompt mid-page — is never written.
+
+    All rows are gathered before any is written, so a source page granted
+    again in the same round still yields its old rows.  Entries with
+    src < 0 repeat the first copying entry's target and rows (or, when
+    none copies, write page dst[0] onto itself): the scatter then writes
+    identical values twice, with no host sync."""
+    ok = src >= 0
+    donor = torch.argmax(ok.to(torch.int32)).reshape(1)
+    tgt = torch.where(ok, dst, dst[donor])
+    frm = torch.where(ok, src, torch.where(ok.any(), src[donor], dst[donor]))
+
+    def cp(leaf, is_pool):
+        if is_pool:
+            P = leaf.shape[1]                # leaf: (n_periods, P, ps, ...)
+            leaf[:, tgt.clamp(0, P - 1).long()] = \
+                leaf[:, frm.clamp(0, P - 1).long()]
+
+    _walk(cp, caches, pool_flags)
+    return caches
+
+
+def _walk(fn, tree, flags):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _walk(fn, v, flags[k])
+        else:
+            fn(v, flags[k])
+
+
 def release(pool: PagePool, dead) -> PagePool:
     """Drop every reference `dead` slots hold; a page whose refcount hits 0
     is thereby free."""
@@ -138,6 +192,8 @@ class HostPool:
         return np.bincount(self.refs, minlength=1)
 
     def apply_delta(self, delta: dict[int, int]) -> None:
+        """Apply a bare registry refcount delta (eviction decrements /
+        registration increments) with no table changes."""
         for p, d in delta.items():
             self.refs[p] += d
             if self.refs[p] < 0:
@@ -145,7 +201,8 @@ class HostPool:
 
     def admit_round(self, grants, evict_delta, register_delta=None):
         """grants: [(slot, shared_ids, n_fresh)] in ascending slot order.
-        Returns {slot: granted page ids}."""
+        Returns {slot: granted page ids}; `register_delta` may also come
+        later, through `apply_register`."""
         self.apply_delta(evict_delta)
         for _, shared_ids, _ in grants:
             for p in shared_ids:
@@ -170,6 +227,9 @@ class HostPool:
             self.apply_delta(register_delta)
         return granted
 
+    def apply_register(self, register_delta: dict[int, int]) -> None:
+        self.apply_delta(register_delta)
+
     def release_slot(self, slot: int) -> None:
         for p in self.slot_tables[slot]:
             self.refs[p] -= 1
@@ -177,3 +237,148 @@ class HostPool:
                 raise AssertionError(f"refcount of page {p} went negative")
         self.slot_tables[slot] = []
         self.slot_owned[slot] = []
+
+
+# ---------------------------------------------------------------------------
+# host-side prefix registry
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _Chain:
+    end: int                   # prefix length in tokens (k * prefix_chunk)
+    pages: tuple[int, ...]     # pool pages holding rows [0, end)
+    last_use: int              # LRU clock
+
+
+class PrefixCache:
+    """Registry of prefill prefixes at `prefix_chunk`-token granularity.
+    A chain for `end` tokens maps the ceil(end/page_size) pages holding
+    those rows; a partial last page (end not page-aligned) reaches
+    consumers through copy-on-write, not a read-only mapping.  Each
+    distinct page carries ONE cache refcount however many chains cover it.
+    Beyond `max_chains` chains, registration evicts LRU chains."""
+
+    def __init__(self, prefix_chunk: int, page_size: int,
+                 max_chains: int = 4096):
+        if prefix_chunk < 1:
+            raise ValueError(f"prefix_chunk must be >= 1, "
+                             f"got {prefix_chunk}")
+        if max_chains < 1:
+            raise ValueError(f"max_chains must be >= 1, got {max_chains}")
+        self.prefix_chunk = prefix_chunk
+        self.page_size = page_size
+        self.max_chains = max_chains
+        self.chains: dict[bytes, _Chain] = {}
+        self.page_chains: dict[int, int] = {}     # page -> covering chains
+        self._clock = 0
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        self.tokens_skipped = 0
+
+    @property
+    def cached_pages(self) -> int:
+        return len(self.page_chains)
+
+    def _tick(self) -> int:
+        self._clock += 1
+        return self._clock
+
+    def keys_for(self, prompt: np.ndarray) -> tuple[bytes, ...]:
+        """Chunk-incremental blake2b digests over the int32 prompt bytes:
+        keys[i] identifies tokens [0, (i+1)*prefix_chunk)."""
+        prompt = np.asarray(prompt, np.int32)
+        pc = self.prefix_chunk
+        h = hashlib.blake2b(digest_size=16)
+        keys = []
+        for end in range(pc, len(prompt) + 1, pc):
+            h.update(prompt[end - pc:end].tobytes())
+            keys.append(h.digest())
+        return tuple(keys)
+
+    def match(self, keys, prompt_len: int):
+        """Longest registered chain among `keys` that is a PROPER prefix
+        (capped at prompt_len-1: the last prompt token's logits seed the
+        first sampled token, so it is always computed).  Pure planning: no
+        stats, no LRU tick (`commit` records them once the request admits).
+
+        Returns (matched_tokens, full_page_ids, cow_src, key): full pages
+        map read-only; cow_src (or -1) is the partial page the slot gets a
+        private copy of; key (or None) goes to `commit`."""
+        best, best_key = None, None
+        for i, key in enumerate(keys):
+            if (i + 1) * self.prefix_chunk >= prompt_len:
+                break
+            c = self.chains.get(key)
+            if c is not None and (best is None or c.end > best.end):
+                best, best_key = c, key
+        if best is None:
+            return 0, [], -1, None
+        n_full = best.end // self.page_size
+        cow = int(best.pages[n_full]) if best.end % self.page_size else -1
+        return best.end, list(best.pages[:n_full]), cow, best_key
+
+    def commit(self, key: bytes | None, matched: int) -> None:
+        """Record a planned match's telemetry and LRU tick once its request
+        admitted (the chain may be gone already: the same round's eviction
+        can pop it after the match)."""
+        if key is None:
+            self.misses += 1
+            return
+        self.hits += 1
+        self.tokens_skipped += matched
+        c = self.chains.get(key)
+        if c is not None:
+            c.last_use = self._tick()
+
+    def register(self, keys, table_ids, delta) -> None:
+        """Add chains for every chunk-aligned prefix of a just-admitted
+        prompt whose rows live in `table_ids` (the slot's block table);
+        pages gaining their first covering chain get +1 in `delta`."""
+        for i, key in enumerate(keys):
+            end = (i + 1) * self.prefix_chunk
+            c = self.chains.get(key)
+            if c is not None:
+                c.last_use = self._tick()
+                continue
+            pages = tuple(int(p)
+                          for p in table_ids[:-(-end // self.page_size)])
+            self.chains[key] = _Chain(end, pages, self._tick())
+            for p in pages:
+                n = self.page_chains.get(p, 0)
+                self.page_chains[p] = n + 1
+                if n == 0:
+                    delta[p] = delta.get(p, 0) + 1
+        # the cap evicts into the SAME delta, so the drops ride the round's
+        # register update and host and device stay in lockstep
+        while len(self.chains) > self.max_chains:
+            key = min(self.chains, key=lambda k: self.chains[k].last_use)
+            self._evict_chain(key, delta)
+
+    def _evict_chain(self, key: bytes, delta, eff=None) -> int:
+        """Drop one chain; pages losing their last covering chain get -1 in
+        `delta` (and in `eff` when given).  Returns how many pages thereby
+        became free as judged against `eff` (0 without one)."""
+        c = self.chains.pop(key)
+        self.evictions += 1
+        freed = 0
+        for p in c.pages:
+            self.page_chains[p] -= 1
+            if self.page_chains[p] == 0:
+                del self.page_chains[p]
+                delta[p] = delta.get(p, 0) - 1
+                if eff is not None:
+                    eff[p] -= 1
+                    if eff[p] == 0:
+                        freed += 1
+        return freed
+
+    def evict(self, need_free: int, eff: np.ndarray, delta) -> int:
+        """Evict LRU chains until `need_free` more pages would be free,
+        judged against `eff` (the mirror refcounts with this round's
+        pending shares and evictions applied).  Returns pages freed."""
+        freed = 0
+        while freed < need_free and self.chains:
+            key = min(self.chains, key=lambda k: self.chains[k].last_use)
+            freed += self._evict_chain(key, delta, eff)
+        return freed

@@ -1,15 +1,30 @@
-"""Token sampling for the serving engine (port of `repro.runtime.sampling`).
+"""On-device token sampling for the serving engine (port of
+`repro.runtime.sampling`, without the speculative `spec_verify`).
 
-Greedy sampling is an on-device argmax (first index on ties, as
-`jnp.argmax`).  The stochastic methods need per-request `torch.Generator`
-streams and come with a later slice; `sample` raises for them, and so does
-the Engine at construction.  `_filter_logits` (temperature, top-k with the
-rank-based tie rule, top-p) is ported already: it is pure tensor code.
+Each request owns a `torch.Generator` on the engine's device, seeded from
+the engine seed and the request seed alone (`request_generator`), never
+from the slot: a request's stream is the same whichever slot it lands in,
+whatever is batched beside it, and however many decode steps a tick
+fuses.  Every emitted token consumes exactly one draw of the request's
+generator, in order; greedy consumes none.  The draws are PyTorch's, not
+JAX's threefry, so the two packages agree in distribution, not in bits.
+
+Methods:
+  greedy      — argmax (first index on ties, as `jnp.argmax`).
+  temperature — softmax sample of logits / temperature.
+  top_k       — temperature sample restricted to the k highest logits.
+  top_p       — temperature sample restricted to the smallest prefix of
+                the sorted distribution with cumulative mass >= top_p
+                (the best token is always kept).
+The stochastic methods sample by Gumbel-max over `_filter_logits`: the
+argmax of the filtered logits plus -log(-log(u)) noise, u uniform from the
+row's generator.  Nothing reads a device value back.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 METHODS = ("greedy", "temperature", "top_k", "top_p")
@@ -59,10 +74,34 @@ def _filter_logits(logits, sc: SamplingConfig):
     return l
 
 
-def sample(logits, sc: SamplingConfig):
-    """logits (B, V) -> tokens (B,) int32."""
-    if sc.method != "greedy":
-        raise NotImplementedError(
-            f"{sc.method!r} sampling needs per-request torch.Generator "
-            "streams (stochastic sampling), which are not ported yet")
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+def request_generator(base_seed: int, seed: int, device) -> torch.Generator:
+    """A request's sampling stream: a generator on `device` seeded from the
+    engine seed and the request seed only."""
+    mixed = np.random.SeedSequence(
+        [int(base_seed) & 0xFFFFFFFF, int(seed) & 0xFFFFFFFF]
+    ).generate_state(2, np.uint32)
+    g = torch.Generator(device=device)
+    g.manual_seed((int(mixed[0]) << 31) ^ int(mixed[1]))
+    return g
+
+
+def gumbel_noise(gens, V: int, device) -> torch.Tensor:
+    """(len(gens), V) f32 Gumbel noise, one draw of V uniforms from each
+    row's generator.  A row whose generator is None draws nothing; its
+    noise is a constant and its token means nothing."""
+    u = torch.stack([
+        torch.full((V,), 0.5, device=device) if g is None
+        else torch.rand((V,), generator=g, device=device) for g in gens])
+    tiny = torch.finfo(torch.float32).tiny
+    return -torch.log(-torch.log(u.clamp_(min=tiny)))
+
+
+def sample(logits, sc: SamplingConfig, gens=None):
+    """logits (B, V) -> tokens (B,) int32.  `gens` lists each row's
+    generator (None: the row emits nothing and draws nothing); greedy
+    ignores it."""
+    if sc.method == "greedy":
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    l = _filter_logits(logits, sc)
+    noise = gumbel_noise(gens, l.shape[-1], l.device)
+    return torch.argmax(l + noise, dim=-1).to(torch.int32)

@@ -1,11 +1,12 @@
 """Host-side serving policy: request lifecycle and admission planning
-(port of `repro.runtime.scheduler`, colocated engine, without the prefix
-cache and disaggregation, which come with later slices).
+(port of `repro.runtime.scheduler` for the colocated engine, without
+disaggregation).
 
 Every HOST decision lives here, every DEVICE computation in
 `runtime.workers`: the Scheduler owns the FIFO queue, the per-slot request
-registry, the `pages.HostPool` mirror and the finished-result list.
-`plan_round` is the admission policy — FIFO with backpressure and the
+registry, the `pages.HostPool` mirror, the prefix registry and the
+finished-result list.  `plan_round` is the admission policy — FIFO with
+backpressure, prefix matching, LRU eviction of idle cached chains, and the
 mirror's admit-round replay that pins every granted page id host-side —
 and returns an `AdmissionRound` the PrefillWorker executes.
 """
@@ -31,38 +32,52 @@ class Request:
     done: bool = False
     t_submit: float = 0.0
     t_first: float = 0.0          # wall time the first token landed (TTFT)
+    # prefix-cache keys, hashed once at submit: prefix_keys[i] identifies
+    # the (i+1)*prefix_chunk-token prefix of `prompt`
+    prefix_keys: tuple = ()
     stop_tokens: tuple = ()       # per-request stop set
     requested: int = 0            # max_new_tokens as asked (pre-clamp)
     clamped: bool = False         # budget clamped by max_seq at submit
     aborted: bool = False
     prefill_tokens: int = 0       # prompt tokens whose prefill compute ran
+    pages_shared: int = 0         # prefix pages mapped read-only at admit
     result: RequestResult | None = None   # set when the request completes
 
 
 @dataclasses.dataclass
 class AdmissionRound:
     """One admission round, fully decided on the host: which requests land
-    in which slots, the fresh pages each needs (already granted in the
-    HostPool mirror) and the chunk count of each prompt."""
+    in which slots, the page-pool transaction (already replayed in the
+    HostPool mirror) and the chunk schedule.  An empty `admitted` with a
+    non-empty `evict_delta` is an eviction-only round whose refcount
+    decrements still must land on the device pool."""
     admitted: list            # [(slot, Request)] ascending slot order
-    new_pages: dict           # slot -> fresh pages granted
+    plan: dict                # slot -> (m_len, full_ids, cow_src, n_fresh)
+    starts: dict              # slot -> first prefill chunk offset
     n_chunks: dict            # slot -> prefill chunk count
+    evict_delta: dict         # page -> refcount decrement (registry evict)
+    reg_delta: dict           # page -> refcount increment (registration)
+    chunks_skipped: int = 0   # warm-prefix chunks admission never ran
 
 
 class Scheduler:
     """Request lifecycle + admission policy; no device state."""
 
     def __init__(self, *, num_slots: int, max_seq: int, page_size: int,
-                 prefill_chunk: int, num_pages: int, stop_cap: int,
-                 stop_tokens: tuple):
+                 prefill_chunk: int, paged: bool, num_pages: int,
+                 stop_cap: int, stop_tokens: tuple,
+                 prefix: pg.PrefixCache | None):
         self.num_slots = num_slots
         self.max_seq = max_seq
         self.page_size = page_size
         self.prefill_chunk = prefill_chunk
+        self.paged = paged
         self.num_pages = num_pages
         self.stop_cap = stop_cap
         self.stop_tokens = stop_tokens
-        self.pool = pg.HostPool(num_pages, num_slots)
+        self.prefix = prefix
+        self.pool: pg.HostPool | None = \
+            pg.HostPool(num_pages, num_slots) if paged else None
         self.slot_req: list[Request | None] = [None] * num_slots
         self.queue: list[Request] = []
         self.finished: list[RequestResult] = []
@@ -99,55 +114,122 @@ class Scheduler:
             # the decode loop stops at the max_seq - 1 ceiling anyway;
             # clamping here keeps pages and the finish reason honest
             max_new_tokens = self.max_seq - len(prompt)
-        need = self._need_pages(len(prompt), max_new_tokens)
-        if need > self.num_pages:
-            raise ValueError(
-                f"request needs {need} pages ({len(prompt)} prompt + "
-                f"{max_new_tokens} new tokens at page_size="
-                f"{self.page_size}) but the pool only has {self.num_pages}")
+        if self.paged:
+            need = self._need_pages(len(prompt), max_new_tokens)
+            if need > self.num_pages:
+                raise ValueError(
+                    f"request needs {need} pages ({len(prompt)} prompt + "
+                    f"{max_new_tokens} new tokens at page_size="
+                    f"{self.page_size}) but the pool only has "
+                    f"{self.num_pages}")
         uid = next(self._next_uid)
         req = Request(uid=uid, prompt=prompt, max_new_tokens=max_new_tokens,
                       seed=uid if seed is None else int(seed),
                       t_submit=time.perf_counter(), stop_tokens=stop,
                       requested=requested, clamped=clamped)
+        if self.prefix is not None:
+            # hashed once, here: admission only compares precomputed keys
+            req.prefix_keys = self.prefix.keys_for(prompt)
         self.queue.append(req)
         return req
 
     def plan_round(self) -> AdmissionRound | None:
-        """Decide one admission round: FIFO over the queue into free slots;
-        a head that needs more pages than are free holds the WHOLE queue
-        (skipping it would make admission order depend on pool state).
-        Returns None when nothing is admitted."""
+        """Decide one admission round: FIFO over the queue into free slots,
+        with the paged bookkeeping (prefix matching, LRU eviction,
+        backpressure, mirror grant replay).  A head that cannot get its
+        pages holds the WHOLE queue (skipping it would make admission order
+        depend on pool state).  Returns None when nothing happened; an
+        empty `admitted` is an eviction-only round."""
+        ns, C = self.num_slots, self.prefill_chunk
+        paged = self.paged
         admitted: list[tuple[int, Request]] = []
-        fresh: dict[int, int] = {}
-        free_cnt = self.pool.free_pages
-        for slot in range(self.num_slots):
+        # slot -> (matched_len, shared ids, cow page, fresh pages)
+        plan: dict[int, tuple[int, list, int, int]] = {}
+        evict_delta: dict[int, int] = {}
+        reg_delta: dict[int, int] = {}
+        if paged:
+            # decisions on COUNTS only: `eff` accumulates this round's
+            # pending share bumps and eviction decrements; page ids are
+            # assigned once, at the end, like the device's grant pass
+            eff = self.pool.refs.copy()
+            free_cnt = int((eff == 0).sum())
+        for slot in range(ns):
             if self.slot_req[slot] is not None or not self.queue:
                 continue
             req = self.queue[0]
-            need = self._need_pages(len(req.prompt), req.max_new_tokens)
-            if need > free_cnt:
-                break
-            free_cnt -= need
-            fresh[slot] = need
+            if paged:
+                if self.prefix is not None:
+                    # pure planning: telemetry and the LRU tick land in
+                    # `commit`, once the request admits
+                    m_len, full, cow, mkey = self.prefix.match(
+                        req.prefix_keys, len(req.prompt))
+                else:
+                    m_len, full, cow, mkey = 0, [], -1, None
+                need = self._need_pages(len(req.prompt), req.max_new_tokens)
+                n_fresh = need - len(full)
+                # shares first: they may resurrect a cached page whose
+                # refcount would otherwise read as free
+                for p in full:
+                    if eff[p] == 0:
+                        free_cnt -= 1
+                    eff[p] += 1
+                if n_fresh > free_cnt and self.prefix is not None:
+                    # pool dry: evict idle cached prefixes (LRU) first
+                    free_cnt += self.prefix.evict(n_fresh - free_cnt, eff,
+                                                  evict_delta)
+                if n_fresh > free_cnt:
+                    # still dry: roll the shares back and hold the queue
+                    for p in full:
+                        eff[p] -= 1
+                        if eff[p] == 0:
+                            free_cnt += 1
+                    break
+                free_cnt -= n_fresh
+                plan[slot] = (m_len, full, cow, n_fresh)
+                if self.prefix is not None:
+                    self.prefix.commit(mkey, m_len)
             self.queue.pop(0)
             self.slot_req[slot] = req
             admitted.append((slot, req))
         if not admitted:
+            if paged and evict_delta:
+                # the registry already dropped its chains: the decrements
+                # must land although nothing admits, or the pages leak
+                self.pool.apply_delta(evict_delta)
+                return AdmissionRound([], {}, {}, {}, evict_delta, {})
             return None
-        self.pool.admit_round([(s, [], fresh[s]) for s, _ in admitted], {})
-        C = self.prefill_chunk
-        n_chunks = {s: max(1, -(-len(r.prompt) // C)) for s, r in admitted}
-        for _, req in admitted:
-            req.prefill_tokens = len(req.prompt)
-        return AdmissionRound(admitted, fresh, n_chunks)
+        if paged:
+            # assign page ids (lowest free first, slots ascending) and
+            # register the admitted prompts' chains for later rounds; a
+            # chain is matchable only after its producer's prefill ran
+            granted = self.pool.admit_round(
+                [(s, plan[s][1], plan[s][3]) for s, _ in admitted],
+                evict_delta)
+            if self.prefix is not None:
+                for slot, req in admitted:
+                    self.prefix.register(req.prefix_keys,
+                                         plan[slot][1] + granted[slot],
+                                         reg_delta)
+                self.pool.apply_register(reg_delta)
+        starts = {s: plan[s][0] if paged else 0 for s, _ in admitted}
+        n_chunks = {s: max(1, -(-(len(r.prompt) - starts[s]) // C))
+                    for s, r in admitted}
+        skipped = 0
+        for slot, req in admitted:
+            req.prefill_tokens = len(req.prompt) - starts[slot]
+            req.pages_shared = len(plan[slot][1]) if paged else 0
+            if paged:
+                skipped += max(1, -(-len(req.prompt) // C)) - n_chunks[slot]
+        return AdmissionRound(admitted, plan, starts, n_chunks,
+                              evict_delta, reg_delta, skipped)
 
     def release_slot(self, slot: int) -> None:
         """Retire the request in `slot`: free the slot, replay the device
         release in the mirror, seal the request."""
         req = self.slot_req[slot]
         self.slot_req[slot] = None
-        self.pool.release_slot(slot)
+        if self.pool is not None:
+            self.pool.release_slot(slot)
         self.finish(req)
 
     def finish(self, req: Request) -> None:
@@ -168,5 +250,6 @@ class Scheduler:
         req.result = RequestResult(
             uid=req.uid, tokens=tuple(out), finish_reason=reason,
             prefill_tokens=req.prefill_tokens,
+            pages_shared=req.pages_shared,
             ttft=(req.t_first - req.t_submit) if req.t_first else None)
         self.finished.append(req.result)

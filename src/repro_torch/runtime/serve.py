@@ -1,37 +1,51 @@
 """Continuous-batching serving engine (port of `repro.runtime.serve.Engine`
-for the colocated, non-speculative paged engine).
+for the colocated, non-speculative, single-device engine).
 
 The engine composes three layers, as the reference's:
 
   runtime.scheduler — host decisions: FIFO queue, admission with
-                      backpressure, the `pages.HostPool` mirror, request
-                      lifecycle and results.
-  runtime.workers   — device computation: `PrefillWorker` (chunked admit)
-                      and `DecodeWorker` (the decode tick).
+                      backpressure, prefix matching and LRU eviction, the
+                      `pages.HostPool` mirror, request lifecycle, results.
+  runtime.workers   — device computation: `PrefillWorker` (chunked admit,
+                      pool transaction, copy-on-write) and `DecodeWorker`
+                      (the decode tick).
   Engine (here)     — the composition and the public API: `submit`,
-                      `step`, `run`, `pages_in_use`, KV-read accounting,
-                      `close` / context manager.
+                      `step`, `run`, `abort`, `pages_in_use`,
+                      `prefix_stats`, KV-read accounting, `close` /
+                      context manager.
 
-Attention KV lives in a shared pool of `cfg.page_size`-row pages addressed
-through per-slot block tables; pages are granted at admission (lowest free
-id first) and reclaimed the moment a request terminates.  Decode reads go
-through the hand-written paged-decode kernels when `decode_kernel` is on —
-by default whenever the engine runs on CUDA; an explicit False selects the
-gather oracle.  The host syncs once per decode tick and once per admission
-round.
+KV layouts (`kv_layout=`):
+  "paged" (default) — attention KV lives in a shared pool of
+      `cfg.page_size`-row pages addressed through per-slot block tables;
+      pages are granted at admission (lowest free id first) and reclaimed
+      the moment a request terminates.  Decode reads go through the
+      hand-written paged-decode kernels when `decode_kernel` is on — by
+      default whenever the engine runs on CUDA; an explicit False selects
+      the gather oracle.
+  "dense" — the per-slot max_seq reservation, kept as the parity oracle;
+      its decode reads always take the gather oracle (`chunk_attention`),
+      never the kernels, as in the reference.
+
+Prefix caching (`prefix_cache=True`, the default, paged only): prompts are
+hashed at `submit` in `prefix_chunk`-token pieces; a warm admission maps
+the longest cached prefix's full pages read-only into the slot's table,
+skips their prefill compute, and receives a partially covered page as a
+private copy (copy-on-write), so cached pages are never written.
+
+Sampling is greedy or stochastic (temperature / top-k / top-p) from
+per-request generators seeded by (engine seed, request seed).  The host
+syncs once per decode tick and once per admission round;
+`check_invariants=True` also reads the device allocator back after every
+sync and compares it with the host mirror.
 
 The engine runs on the card unless the caller asks for the CPU
 (`device="cpu"`); with no GPU and no explicit CPU request it raises.
-Options this slice does not serve raise NotImplementedError at
-construction: speculation, disaggregation, a mesh, the dense KV layout,
-stochastic sampling and `check_invariants`.  The prefix cache (on by
-default in `PrefixOptions`) is not ported yet; the engine serves without
-it, which leaves greedy streams unchanged.
+Speculation, disaggregation and a mesh raise NotImplementedError at
+construction.
 """
 from __future__ import annotations
 
 import time
-import warnings
 
 import numpy as np
 import torch
@@ -39,6 +53,7 @@ import torch
 from repro_torch.kernels import paged_attention as pk
 from repro_torch.models import model as M
 from repro_torch.models.transformer import tree_map
+from repro_torch.runtime import pages as pg
 from repro_torch.runtime.options import EngineOptions, RequestResult
 from repro_torch.runtime.scheduler import Request, Scheduler
 from repro_torch.runtime.workers import (DecodeWorker, PrefillWorker,
@@ -65,21 +80,14 @@ def _unported(options: EngineOptions) -> str | None:
         return "prefill/decode disaggregation"
     if options.parallel.mesh is not None:
         return "a device mesh (tensor and expert parallel serving)"
-    if options.paging.kv_layout != "paged":
-        return "the dense KV layout in the Engine"
-    if options.sampling.method != "greedy":
-        return (f"{options.sampling.method!r} sampling (per-request "
-                "torch.Generator streams)")
-    if options.debug.check_invariants:
-        return "check_invariants (the engine's invariant checks)"
     return None
 
 
 class Engine:
-    """Paged continuous-batching engine.  Construction mirrors the
-    reference: `Engine(cfg, params, options=EngineOptions(...))`, with the
-    legacy flat kwargs merged by `EngineOptions.build`; `device` picks the
-    card (default) or, by name, the CPU."""
+    """Continuous-batching engine.  Construction mirrors the reference:
+    `Engine(cfg, params, options=EngineOptions(...))`, with the legacy flat
+    kwargs merged by `EngineOptions.build`; `device` picks the card
+    (default) or, by name, the CPU."""
 
     def __init__(self, cfg, params, num_slots: int | None = None,
                  max_seq: int | None = None, *,
@@ -106,10 +114,6 @@ class Engine:
         if par.capacity_factor is not None:
             cfg = cfg.replace(moe_capacity_factor=float(par.capacity_factor))
         M.cache_pool_flags(cfg)         # rejects layer kinds not ported yet
-        if options.prefix.enabled:
-            warnings.warn("prefix cache (refcounted shared prefix pages): "
-                          "not ported to repro_torch yet; serving without "
-                          "it (greedy streams are unchanged)", stacklevel=3)
         self.cfg = cfg
         self.params = tree_map(lambda a: a.to(device), params)
         self.num_slots, self.max_seq = sch.num_slots, sch.max_seq
@@ -118,35 +122,51 @@ class Engine:
             else None
         self.sampling = options.sampling
         self.decode_steps = sch.decode_steps
+        self.check_invariants = options.debug.check_invariants
+        self.n_invariant_checks = 0
         self.prefill_chunk = max(1, min(sch.prefill_chunk, sch.max_seq - 1))
         self._stop_cap = max(4, len(self.stop_tokens))
-        self.kv_layout = "paged"
+        self.kv_layout = options.paging.kv_layout
+        paged = self.kv_layout == "paged"
         self.page_size = cfg.page_size
         self.pages_per_slot = -(-self.max_seq // self.page_size)
-        self.num_pages = int(options.paging.num_pages) \
-            if options.paging.num_pages is not None \
-            else self.num_slots * self.pages_per_slot
+        if paged:
+            self.num_pages = int(options.paging.num_pages) \
+                if options.paging.num_pages is not None \
+                else self.num_slots * self.pages_per_slot
+        else:
+            self.num_pages = 0
         dk = options.paging.decode_kernel
-        self.decode_kernel = bool(dk if dk is not None
-                                  else device.type == "cuda")
+        self.decode_kernel = paged and bool(dk if dk is not None
+                                            else device.type == "cuda")
+        # the prefix cache shares pool pages, so it is paged-only
+        self.prefix_chunk = int(options.prefix.chunk) \
+            if options.prefix.chunk is not None else self.page_size
+        prefix = pg.PrefixCache(self.prefix_chunk, self.page_size,
+                                max_chains=options.prefix.max_chains) \
+            if options.prefix.enabled and paged else None
         self.sched = Scheduler(
             num_slots=self.num_slots, max_seq=self.max_seq,
             page_size=self.page_size, prefill_chunk=self.prefill_chunk,
-            num_pages=self.num_pages, stop_cap=self._stop_cap,
-            stop_tokens=self.stop_tokens)
+            paged=paged, num_pages=self.num_pages, stop_cap=self._stop_cap,
+            stop_tokens=self.stop_tokens, prefix=prefix)
         self.prefill = PrefillWorker(
             cfg=cfg, num_slots=self.num_slots, max_seq=self.max_seq,
             prefill_chunk=self.prefill_chunk, stop_cap=self._stop_cap,
-            sampling=self.sampling)
+            sampling=self.sampling, paged=paged, base_seed=sch.seed)
         self.decode = DecodeWorker(
             cfg=cfg, max_seq=self.max_seq, decode_steps=self.decode_steps,
-            sampling=self.sampling, decode_kernel=self.decode_kernel)
+            sampling=self.sampling, paged=paged,
+            decode_kernel=self.decode_kernel)
         self.state = init_slot_state(self.num_slots, self._stop_cap,
-                                     self.pages_per_slot, self.num_pages,
-                                     device)
+                                     self.pages_per_slot if paged else 0,
+                                     self.num_pages, device)
         self.caches = M.init_cache(cfg, self.num_slots, self.max_seq,
-                                   num_pages=self.num_pages, device=device)
+                                   num_pages=self.num_pages if paged
+                                   else None, device=device)
         self.pages_high_water = 0
+        self.pages_shared_high_water = 0
+        self.prefill_chunks_skipped = 0
         # one host sync per tick and per admission round
         self.n_ticks = 0
         self.n_admit_calls = 0
@@ -160,29 +180,63 @@ class Engine:
 
     # ------------------------------------------------------------------
     @property
-    def pool(self):
-        """The HostPool mirror of the page pool."""
+    def pool(self) -> pg.HostPool | None:
+        """The HostPool mirror of the page pool; None under dense."""
         return self.sched.pool
 
     @property
+    def prefix(self) -> pg.PrefixCache | None:
+        return self.sched.prefix
+
+    @property
+    def slot_req(self) -> list:
+        return self.sched.slot_req
+
+    @property
     def pages_in_use(self) -> int:
-        """Pages with refcount > 0."""
-        return self.sched.pool.pages_in_use
+        """Pages with refcount > 0, slot-held and cache-held alike."""
+        pool = self.sched.pool
+        return pool.pages_in_use if pool is not None else 0
 
     def submit(self, prompt, max_new_tokens: int = 16,
                seed: int | None = None,
                stop_tokens: tuple | None = None) -> Request:
         """Queue a prompt.  `stop_tokens` overrides the engine's default
         stop set for this request; a budget that cannot fit the cache is
-        clamped here (finish reason "max_seq")."""
+        clamped here (finish reason "max_seq").  `seed` keys the request's
+        sampling stream (default: its uid)."""
         return self.sched.submit(prompt, max_new_tokens, seed, stop_tokens)
 
+    def _retire(self, slot: int) -> None:
+        """Host side of a slot's release: its generator goes, the
+        scheduler seals the request."""
+        gens = list(self.state.gens)
+        gens[slot] = None
+        self.state = self.state._replace(gens=tuple(gens))
+        self.sched.release_slot(slot)
+
     def _admit(self) -> None:
+        paged = self.kv_layout == "paged"
         rnd = self.sched.plan_round()
         if rnd is None:
             return
-        self.pages_high_water = max(self.pages_high_water,
-                                    self.sched.pool.pages_in_use)
+        if not rnd.admitted:
+            # eviction-only round: the registry already dropped its chains
+            # host-side; commit the decrements on the device pool
+            ev = np.zeros((self.num_pages,), np.int32)
+            for p, d in rnd.evict_delta.items():
+                ev[p] = d
+            self.state = self.state._replace(pages=pg.apply_refs_delta(
+                self.state.pages, torch.from_numpy(ev).to(self.device)))
+            if self.check_invariants:
+                self._verify_invariants()
+            return
+        if paged:
+            self.pages_high_water = max(self.pages_high_water,
+                                        self.sched.pool.pages_in_use)
+            self.pages_shared_high_water = max(self.pages_shared_high_water,
+                                               self.sched.pool.pages_shared)
+        self.prefill_chunks_skipped += rnd.chunks_skipped
         self.state, self.caches, toks = self.prefill.run_round(
             self.params, self.state, self.caches, rnd)
         self.n_admit_calls += toks.shape[0]
@@ -198,9 +252,76 @@ class Engine:
             self.n_generated += 1
             if not active[slot]:
                 # terminated at admission; the device already released it
-                self.sched.release_slot(slot)
+                self._retire(slot)
         self.n_syncs += 1
+        if self.check_invariants:
+            self._verify_invariants()
 
+    # ------------------------------------------------------------------
+    # telemetry / debug
+    # ------------------------------------------------------------------
+
+    def prefix_stats(self) -> dict:
+        """Prefix-cache telemetry for reports and benches."""
+        if self.prefix is None:
+            return {"enabled": False, "hits": 0, "misses": 0,
+                    "hit_rate": 0.0, "tokens_skipped": 0, "evictions": 0,
+                    "cached_pages": 0, "chunks_skipped": 0}
+        c = self.prefix
+        looked = c.hits + c.misses
+        return {"enabled": True, "hits": c.hits, "misses": c.misses,
+                "hit_rate": c.hits / looked if looked else 0.0,
+                "tokens_skipped": c.tokens_skipped,
+                "evictions": c.evictions, "cached_pages": c.cached_pages,
+                "chunks_skipped": self.prefill_chunks_skipped}
+
+    def _verify_pool(self, host: pg.HostPool, dev: pg.PagePool,
+                     cached: int) -> None:
+        """Mirror-vs-device cross-check: refcounts, free popcount, per-slot
+        block tables and ownership, and the I3 identity
+        sum(n_pages) == sum(refs) - cached_pages."""
+        refs = dev.refs.cpu().numpy()
+        if (refs < 0).any():
+            raise AssertionError(f"device refcounts negative: {refs}")
+        if not np.array_equal(refs, host.refs):
+            raise AssertionError(f"host/device refcount drift:\n host "
+                                 f"{host.refs}\n device {refs}")
+        if int((refs == 0).sum()) != host.free_pages:
+            raise AssertionError(
+                f"free popcount drift: host {host.free_pages}, device "
+                f"{int((refs == 0).sum())}")
+        n_pages = dev.n_pages.cpu().numpy()
+        tables = dev.tables.cpu().numpy()
+        owned = dev.owned.cpu().numpy()
+        for s in range(self.num_slots):
+            t = host.slot_tables[s]
+            if int(n_pages[s]) != len(t):
+                raise AssertionError(f"slot {s} n_pages drift: host "
+                                     f"{len(t)}, device {int(n_pages[s])}")
+            if list(tables[s, :len(t)]) != t:
+                raise AssertionError(f"slot {s} table drift: host {t}, "
+                                     f"device {list(tables[s, :len(t)])}")
+            if list(owned[s, :len(t)]) != host.slot_owned[s]:
+                raise AssertionError(
+                    f"slot {s} ownership drift: host {host.slot_owned[s]}, "
+                    f"device {list(owned[s, :len(t)])}")
+        if int(n_pages.sum()) != int(refs.sum()) - cached:
+            raise AssertionError(
+                f"refcount identity broken: sum(n_pages)="
+                f"{int(n_pages.sum())}, sum(refs)={int(refs.sum())}, "
+                f"cached={cached}")
+
+    def _verify_invariants(self) -> None:
+        """Debug-mode cross-check (`check_invariants=True`): the HostPool
+        mirror must equal the device allocator exactly.  Reads device
+        tensors back; not counted in `n_syncs`."""
+        if self.kv_layout != "paged":
+            return
+        cached = self.prefix.cached_pages if self.prefix is not None else 0
+        self._verify_pool(self.sched.pool, self.state.pages, cached)
+        self.n_invariant_checks += 1
+
+    # ------------------------------------------------------------------
     def step(self) -> bool:
         """One engine tick: admit queued prompts, then `decode_steps`
         decode steps for all active slots, ending in one host sync."""
@@ -234,7 +355,9 @@ class Engine:
                     req.out_tokens.append(int(toks_h[t, slot]))
                     self.n_generated += 1
             if not active[slot]:
-                self.sched.release_slot(slot)
+                self._retire(slot)
+        if self.check_invariants:
+            self._verify_invariants()
         return True
 
     def run(self, max_ticks: int = 10_000) -> list[RequestResult]:
@@ -245,6 +368,36 @@ class Engine:
                 break
         done, self.sched.finished = self.sched.finished, []
         return done
+
+    def abort(self, req: Request) -> bool:
+        """Cancel a request.  Queued: removed before it ever runs.  Running:
+        its slot is deactivated and (paged) its page references released
+        at once — the freed pages are grantable in the next admission
+        round.  Returns False if the request had already finished.  Either
+        way an aborted request keeps the tokens it emitted, with
+        finish_reason "aborted"."""
+        if req.done:
+            return False
+        req.aborted = True
+        if req in self.sched.queue:
+            self.sched.queue.remove(req)
+            self.sched.finish(req)
+            return True
+        for slot, r in enumerate(self.sched.slot_req):
+            if r is req:
+                dead = torch.arange(self.num_slots,
+                                    device=self.device) == slot
+                state = self.state._replace(active=self.state.active & ~dead)
+                if self.kv_layout == "paged":
+                    state = state._replace(pages=pg.release(state.pages,
+                                                            dead))
+                self.state = state
+                self._retire(slot)
+                if self.check_invariants:
+                    self._verify_invariants()
+                return True
+        # not queued, not in a slot, not done — unreachable by construction
+        raise AssertionError(f"request {req.uid} is in no engine structure")
 
     def close(self) -> None:
         """Drop the engine's device state (idempotent)."""

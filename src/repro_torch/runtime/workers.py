@@ -1,15 +1,18 @@
 """Device-facing worker roles: chunked prefill admission and the decode tick
-(port of `repro.runtime.workers` for the colocated, non-speculative paged
-engine).
+(port of `repro.runtime.workers` for the colocated, non-speculative
+engine, paged or dense).
 
   PrefillWorker — executes a Scheduler `AdmissionRound`: fixed
                   `prefill_chunk`-token chunks, all admitting slots per
-                  call; the first chunk carries the round's pool grant, the
-                  final chunk of each prompt samples its first token on the
+                  call; under the paged layout the first chunk carries the
+                  round's whole pool transaction (evict → share → grant →
+                  register) and the copy-on-write split, and a warm slot's
+                  chunks start at its matched prefix length; the final
+                  chunk of each prompt samples its first token on the
                   device and commits the slot state.
   DecodeWorker  — the tick: `decode_steps` decode → sample → terminate
-                  steps over every slot; slots that terminate release
-                  their pages before the host looks.
+                  steps over every slot; under the paged layout, slots that
+                  terminate release their pages before the host looks.
 
 Both run eagerly on device tensors and never read a device value back: the
 Engine syncs once per tick and once per admission round.  The host arrays
@@ -29,13 +32,16 @@ from repro_torch.runtime import sampling as smp
 
 
 class SlotState(NamedTuple):
-    """Per-slot decode state; device tensors for all slots."""
+    """Per-slot decode state; device tensors for all slots, plus each
+    slot's sampling stream (the request's `torch.Generator`, None when the
+    slot holds no request or the sampling is greedy)."""
     last_tok: torch.Tensor   # (S,) i32  last sampled token (next input)
     pos: torch.Tensor        # (S,) i32  next cache index to write
     budget: torch.Tensor     # (S,) i32  tokens still to emit after this one
     active: torch.Tensor     # (S,) bool slot is mid-generation
     stop: torch.Tensor       # (S, K) i32 per-request stop set, -1 padded
-    pages: pg.PagePool       # refcounted page allocator
+    pages: pg.PagePool       # refcounted page allocator (paged layout)
+    gens: tuple              # (S,) torch.Generator | None
 
 
 def init_slot_state(num_slots: int, stop_cap: int, table_len: int,
@@ -46,14 +52,15 @@ def init_slot_state(num_slots: int, stop_cap: int, table_len: int,
         active=torch.zeros((num_slots,), dtype=torch.bool, device=device),
         stop=torch.full((num_slots, stop_cap), -1, dtype=torch.int32,
                         device=device),
-        pages=pg.init_pool(num_slots, table_len, num_pages, device))
+        pages=pg.init_pool(num_slots, table_len, num_pages, device),
+        gens=(None,) * num_slots)
 
 
 def _bundle(pool: pg.PagePool, max_seq: int, page_size: int, write_mask,
             kernel: bool = False) -> attn.PagedKV:
     """The PagedKV bundle for one call: `owned` drops writes aimed at
-    pages a slot does not own; `kernel` routes Sq=1 reads through the
-    paged-decode kernels."""
+    pages a slot does not own (shared prefix pages); `kernel` routes Sq=1
+    reads through the paged-decode kernels."""
     return attn.PagedKV(tables=pool.tables, n_pages=pool.n_pages,
                         write_mask=write_mask, max_seq=max_seq,
                         page_size=page_size, owned=pool.owned,
@@ -72,12 +79,13 @@ class DecodeWorker:
     """Runs the decode tick against one pool's state."""
 
     def __init__(self, *, cfg, max_seq: int, decode_steps: int, sampling,
-                 decode_kernel: bool):
+                 paged: bool, decode_kernel: bool):
         self.cfg = cfg
         self.max_seq = max_seq
         self.page_size = cfg.page_size
         self.decode_steps = decode_steps
         self.sampling = sampling
+        self.paged = paged
         self.decode_kernel = decode_kernel
 
     def tick(self, params, state: SlotState, caches):
@@ -87,14 +95,18 @@ class DecodeWorker:
         pre_active = state.active
         toks, emits = [], []
         for _ in range(self.decode_steps):
-            # inactive slots must not write: their stale block-table
-            # entries may point at pages since re-granted to another slot
+            # paged: inactive slots must not write, since their stale
+            # block-table entries may point at pages re-granted since.
+            # Dense slots own their rows, so their writes need no mask
             pv = _bundle(state.pages, max_seq, self.page_size, state.active,
-                         self.decode_kernel)
+                         self.decode_kernel) if self.paged else None
             logits, caches = M.decode_step(params, state.last_tok[:, None],
                                            self.cfg, caches, state.pos,
                                            paged=pv)
-            sampled = smp.sample(logits, self.sampling)
+            # a slot whose request ended earlier in this tick still draws
+            # from that request's generator; its stream is over, so the
+            # extra draw changes nothing any request emits
+            sampled = smp.sample(logits, self.sampling, state.gens)
             emit = state.active
             tok = torch.where(emit, sampled, state.last_tok)
             pos = torch.where(emit, state.pos + 1, state.pos)
@@ -106,8 +118,9 @@ class DecodeWorker:
                                    active=active)
             toks.append(tok)
             emits.append(emit)
-        dead = pre_active & ~state.active
-        state = state._replace(pages=pg.release(state.pages, dead))
+        if self.paged:
+            dead = pre_active & ~state.active
+            state = state._replace(pages=pg.release(state.pages, dead))
         return state, caches, torch.stack(toks), torch.stack(emits)
 
 
@@ -115,7 +128,8 @@ class PrefillWorker:
     """Runs the chunked admission path against one pool's state."""
 
     def __init__(self, *, cfg, num_slots: int, max_seq: int,
-                 prefill_chunk: int, stop_cap: int, sampling):
+                 prefill_chunk: int, stop_cap: int, sampling, paged: bool,
+                 base_seed: int):
         self.cfg = cfg
         self.num_slots = num_slots
         self.max_seq = max_seq
@@ -124,33 +138,44 @@ class PrefillWorker:
         self.prefill_chunk = prefill_chunk
         self.stop_cap = stop_cap
         self.sampling = sampling
+        self.paged = paged
+        self.base_seed = base_seed
+        self.pool_flags = M.cache_pool_flags(cfg) if paged else None
 
     def admit_chunk(self, params, state: SlotState, caches, tokens, valid,
-                    offsets, true_lens, budgets0, stops, admitting,
-                    new_pages):
-        """One prefill chunk for every admitting slot.  `admitting` (only
-        set on a round's first chunk) applies the round's page grant."""
+                    offsets, true_lens, budgets0, stops, gens, txn=None):
+        """One prefill chunk for every admitting slot.  `gens` holds the
+        generator of each slot whose prompt ends in this chunk (None
+        elsewhere).  `txn` (paged only, a round's first chunk) is the pool
+        transaction (admitting, shared, n_shared, new_pages, cow_src,
+        evict_delta, register_delta): `admit_update`, then the
+        copy-on-write split into table entry n_shared, both before any
+        write of the forward."""
         ns, C = tokens.shape
         max_seq = self.max_seq
-        if admitting is not None:
-            dev = tokens.device
-            P = state.pages.refs.shape[0]
-            zeros_p = torch.zeros((P,), dtype=torch.int32, device=dev)
-            pool = pg.admit_update(
-                state.pages, admitting,
-                torch.zeros((ns, self.pages_per_slot), dtype=torch.int32,
-                            device=dev),
-                torch.zeros((ns,), dtype=torch.int32, device=dev),
-                new_pages, zeros_p, zeros_p)
+        if txn is not None:
+            admitting, shared, n_shared, new_pages, cow_src, ev, rg = txn
+            pool = pg.admit_update(state.pages, admitting, shared, n_shared,
+                                   new_pages, ev, rg)
             state = state._replace(pages=pool)
+            # a cached prefix that ends mid-page lands as a private copy in
+            # the slot's first FRESH page (one always exists: the match is
+            # capped at prompt_len - 1).  The copy reads the source before
+            # the forward writes, so a source page whose chain was evicted
+            # and granted again this round still gives its old rows
+            mp = pool.tables.shape[1]
+            dst = torch.gather(pool.tables, 1,
+                               n_shared.clamp(0, mp - 1).long()[:, None])[:, 0]
+            pg.cow_copy(caches, self.pool_flags, cow_src, dst)
         # unembed only each slot's true last prompt row
         idx = (true_lens - 1 - offsets).clamp(0, C - 1)
-        pv = _bundle(state.pages, max_seq, self.page_size, valid)
+        pv = _bundle(state.pages, max_seq, self.page_size, valid) \
+            if self.paged else attn.DenseKV(write_mask=valid, max_seq=max_seq)
         logits, _, caches = M.forward(params, {"tokens": tokens}, self.cfg,
                                       caches=caches, cache_pos=offsets,
                                       gather_pos=idx, paged=pv)
         final = valid & (offsets + C >= true_lens)
-        toks = smp.sample(logits[:, 0], self.sampling)
+        toks = smp.sample(logits[:, 0], self.sampling, gens)
         hit_stop = final & (toks[:, None] == stops).any(dim=1)
         act = final & (budgets0 > 0) & ~hit_stop & (true_lens < max_seq - 1)
         state = state._replace(
@@ -158,10 +183,14 @@ class PrefillWorker:
             pos=torch.where(final, true_lens, state.pos),
             budget=torch.where(final, budgets0, state.budget),
             active=torch.where(final, act, state.active),
-            stop=torch.where(final[:, None], stops, state.stop))
-        # a request that terminates AT admission (first token a stop token,
-        # or no decode room) drops its references right here
-        state = state._replace(pages=pg.release(state.pages, final & ~act))
+            stop=torch.where(final[:, None], stops, state.stop),
+            gens=tuple(g if g is not None else old
+                       for g, old in zip(gens, state.gens)))
+        if self.paged:
+            # a request that terminates AT admission (first token a stop
+            # token, or no decode room) drops its references right here
+            state = state._replace(pages=pg.release(state.pages,
+                                                    final & ~act))
         return state, caches, toks
 
     def run_round(self, params, state, caches, rnd):
@@ -169,41 +198,73 @@ class PrefillWorker:
         (n_chunks, S) device tensor of each chunk's sampled tokens); the
         caller reads a slot's first token at its final chunk."""
         ns, C, K = self.num_slots, self.prefill_chunk, self.stop_cap
+        mp, P = self.pages_per_slot, state.pages.refs.shape[0]
         n_calls = max(rnd.n_chunks.values())
+        dev = state.last_tok.device
         # one host block for the whole round: per chunk, the columns
-        # [tokens (ns*C) | valid | offsets | true_lens | budgets0 |
-        #  admitting | new_pages (ns each) | stops (ns*K)]
-        width = ns * C + 6 * ns + ns * K
-        host = np.zeros((n_calls, width), np.int32)
+        # [tokens (ns*C) | valid | offsets | true_lens | budgets0 (ns each)
+        #  | stops (ns*K)], then the pool transaction (paged)
+        # [admitting | n_shared | new_pages | cow_src (ns each) |
+        #  shared (ns*mp) | evict (P) | register (P)]
+        width = ns * C + 4 * ns + ns * K
+        n_txn = 4 * ns + ns * mp + 2 * P if self.paged else 0
+        host = np.zeros((n_calls * width + n_txn,), np.int32)
+        block = host[:n_calls * width].reshape(n_calls, width)
+        gens = [[None] * ns for _ in range(n_calls)]
         for ci in range(n_calls):
-            tok = host[ci, :ns * C].reshape(ns, C)
-            cols = host[ci, ns * C:ns * C + 6 * ns].reshape(6, ns)
-            stops = host[ci, ns * C + 6 * ns:].reshape(ns, K)
+            tok = block[ci, :ns * C].reshape(ns, C)
+            cols = block[ci, ns * C:ns * C + 4 * ns].reshape(4, ns)
+            stops = block[ci, ns * C + 4 * ns:].reshape(ns, K)
             cols[2] = 1                                  # true_lens padding
             stops[:] = -1
             for slot, req in rnd.admitted:
                 if ci >= rnd.n_chunks[slot]:
                     continue
-                off = ci * C
+                off = rnd.starts[slot] + ci * C
                 piece = req.prompt[off:off + C]
                 tok[slot, :len(piece)] = piece
                 cols[0, slot] = 1
                 cols[1, slot] = off
                 cols[2, slot] = len(req.prompt)
                 cols[3, slot] = req.max_new_tokens - 1
-                if ci == 0:
-                    cols[4, slot] = 1
-                    cols[5, slot] = rnd.new_pages[slot]
                 stops[slot, :len(req.stop_tokens)] = req.stop_tokens
-        dev_block = _upload(host, state.last_tok.device)
+                if ci == rnd.n_chunks[slot] - 1 and \
+                        self.sampling.method != "greedy":
+                    gens[ci][slot] = smp.request_generator(
+                        self.base_seed, req.seed, dev)
+        if self.paged:
+            txn = host[n_calls * width:]
+            cols = txn[:4 * ns].reshape(4, ns)
+            shared = txn[4 * ns:4 * ns + ns * mp].reshape(ns, mp)
+            ev = txn[4 * ns + ns * mp:4 * ns + ns * mp + P]
+            rg = txn[4 * ns + ns * mp + P:]
+            cols[3] = -1
+            for slot, _ in rnd.admitted:
+                _, full, cow, n_fresh = rnd.plan[slot]
+                cols[:, slot] = (1, len(full), n_fresh, cow)
+                shared[slot, :len(full)] = full
+            for p, d in rnd.evict_delta.items():
+                ev[p] = d
+            for p, d in rnd.reg_delta.items():
+                rg[p] = d
+        dev_host = _upload(host, dev)
+        dev_block = dev_host[:n_calls * width].reshape(n_calls, width)
+        txn = None
+        if self.paged:
+            t = dev_host[n_calls * width:]
+            cols = t[:4 * ns].reshape(4, ns)
+            txn = (cols[0].bool(), t[4 * ns:4 * ns + ns * mp].reshape(ns, mp),
+                   cols[1], cols[2], cols[3],
+                   t[4 * ns + ns * mp:4 * ns + ns * mp + P],
+                   t[4 * ns + ns * mp + P:])
         out = []
         for ci in range(n_calls):
             row = dev_block[ci]
-            cols = row[ns * C:ns * C + 6 * ns].reshape(6, ns)
+            cols = row[ns * C:ns * C + 4 * ns].reshape(4, ns)
             state, caches, toks = self.admit_chunk(
                 params, state, caches, row[:ns * C].reshape(ns, C),
                 cols[0].bool(), cols[1], cols[2], cols[3],
-                row[ns * C + 6 * ns:].reshape(ns, K),
-                cols[4].bool() if ci == 0 else None, cols[5])
+                row[ns * C + 4 * ns:].reshape(ns, K), tuple(gens[ci]),
+                txn if ci == 0 else None)
             out.append(toks)
         return state, caches, torch.stack(out)

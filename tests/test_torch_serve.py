@@ -3,9 +3,9 @@
 parity case of tests/test_serving_engine.py: token streams identical, for
 fp KV, int8 KV and 8-bit BRAMAC weights.  Plus the Engine's own contracts:
 decode_steps fusion, kernel on/off, page reclaim, admission-time EOS, the
-max_seq clamp, and NotImplementedError for options not ported yet."""
-import warnings
-
+max_seq clamp, and NotImplementedError for options not ported yet.  These
+engines run without the prefix cache (tests/test_torch_prefix.py covers
+it), so every page returns to the pool when the queue drains."""
 import jax
 import numpy as np
 import pytest
@@ -49,9 +49,8 @@ def _variant(base, name):
 def _serve(tc, tp, prompts, news=NEWS, **kw):
     kw.setdefault("num_slots", 2)
     kw.setdefault("max_seq", MAX_SEQ)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")          # prefix cache not ported
-        eng = Engine(tc, tp, device="cpu", **kw)
+    kw.setdefault("prefix_cache", False)
+    eng = Engine(tc, tp, device="cpu", **kw)
     reqs = [eng.submit(p, n) for p, n in zip(prompts, news)]
     eng.run()
     return eng, reqs
@@ -110,9 +109,7 @@ def test_eos_at_admission_and_max_seq_clip(base):
 
 
 @pytest.mark.parametrize("option", [
-    {"draft_len": 2}, {"disagg": True}, {"mesh": "model=2"},
-    {"kv_layout": "dense"}, {"sampling": "top_k", "top_k": 3},
-    {"check_invariants": True}])
+    {"draft_len": 2}, {"disagg": True}, {"mesh": "model=2"}])
 def test_unported_options_raise(base, option):
     _, tp, _ = base
     _, tc = smoke_pair()
@@ -122,7 +119,9 @@ def test_unported_options_raise(base, option):
 
 def test_device_defaults_to_cuda_and_prefix_cache_warns(base):
     """No GPU and no explicit CPU request: a clear error, never a silent CPU
-    run.  The default-on prefix cache warns once that it is not ported."""
+    run.  The default Engine is the reference's: the prefix cache is on
+    and constructs without a warning."""
+    import warnings
     _, tp, _ = base
     _, tc = smoke_pair()
     if not torch.cuda.is_available():
@@ -130,8 +129,10 @@ def test_device_defaults_to_cuda_and_prefix_cache_warns(base):
             resolve_device(None)
         with pytest.raises(RuntimeError):
             Engine(tc, tp, prefix_cache=False)
-    with pytest.warns(UserWarning, match="prefix cache"):
-        Engine(tc, tp, device="cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        eng = Engine(tc, tp, device="cpu")
+    assert eng.prefix is not None and eng.prefix_stats()["enabled"]
     assert EngineOptions().prefix.enabled
     assert SamplingConfig().method == "greedy"
 
@@ -176,37 +177,71 @@ def test_filter_logits_matches_jax():
 
 
 def test_page_allocator_matches_jax_and_host_mirror():
-    """admit_update (lowest free id first, slots ascending) and release
-    give the reference's pool state, and HostPool replays the grants."""
+    """admit_update (evict → share → grant → register; lowest free id
+    first, slots ascending), apply_refs_delta and release give the
+    reference's pool state, and HostPool replays the grants."""
     from repro.runtime import pages as jpg
     from repro_torch.runtime import pages as tpg
     S, mp, P = 3, 4, 10
     jpool, tpool = jpg.init_pool(S, mp, P), tpg.init_pool(S, mp, P)
     host = tpg.HostPool(P, S)
-    rounds = [([True, False, True], [2, 0, 3]), ([False, True, False],
-                                                  [0, 4, 0])]
-    dead_after = [[True, False, False], [False, False, True]]
-    for (adm, new), dead in zip(rounds, dead_after):
-        zs = np.zeros((S, mp), np.int32)
-        args = (np.asarray(adm), zs, np.zeros(S, np.int32),
-                np.asarray(new, np.int32), np.zeros(P, np.int32),
-                np.zeros(P, np.int32))
-        jpool = jpg.admit_update(jpool, *map(jax.numpy.asarray, args))
-        tpool = tpg.admit_update(tpool, *map(torch.from_numpy, args))
-        granted = host.admit_round(
-            [(s, [], n) for s, (a, n) in enumerate(zip(adm, new)) if a], {})
+
+    def same():
         for f in ("refs", "tables", "n_pages", "owned"):
             np.testing.assert_array_equal(getattr(tpool, f).numpy(),
                                           np.asarray(getattr(jpool, f)))
-        for s, ids in granted.items():
-            assert tpool.tables[s, :len(ids)].tolist() == ids
-        d = np.asarray(dead)
-        jpool = jpg.release(jpool, jax.numpy.asarray(d))
-        tpool = tpg.release(tpool, torch.from_numpy(d))
-        for s in np.flatnonzero(d):
-            host.release_slot(int(s))
-        np.testing.assert_array_equal(tpool.refs.numpy(),
-                                      np.asarray(jpool.refs))
         np.testing.assert_array_equal(tpool.refs.numpy(), host.refs)
         np.testing.assert_array_equal(tpg.free_mask(tpool).numpy(),
                                       host.refs == 0)
+
+    def delta(d):
+        a = np.zeros(P, np.int32)
+        for p, v in d.items():
+            a[p] = v
+        return a
+
+    # (admitting, fresh pages, {slot: shared ids}, evict, register, dead):
+    # round 1 registers a cache ref on pages 0 and 1; round 3 is
+    # eviction-only (page 1 freed); round 4 evicts page 0's cache ref and
+    # shares it back in the same round, so page 0 must not be granted
+    rounds = [([True, False, True], [2, 0, 3], {}, {}, {}, [True, False,
+                                                            False]),
+              ([False, True, False], [0, 4, 0], {}, {}, {}, [False, False,
+                                                             True]),
+              ([True, False, True], [2, 0, 1], {}, {}, {0: 1, 1: 1},
+               [True, True, False]),
+              (None, None, None, {1: -1}, None, None),
+              ([True, False, False], [2, 0, 0], {0: [0]}, {0: -1}, {},
+               [True, False, True])]
+    for adm, new, sh, ev, rg, dead in rounds:
+        if adm is None:
+            jpool = jpg.apply_refs_delta(jpool, jax.numpy.asarray(delta(ev)))
+            tpool = tpg.apply_refs_delta(tpool, torch.from_numpy(delta(ev)))
+            host.apply_delta(ev)
+            same()
+            continue
+        shared = np.zeros((S, mp), np.int32)
+        n_shared = np.zeros(S, np.int32)
+        for s_, ids in sh.items():
+            shared[s_, :len(ids)] = ids
+            n_shared[s_] = len(ids)
+        args = (np.asarray(adm), shared, n_shared, np.asarray(new, np.int32),
+                delta(ev), delta(rg))
+        jpool = jpg.admit_update(jpool, *map(jax.numpy.asarray, args))
+        tpool = tpg.admit_update(tpool, *map(torch.from_numpy, args))
+        granted = host.admit_round(
+            [(s_, sh.get(s_, []), n) for s_, (a, n) in enumerate(zip(adm,
+                                                                     new))
+             if a], ev, rg)
+        same()
+        for s_, ids in granted.items():
+            assert tpool.tables[s_, :int(tpool.n_pages[s_])].tolist() == \
+                sh.get(s_, []) + ids
+        if sh:
+            assert granted[0] == [1, 2]
+        d = np.asarray(dead)
+        jpool = jpg.release(jpool, jax.numpy.asarray(d))
+        tpool = tpg.release(tpool, torch.from_numpy(d))
+        for s_ in np.flatnonzero(d):
+            host.release_slot(int(s_))
+        same()
