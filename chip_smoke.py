@@ -11,13 +11,20 @@ as a GEMV, serves granite-8b at full size (36 layers, d=4096, bf16, 8-bit
 BRAMAC weights, random weights from a seed) through the port's Engine with
 fp and int8 KV caches, counts that each path went through its kernels, and
 checks that greedy streams are identical with the decode kernels on and
-off and under the dense layout, and with the prefix cache on and off
-(phase 6, f32).  Phase 8 serves the rest of the Engine at granite-8b full
-size: the prefix cache with copy-on-write splits and invariant checks
-(bf16 and int8 KV, on vs off), abort of a running and a queued request,
-and per-request sampling streams that depend on the seed only.  Imports
-torch, numpy and `repro_torch` only.  Exits non-zero,
-printing no result, when any phase fails or no CUDA device is present.
+off and under the dense layout, with the prefix cache on and off, and
+with speculation on and off (phase 6, f32).  Phase 8 serves the rest of
+the Engine at granite-8b full size: the prefix cache with copy-on-write
+splits and invariant checks (bf16 and int8 KV, on vs off), abort of a
+running and a queued request, and per-request sampling streams that
+depend on the seed only.  Phase 9 serves speculative decoding at
+granite-8b full size: an integer-exact structured stream without
+speculation, with the n-gram drafter and with the 2-bit draft model (all
+36 layers), then phase 5's weights and prompts with both drafters, every
+`bramac_matmul` launch held to its derived count.  Phase 2 also times
+the speculative shapes (the verify window at M=20; 2-bit at M=4 with the
+unpack of the packed weights).  Imports torch, numpy and `repro_torch`
+only.  Exits non-zero, printing no result, when any phase fails or no
+CUDA device is present.
 
 Output: one line per phase; then a JSON line listing every kernel with its
 check, times and bound; the card's name and power limit as nvidia-smi gives
@@ -257,6 +264,8 @@ def phase_matmul(gen, report):
         print(f"  bramac_matmul unembed M={M} by digit passes: 1 (2-bit) "
               f"{by_digits[2]:.4f} ms, 2 (4-bit) {by_digits[4]:.4f} ms, 4 "
               f"(8-bit) {r8['ms']:.4f} ms")
+    spec_rows, n_spec = phase_matmul_spec(case)
+    n += n_spec
     print(f"phase 2 bramac_matmul: {n} cases bit-exact vs plain, max abs "
           f"err {worst:.3g} (bits 2/4/8, signed+unsigned, 4-bit packed, "
           f"f32+bf16 out, scalar and per-channel scales, ragged M/K/N at the "
@@ -269,7 +278,92 @@ def phase_matmul(gen, report):
         replaces="src/repro/kernels/bramac_matmul.py:47", max_abs_err=worst,
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
         bound_by=main["bound_by"], library_ms=main["library_ms"],
-        shapes=rows)
+        shapes=rows, spec_shapes=spec_rows)
+
+
+def _matmul_bound(M, K, N, w_bytes, digits):
+    """-> (ms, by): the larger of the bytes (x, weights as stored, both
+    scales, the bf16 output, each once) over HBM and the digit passes'
+    int8 operations over the int8 peak."""
+    nbytes = M * K + w_bytes + 4 * (M + N) + 2 * M * N
+    ops = 2 * M * N * K * digits
+    by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / INT8_OPS_PER_S \
+        else "operations"
+    return max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3, by
+
+
+def phase_matmul_spec(case):
+    """The speculative paths' matmul shapes: the verify window (M = 4 slots
+    x 5 rows = 20) at 8 bits on every granite linear, and the 2-bit draft
+    model at decode (M = 4) on w_gate and unembed, whose weights are stored
+    pair-packed 4 to a byte and unpacked to int8 at every call
+    (`QuantizedTensor.unpacked_values` in `serve_dense`): the kernel alone,
+    the unpack alone, and both.  Yardstick: bf16 torch.matmul at the same
+    shape.  Also the unpack of every granite shape at 2 bits, summed over
+    one 36-layer draft forward."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import bramac_matmul as bm
+    rows, n = [], 0
+
+    def yardstick(x, w):
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        return time_cold(lambda: torch.matmul(xb, wb))
+
+    for name, (K, N) in GRANITE_SHAPES.items():
+        x, w, xs, ws, kw = case(20, K, N, 8, True, False, torch.bfloat16,
+                                True)
+        n += 1
+        ms = time_cold(lambda: bm.bramac_matmul(x, w, xs, ws, **kw))
+        plain_ms = time_cold(
+            lambda: bm.bramac_matmul_plain(x, w, xs, ws, **kw), iters=5)
+        bound, by = _matmul_bound(20, K, N, K * N, 4)
+        lib_ms = yardstick(x, w)
+        rows.append(dict(shape=name, M=20, K=K, N=N, bits=8, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                         library="bf16 torch.matmul", library_ms=lib_ms))
+        print(f"  bramac_matmul verify {name} M=20 K={K} N={N} 8-bit: "
+              f"{ms:.4f} ms (bound {bound:.4f} ms by {by}, plain "
+              f"{plain_ms:.4f} ms, bf16 torch.matmul {lib_ms:.4f} ms)")
+    unpack_ms = {}
+    for name, (K, N) in GRANITE_SHAPES.items():
+        x, w, xs, ws, kw = case(4, K, N, 2, True, False, torch.bfloat16,
+                                True)
+        n += 1
+        packed = quant.pack_bits_axis(w, 2, -2)
+        need(torch.equal(quant.unpack_axis(packed, 2, -2), w),
+             f"2-bit pack/unpack round trip at {name}")
+        unpack_ms[name] = time_cold(lambda: quant.unpack_axis(packed, 2, -2))
+        if name not in ("w_gate/w_up", "unembed"):
+            continue
+        ms = time_cold(lambda: bm.bramac_matmul(x, w, xs, ws, **kw))
+        both_ms = time_cold(lambda: bm.bramac_matmul(
+            x, quant.unpack_axis(packed, 2, -2), xs, ws, **kw))
+        plain_ms = time_cold(
+            lambda: bm.bramac_matmul_plain(x, w, xs, ws, **kw), iters=5)
+        bound, by = _matmul_bound(4, K, N, K * N, 1)
+        bound_p, by_p = _matmul_bound(4, K, N, K * N // 4, 1)
+        lib_ms = yardstick(x, w)
+        rows.append(dict(shape=name, M=4, K=K, N=N, bits=2, ms=ms,
+                         unpack_ms=unpack_ms[name], with_unpack_ms=both_ms,
+                         plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                         packed_bound_ms=bound_p, library="bf16 torch.matmul",
+                         library_ms=lib_ms))
+        print(f"  bramac_matmul draft {name} M=4 K={K} N={N} 2-bit: kernel "
+              f"{ms:.4f} ms (bound {bound:.4f} ms by {by} on int8 weights), "
+              f"unpack {unpack_ms[name]:.4f} ms, unpack + kernel "
+              f"{both_ms:.4f} ms (bound {bound_p:.4f} ms by {by_p} on the "
+              f"packed weights), plain {plain_ms:.4f} ms, bf16 torch.matmul "
+              f"{lib_ms:.4f} ms")
+    per_layer = {"wq/wo": 2, "wk/wv": 2, "w_gate/w_up": 2, "w_down": 1}
+    fwd_ms = 36 * sum(per_layer[k] * unpack_ms[k] for k in per_layer) \
+        + unpack_ms["unembed"]
+    print(f"  2-bit unpack per 36-layer draft forward (252 layer weights + "
+          f"unembed, summed from the per-shape times "
+          f"{ {k: round(v, 4) for k, v in unpack_ms.items()} }): "
+          f"{fwd_ms:.1f} ms")
+    rows.append(dict(shape="unpack per 36-layer draft forward",
+                     unpack_ms=fwd_ms, per_shape_ms=unpack_ms))
+    return rows, n
 
 
 def matmul_build(ptxas: str | None) -> str:
@@ -840,9 +934,27 @@ def serve(cfg, params, prompts, new_tokens, *, decode_kernel=True,
         streams = [list(r.out_tokens) for r in reqs]
         done = sum(r.done for r in reqs)
         ttft = [r.ttft for r in results if r.ttft is not None]
+        spec = eng.spec_stats()
+        ticks, admits = eng.n_ticks, eng.n_admit_calls
+        reasons = [r.result.finish_reason for r in reqs]
     return dict(streams=streams, done=done, wall=wall, steps=steps,
-                forwards=forwards, ttft=ttft,
+                forwards=forwards, ttft=ttft, spec=spec, ticks=ticks,
+                admits=admits, reasons=reasons,
                 tokens=sum(len(s) for s in streams))
+
+
+def spec_matmul_launches(cfg, run, draft_len, draft_layers=None):
+    """bramac_matmul launches of a speculative serve (decode_steps 1): 7
+    per layer + 1 (unembed) for every forward — the verify window and each
+    admission chunk on the serving model; with the model drafter, per tick
+    `draft_len` propose steps and one observe, and per admission chunk two
+    observes (the chunk, then the sampled first token), on a draft model
+    of `draft_layers` layers (None: the n-gram drafter, no forward)."""
+    main = (7 * cfg.num_layers + 1) * (run["ticks"] + run["admits"])
+    if draft_layers is None:
+        return main
+    return main + (7 * draft_layers + 1) * (
+        (draft_len + 1) * run["ticks"] + 2 * run["admits"])
 
 
 def phase_serve(report):
@@ -909,6 +1021,8 @@ def phase_serve(report):
         rep = serve(c, params, prompts, 16)
         need(rep["streams"] == run["streams"],
              "a repeated greedy serve gave other streams")
+        if not quant_kv:
+            streams5 = run["streams"]
         rep_ttft = 1e3 * float(np.mean(rep["ttft"]))
         print(f"  repeat: {rep['tokens'] / rep['wall']:.1f} tok/s, mean TTFT "
               f"{rep_ttft:.1f} ms, same streams")
@@ -923,20 +1037,24 @@ def phase_serve(report):
     report["profile_int8_kv"] = profile_serve(cfg.replace(quant_kv=True),
                                               params, prompts[:4])
     phase_engine(cfg, params, prompts, report)
+    phase_spec(cfg, params, prompts, streams5, report)
     del params
     torch.cuda.empty_cache()
 
 
-def profile_serve(cfg, params, prompts):
-    """Where the time goes: one short serve (4 requests x 8 tokens) under
-    torch.profiler; device-busy share of the wall time and device time by
-    kernel name.  The profiler slows the host, so its wall time is not the
-    serve's tok/s."""
+def profile_serve(cfg, params, prompts, new_tokens=8,
+                  label="phase 5 profile", host_ops=True, **kw):
+    """Where the time goes: one short serve (by default 4 requests x 8
+    tokens) under torch.profiler; device-busy share of the wall time and
+    device time by kernel name.  The profiler slows the host, so its wall
+    time is not the serve's tok/s.  `host_ops=False` traces the device
+    only, which keeps the event list of a long serve short to read back."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run = serve(cfg, params, prompts, 8)
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops
+                                      else [])
+    with profile(activities=acts) as prof:
+        run = serve(cfg, params, prompts, new_tokens, **kw)
     by_name: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -946,8 +1064,8 @@ def profile_serve(cfg, params, prompts):
     wall = run["wall"] * 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     if not by_name:
-        print("phase 5 profile: the profiler saw no device kernels; device "
-              "time not measured")
+        print(f"{label}: the profiler saw no device kernels; device time "
+              f"not measured")
         return {"device_busy_ms": None, "wall_ms": wall}
     # the matmul's kernels under every template instantiation
     matmul = {k: sum(t for n, t in by_name.items() if k in n)
@@ -955,7 +1073,7 @@ def profile_serve(cfg, params, prompts):
     attn_name = "paged_decode_q_kernel" if cfg.quant_kv else \
         "paged_decode_kernel"
     attn = sum(t for n, t in by_name.items() if attn_name in n)
-    print(f"phase 5 profile (4 requests x 8 tokens, "
+    print(f"{label} ({len(prompts)} requests x {new_tokens} tokens, "
           f"{'int8' if cfg.quant_kv else 'bf16'} KV): device busy "
           f"{busy:.1f} ms of {wall:.1f} ms wall ({100 * busy / wall:.1f}%); "
           f"bramac_matmul accumulate {matmul['bramac_accumulate']:.1f} ms + "
@@ -1165,6 +1283,175 @@ def phase_engine(cfg, params, prompts5, report):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: speculative decoding at granite-8b full size
+# ---------------------------------------------------------------------------
+
+def structured_params(cfg, params, q8):
+    """Integer-exact weights in the shape of the serving tree `params`:
+    every layer weight zero (8-bit zeros; the residual passes the embedding
+    through), embedding[t] = onehot(t % d), unembed[i, (i+1) % d] = 1,
+    final norm ones.  The greedy stream is t -> t+1 (mod d) at 8 and at 2
+    bits alike: one-hot activations and {0, 1} weights quantize exactly."""
+    from repro_torch.core.bramac_linear import prepare_serving
+    from repro_torch.models.transformer import tree_map
+    layers = tree_map(torch.zeros_like, params["layers"])
+    D, V = cfg.d_model, cfg.vocab_size
+    emb = torch.zeros((V, D), dtype=cfg.compute_dtype, device="cuda")
+    rows = torch.arange(V, device="cuda")
+    emb[rows, rows % D] = 1
+    unemb = torch.zeros((D, V), dtype=cfg.compute_dtype, device="cuda")
+    unemb[rows[:D], (rows[:D] + 1) % D] = 1
+    return {"embed": {"embedding": emb, "unembed": prepare_serving(unemb, q8)},
+            "final_norm": {"scale": torch.ones((D,), dtype=cfg.compute_dtype,
+                                               device="cuda")},
+            "layers": layers}
+
+
+def phase_spec(cfg, params, prompts, streams5, report):
+    """Phase 9: (a) the structured stream at full size, exact, served
+    without speculation, with the n-gram drafter and with the 2-bit model
+    drafter (all 36 layers); (b) phase 5's random weights and prompts with
+    the n-gram drafter (prefix cache and invariant checks on) and the 2-bit
+    model drafter cut to 4 layers."""
+    from repro_torch.core.bramac_linear import QuantConfig
+    from repro_torch.runtime.serve import Engine
+    t_phase = time.perf_counter()
+    q8 = QuantConfig(enabled=True, bits_w=8, bits_a=8)
+    sparams = structured_params(cfg, params, q8)
+    prompt, n_new, d = [1, 2, 3], 32, 4
+    expect = [(prompt[-1] + 1 + i) % cfg.d_model for i in range(n_new)]
+    runs, totals = {}, {}
+    for kind in ("none", "ngram", "model"):
+        kw = {} if kind == "none" else dict(draft_len=d, drafter=kind,
+                                            draft_bits=2)
+        _zero_counts()
+        run = serve(cfg, sparams, [prompt], n_new, num_slots=1, max_seq=64,
+                    **kw)
+        got = _read_counts()
+        need(run["streams"] == [expect],
+             f"phase 9a ({kind}): stream {run['streams']} != t+1")
+        if kind == "none":
+            derived = (7 * cfg.num_layers + 1) * run["forwards"]
+            need(got["paged_decode"] == run["steps"] * cfg.num_layers,
+                 f"phase 9a (none): decode launches {got}")
+        else:
+            derived = spec_matmul_launches(
+                cfg, run, d, cfg.num_layers if kind == "model" else None)
+            need(got["paged_decode"] == got["paged_decode_q"] == 0,
+                 f"phase 9a ({kind}): decode kernel launched {got}")
+        need(got["bramac_matmul"] == derived,
+             f"phase 9a ({kind}): bramac_matmul launches "
+             f"{got['bramac_matmul']} != derived {derived}")
+        for k, v in got.items():
+            totals[k] = totals.get(k, 0) + v
+        runs[kind] = run
+        st = run["spec"]
+        # forwards through either model: the serving model's, plus the
+        # draft model's (propose, observe) — per emitted token
+        draft_fwd = (d + 1) * run["ticks"] + 2 * run["admits"] \
+            if kind == "model" else 0
+        draft_launches = (7 * cfg.num_layers + 1) * draft_fwd
+        print(f"phase 9a structured stream granite-8b ({kind}): exact "
+              f"{n_new}-token stream t -> t+1; {run['ticks']} ticks, "
+              f"{run['forwards']} serving forwards + {draft_fwd} draft "
+              f"forwards = {(run['forwards'] + draft_fwd) / n_new:.2f} "
+              f"forwards/token; {run['tokens'] / run['wall']:.1f} tok/s; "
+              f"accepted {st['accepted']}/{st['drafted']}; matmul launches "
+              f"{got['bramac_matmul']} (= derived; {draft_launches} of them "
+              f"2-bit draft-model calls)")
+    ng, md = runs["ngram"]["spec"], runs["model"]["spec"]
+    need(ng["accepted"] == 0, f"phase 9a: n-gram accepted {ng}")
+    need(md["accepted"] >= md["drafted"] - d and md["drafted"] > 0,
+         f"phase 9a: model drafter accepted {md}")
+    need(runs["model"]["ticks"] < runs["ngram"]["ticks"],
+         "phase 9a: the model drafter did not save ticks")
+    report["spec_structured"] = {
+        k: dict(ticks=r["ticks"], forwards=r["forwards"],
+                tok_s=r["tokens"] / r["wall"], spec=r["spec"])
+        for k, r in runs.items()}
+    # where the model drafter's time goes: its 2-bit weights unpacked at
+    # every call, beside the kernels (one admission and one full window)
+    report["profile_spec_model"] = profile_serve(
+        cfg, sparams, [prompt], d + 2, label="phase 9a profile, model drafter",
+        host_ops=False, num_slots=1, max_seq=64, draft_len=d,
+        drafter="model", draft_bits=2)
+    del sparams
+    torch.cuda.empty_cache()
+
+    rows = {}
+    for kind, kw, layers in (
+            ("ngram", dict(prefix_cache=True), None),
+            ("model", dict(draft_bits=2, draft_layers=4), 4)):
+        with Engine(cfg, params, num_slots=4, max_seq=256, draft_len=d,
+                    drafter=kind, check_invariants=True, device="cuda",
+                    **kw) as eng:
+            windows = [0]
+            tick = eng.decode.tick
+
+            def counted(*a, _tick=tick, _eng=eng):
+                # every occupied slot is active when a tick starts: the
+                # engine retires inactive ones at each sync
+                windows[0] += sum(r is not None for r in _eng.slot_req)
+                return _tick(*a)
+
+            eng.decode.tick = counted
+            _zero_counts()
+            reqs = [eng.submit(p, 16) for p in prompts]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = _read_counts()
+            run = dict(ticks=eng.n_ticks, admits=eng.n_admit_calls)
+            st = eng.spec_stats()
+            checks = eng.n_invariant_checks
+        streams = [list(r.out_tokens) for r in reqs]
+        need(all(r.done and r.result.finish_reason in ("budget", "eos")
+                 for r in reqs), "phase 9b: a request ended otherwise")
+        need(all(len(x) == 16 and all(0 <= t < cfg.vocab_size for t in x)
+                 for x in streams), "phase 9b: streams malformed")
+        need(checks > 0, "phase 9b: no invariant check ran")
+        need(st["drafted"] == d * windows[0],
+             f"phase 9b ({kind}): drafted {st['drafted']} != {d} x "
+             f"{windows[0]} active windows")
+        derived = spec_matmul_launches(cfg, run, d, layers)
+        need(got["bramac_matmul"] == derived,
+             f"phase 9b ({kind}): bramac_matmul launches "
+             f"{got['bramac_matmul']} != derived {derived}")
+        need(got["paged_decode"] == got["paged_decode_q"] == 0,
+             f"phase 9b ({kind}): decode kernel launched {got}")
+        for k, v in got.items():
+            totals[k] = totals.get(k, 0) + v
+        common = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b),
+                       min(len(x), len(y))) for x, y in zip(streams, streams5)]
+        ttft = 1e3 * float(np.mean([r.result.ttft for r in reqs]))
+        tokens = sum(len(x) for x in streams)
+        forwards = run["ticks"] + run["admits"]
+        rows[kind] = dict(acceptance=st["acceptance_rate"],
+                          drafted=st["drafted"], accepted=st["accepted"],
+                          tok_s=tokens / wall, ttft_ms=ttft,
+                          forwards=forwards, ticks=run["ticks"],
+                          windows=windows[0], common_prefix=common,
+                          launches=got["bramac_matmul"], checks=checks)
+        print(f"phase 9b granite-8b random weights ({kind}"
+              f"{', 4 draft layers' if layers else ', prefix cache on'}): "
+              f"8/8 requests done; accepted {st['accepted']}/{st['drafted']} "
+              f"({100 * st['acceptance_rate']:.1f}%) over {windows[0]} active "
+              f"windows; {tokens / wall:.1f} tok/s; mean TTFT {ttft:.1f} ms; "
+              f"{forwards} serving forwards ({run['ticks']} ticks + "
+              f"{run['admits']} admission chunks); {checks} invariant checks "
+              f"passed; matmul launches {got['bramac_matmul']} (= derived; "
+              f"{got['bramac_matmul'] - (7 * cfg.num_layers + 1) * forwards} "
+              f"2-bit draft-model calls); common prefix with phase 5's "
+              f"streams {common}")
+    report["spec_serve"] = rows
+    for k, n in totals.items():
+        report[k]["launches"] += n
+    print(f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # phase 6: kernel-on == kernel-off greedy streams (f32, full width)
 # ---------------------------------------------------------------------------
 
@@ -1228,12 +1515,103 @@ def phase_streams():
         need(warm["streams"] == cold["streams"],
              f"prefix on != off streams ({kv} KV): {warm['streams']} vs "
              f"{cold['streams']}")
+        spec = spec_streams(c, params, prompts, off)
+        print(f"  phase 6 speculation ({kv} KV, draft_len 4): streams equal "
+              f"the non-speculative ones in {len(spec)} serves; "
+              + "; ".join(f"{k}: {v['accepted']}/{v['drafted']} accepted, "
+                          f"{v['ticks']} ticks, {v['launches']} matmul "
+                          f"launches" for k, v in spec.items()))
+    rej = spec_page_boundary(cfg, params)
+    print(f"  phase 6 mid-window rejection across a page boundary (fp KV): "
+          + "; ".join(f"{k}: {v}" for k, v in rej.items()))
     print("phase 6 streams: kernel-on == kernel-off == dense-layout greedy "
           "streams at full width, 2 layers, f32 (fp KV and int8 KV; 6 "
           "requests, 3 slots; no decode kernel launch on the dense serves); "
           "prefix cache on == off over 4 staggered prompts (3 hits, 2 "
           "shared pages + copy-on-write mid-page, invariants checked after "
-          f"every sync); {time.perf_counter() - t_phase:.1f} s")
+          "every sync); speculation (draft_len 4, n-gram and 2-bit model "
+          "drafters, paged with the prefix cache on and off, dense) == "
+          "no speculation, a rejected window across a page boundary rolled "
+          f"back; {time.perf_counter() - t_phase:.1f} s")
+
+
+def spec_streams(cfg, params, prompts, want):
+    """Speculation on == off (phase 6): draft_len 4 with the n-gram drafter
+    (paged with the prefix cache on and off, dense) and the 2-bit model
+    drafter (paged, which turns the prefix cache off, and dense); greedy
+    streams must equal `want`, the non-speculative streams read through
+    the gather oracle as the verify window reads (the reference's contract:
+    it turns the decode kernel off under speculation), no decode kernel may
+    launch, and bramac_matmul must launch exactly the derived count."""
+    out = {}
+    for drafter in ("ngram", "model"):
+        layouts = (("paged", True), ("paged", False), ("dense", False)) \
+            if drafter == "ngram" else (("paged", False), ("dense", False))
+        for layout, prefix in layouts:
+            what = f"{drafter} {layout}{' prefix' if prefix else ''}"
+            _zero_counts()
+            run = serve(cfg, params, prompts, 12, num_slots=3, max_seq=96,
+                        kv_layout=layout, prefix_cache=prefix, draft_len=4,
+                        drafter=drafter, draft_bits=2)
+            got = _read_counts()
+            need(run["streams"] == want, f"speculation ({what}) != off "
+                 f"streams: {run['streams']} vs {want}")
+            need(got["paged_decode"] == got["paged_decode_q"] == 0,
+                 f"speculation ({what}) launched a decode kernel: {got}")
+            derived = spec_matmul_launches(
+                cfg, run, 4, cfg.num_layers if drafter == "model" else None)
+            need(got["bramac_matmul"] == derived,
+                 f"speculation ({what}): bramac_matmul launches "
+                 f"{got['bramac_matmul']} != derived {derived}")
+            need(run["spec"]["drafted"] > 0, f"{what}: nothing drafted")
+            out[what] = dict(run["spec"], ticks=run["ticks"],
+                             launches=got["bramac_matmul"])
+    return out
+
+
+def spec_page_boundary(cfg, params):
+    """A prompt of page_size - 2 tokens: the first window [ps-2 .. ps+2]
+    crosses the page-0/page-1 boundary.  With random weights the verify
+    rejects mid-window; after the serve the paged pool must equal a
+    non-speculative engine's (reading through the gather oracle, as the
+    verify window does) within 4e-3 (f32: rows written by the window
+    forward and by decode steps may differ where an 8-bit activation
+    rounds the other way), and every row the non-speculative pool never
+    wrote must be exactly zero (the rejected rows rolled back)."""
+    from repro_torch.runtime.serve import Engine
+    ps = cfg.page_size
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, ps - 2)
+    out = {}
+    for drafter in ("ngram", "model"):
+        engines = []
+        for kw in ({"decode_kernel": False},
+                   {"draft_len": 5, "drafter": drafter}):
+            eng = Engine(cfg, params, num_slots=1, max_seq=4 * ps,
+                         prefix_cache=False, check_invariants=True,
+                         device="cuda", **kw)
+            r = eng.submit(prompt, ps + 4)
+            eng.run()
+            engines.append((eng, list(r.out_tokens)))
+        (e0, s0), (e1, s1) = engines
+        st = e1.spec_stats()
+        need(s0 == s1, f"page-boundary serve ({drafter}): streams differ")
+        need(st["accepted"] < st["drafted"],
+             f"page-boundary serve ({drafter}): no draft rejected")
+        err = 0.0
+        for i in e0.caches:
+            for k in e0.caches[i]:
+                a, b = e0.caches[i][k], e1.caches[i][k]
+                err = max(err, (a.float() - b.float()).abs().max().item())
+                need(bool((b[a == 0] == 0).all()),
+                     f"page-boundary serve ({drafter}): a row the "
+                     f"non-speculative pool never wrote is not zero ({k})")
+        need(err <= 4e-3, f"page-boundary serve ({drafter}): pools differ "
+             f"by {err}")
+        out[drafter] = (f"{st['accepted']}/{st['drafted']} accepted, pool max "
+                        f"abs diff {err:.3g}")
+        e0.close()
+        e1.close()
+    return out
 
 
 def staggered(cfg, params, prompts, **kw):

@@ -59,13 +59,18 @@ def prepare_serving(w: torch.Tensor, cfg: QuantConfig) -> quant.QuantizedTensor:
     (periods, …, in, out) weights are quantized one period at a time, which
     gives the same result as one call and keeps temporaries small."""
     if w.ndim > 2:
-        parts = [prepare_serving(w[i], cfg) for i in range(w.shape[0])]
-        return quant.QuantizedTensor(
-            torch.stack([p.values for p in parts]),
-            torch.stack([p.scale for p in parts]), parts[0].bits,
-            parts[0].packed, tuple(w.shape), parts[0].packed_axis)
+        return _stack([prepare_serving(w[i], cfg) for i in range(w.shape[0])],
+                      tuple(w.shape))
     return quant.quantize(w, cfg.bits_w, axis=w.ndim - 2,
                           pack=cfg.bits_w < 8, pack_axis=-2)
+
+
+def _stack(parts, shape) -> quant.QuantizedTensor:
+    """Per-period QuantizedTensors stacked back along a leading axis."""
+    return quant.QuantizedTensor(
+        torch.stack([p.values for p in parts]),
+        torch.stack([p.scale for p in parts]), parts[0].bits,
+        parts[0].packed, shape, parts[0].packed_axis)
 
 
 def serve_dense(x: torch.Tensor, qw: quant.QuantizedTensor,
@@ -100,6 +105,50 @@ def tree_prepare_serving(params: Any, cfg: QuantConfig,
         if isinstance(node, dict):
             return {k: visit(v, f"{path}.{k}" if path else str(k))
                     for k, v in node.items()}
+        if isinstance(node, torch.Tensor) and pred(path, node):
+            return prepare_serving(node, cfg)
+        return node
+
+    return visit(params, "")
+
+
+def requantize_serving(qw: quant.QuantizedTensor,
+                       cfg: QuantConfig) -> quant.QuantizedTensor:
+    """A serving weight re-quantized to `cfg.bits_w` with `prepare_serving`'s
+    layout (per-output-channel scales over the contraction axis, sub-byte
+    values packed along it).  Stacked (periods, in, out) weights go one
+    period at a time, as in `prepare_serving`: the same values and scales
+    as one call over the stack, with one period's f32 temporary."""
+    if qw.values.ndim > 2:
+        parts = [requantize_serving(qw.map(lambda a, i=i: a[i]), cfg)
+                 for i in range(qw.values.shape[0])]
+        return _stack(parts, (qw.values.shape[0],) + parts[0].shape)
+    return quant.requantize(qw, cfg.bits_w, axis=0, pack=cfg.bits_w < 8,
+                            pack_axis=-2)
+
+
+def tree_requantize_serving(params: Any, cfg: QuantConfig,
+                            predicate=None) -> Any:
+    """Re-quantize a parameter tree to `cfg.bits_w` for serving.
+
+    Like `tree_prepare_serving`, but also takes trees whose servable leaves
+    are ALREADY `QuantizedTensor`s (a serving tree demoted to a low-bit
+    draft tree): those round-trip through `quant.requantize`, float
+    servable leaves quantize directly, everything else (embedding, norms)
+    passes through untouched."""
+    def default_pred(path: str, leaf) -> bool:
+        if isinstance(leaf, quant.QuantizedTensor):
+            return True
+        return leaf.ndim >= 2 and path.split(".")[-1] in _SERVABLE
+
+    pred = predicate or default_pred
+
+    def visit(node, path):
+        if isinstance(node, dict):
+            return {k: visit(v, f"{path}.{k}" if path else str(k))
+                    for k, v in node.items()}
+        if isinstance(node, quant.QuantizedTensor) and pred(path, node):
+            return requantize_serving(node, cfg)
         if isinstance(node, torch.Tensor) and pred(path, node):
             return prepare_serving(node, cfg)
         return node

@@ -89,6 +89,16 @@ def quantize(x: torch.Tensor, bits: int, axis: int | None = -1,
                            tuple(x.shape))
 
 
+def requantize(qt: QuantizedTensor, bits: int, axis: int | None = -1,
+               pack: bool = False, pack_axis: int = -1) -> QuantizedTensor:
+    """Re-quantize an already-quantized tensor to a (usually lower) width:
+    dequantize (f32) → quantize, the only faithful route between symmetric
+    grids whose scales differ per channel.  Dropping width (8→2) is how a
+    serving tree becomes a cheap draft tree."""
+    return quantize(qt.dequantize(), bits, axis=axis, pack=pack,
+                    pack_axis=pack_axis)
+
+
 def pack_bits(q: torch.Tensor, bits: int) -> torch.Tensor:
     """Pack sub-byte signed ints along the last axis into int8 storage
     (4-bit: 2 per byte, 2-bit: 4 per byte; element j of a group sits at

@@ -9,15 +9,17 @@
         [--decode-kernel auto|on|off] \
         [--prefix-cache on|off] [--prefix-chunk 16] \
         [--prefix-max-chains 4096] [--shared-prefix 0] \
+        [--draft-len 0] [--spec-ngram 2] [--spec-table 512] \
+        [--drafter ngram|model] [--draft-bits 2] [--draft-layers 0] \
         [--check-invariants] [--device cuda|cpu]
 
 Runs on the card by default (`--device cpu` runs the plain PyTorch
 versions of the kernels).  Weights are random (`init_params` from a seeded
 generator) and, with --quant-bits, quantized once for serving.  The flags
-are the reference launcher's minus speculation, disaggregation and the
-mesh, and the report lines keep its wording: requests done and tok/s,
-syncs and finish reasons, the kv pool, the prefix cache's hit rate and
-refcount histogram, or the dense reservation.
+are the reference launcher's minus disaggregation and the mesh, and the
+report lines keep its wording: requests done and tok/s, syncs and finish
+reasons, speculation's acceptance and tokens per tick, the kv pool, the
+prefix cache's hit rate and refcount histogram, or the dense reservation.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ from repro_torch.core.bramac_linear import QuantConfig, tree_prepare_serving
 from repro_torch.models import model as M
 from repro_torch.runtime.options import (DebugOptions, EngineOptions,
                                          PagingOptions, PrefixOptions,
-                                         ScheduleOptions)
+                                         ScheduleOptions, SpeculationOptions)
 from repro_torch.runtime.sampling import SamplingConfig
 from repro_torch.runtime.serve import Engine, resolve_device
 
@@ -90,6 +92,26 @@ def main(argv=None):
                     help="prepend this many identical 'system prompt' "
                          "tokens to every request (exercises the prefix "
                          "cache)")
+    ap.add_argument("--draft-len", type=int, default=0,
+                    help="self-speculative draft window per decode step "
+                         "(0 = off); greedy streams are identical either "
+                         "way, accepted drafts just land several tokens per "
+                         "verify pass")
+    ap.add_argument("--spec-ngram", type=int, default=2,
+                    help="n-gram order of the speculation drafter")
+    ap.add_argument("--spec-table", type=int, default=512,
+                    help="per-slot drafter table buckets")
+    ap.add_argument("--drafter", default="ngram", choices=("ngram", "model"),
+                    help="speculation proposal engine: the online n-gram "
+                         "table, or 'model' — the serving weights "
+                         "requantized to --draft-bits decoding through a "
+                         "private draft KV cache (%(default)s)")
+    ap.add_argument("--draft-bits", type=int, default=2, choices=(2, 4, 8),
+                    help="draft-model weight/activation precision "
+                         "(%(default)s — the BRAMAC 2-bit datapath)")
+    ap.add_argument("--draft-layers", type=int, default=0,
+                    help="truncate the draft model to its first N blocks "
+                         "(0 = full depth; whole layer-pattern periods)")
     ap.add_argument("--check-invariants", action="store_true",
                     help="cross-check the host page-pool mirror against "
                          "the device allocator after every sync")
@@ -124,6 +146,13 @@ def main(argv=None):
         prefix=PrefixOptions(enabled=args.prefix_cache == "on",
                              chunk=args.prefix_chunk or None,
                              max_chains=args.prefix_max_chains),
+        speculation=SpeculationOptions(draft_len=args.draft_len,
+                                       ngram=args.spec_ngram,
+                                       table=args.spec_table,
+                                       drafter=args.drafter,
+                                       draft_bits=args.draft_bits,
+                                       draft_layers=args.draft_layers
+                                       or None),
         debug=DebugOptions(check_invariants=args.check_invariants))
     rng = np.random.default_rng(0)
     with Engine(cfg, params, options=options, device=device) as eng:
@@ -152,6 +181,18 @@ def main(argv=None):
               f"{1e3 * float(np.mean(ttft)) if ttft else 0.0:.0f}ms; "
               f"finish reasons "
               f"{{{', '.join(f'{k}: {v}' for k, v in sorted(reasons.items()))}}}")
+        st = eng.spec_stats()
+        if args.draft_len:
+            if st["enabled"]:
+                print(f"  speculation: drafter={st['drafter']}, "
+                      f"draft_len={st['draft_len']}, "
+                      f"{st['accepted']}/{st['drafted']} drafts accepted "
+                      f"({100 * st['acceptance_rate']:.0f}%), "
+                      f"{eng.n_generated / max(eng.n_ticks, 1):.2f} "
+                      f"tokens/tick")
+            else:
+                print("  speculation: requested but this arch opts out "
+                      "(recurrent / cross-attention / MoE)")
         if eng.kv_layout == "paged":
             dense_rows = eng.num_slots * eng.max_seq
             hw_rows = eng.pages_high_water * eng.page_size

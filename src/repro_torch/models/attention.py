@@ -13,9 +13,11 @@ reference returns updated copies) and returns the same dict.  Paged reads
 for Sq=1 decode go through the hand-written CUDA kernels
 (`kernels/paged_attention.py`) when the bundle's `decode_kernel` is set;
 the gather (`paged_view` + `chunk_attention`) stays the oracle and the
-Sq>1 path.  Dense prefill chunks write through a `DenseKV` bundle, whose
-write mask keeps the rows of slots that are not admitting.  MLA and
-cross-attention come with later slices.
+Sq>1 path.  Dense prefill chunks, the speculative verify window and the
+draft model's cache write through a `DenseKV` bundle, whose write mask
+keeps the rows of slots that are not writing and whose bound drops rows a
+non-speculative run could not reach.  MLA and cross-attention come with
+later slices.
 """
 from __future__ import annotations
 
@@ -62,10 +64,13 @@ class PagedKV:
 @dataclasses.dataclass
 class DenseKV:
     """Write discipline for the dense layout when rows are scattered at
-    per-row positions: write_mask gates whole sequences, and rows at or
-    past max_seq drop instead of sliding back over earlier rows."""
+    per-row positions (prefill chunks, the speculative verify window, the
+    draft model's cache): write_mask gates whole sequences, rows at or past
+    max_seq drop instead of sliding back over earlier rows, and `bound` is
+    the same per-sequence accepted-length bound PagedKV carries."""
     write_mask: torch.Tensor                    # (B,) bool
     max_seq: int
+    bound: torch.Tensor | None = None           # (B,) i32
 
 
 def _scatter_drop(buf, index, vals, ok):
@@ -88,8 +93,11 @@ def _scatter_drop(buf, index, vals, ok):
 def dense_update(cache, new, positions, dv: DenseKV):
     """Write `new` (B, S, …) rows into the dense cache (B, max_seq, …) at
     absolute `positions` (B, S), in place; masked and out-of-range rows
-    drop (both bounds: a negative position would wrap onto the tail)."""
+    drop (both bounds: a negative position would wrap onto the tail), and
+    so do rows at or past `dv.bound`."""
     ok = dv.write_mask[:, None] & (positions < dv.max_seq) & (positions >= 0)
+    if dv.bound is not None:
+        ok = ok & (positions < dv.bound[:, None])
     B, S = positions.shape
     batch = torch.arange(B, device=positions.device)[:, None].expand(B, S)
     vals = new.reshape((B * S,) + tuple(cache.shape[2:])).to(cache.dtype)

@@ -1,9 +1,11 @@
 """Engine configuration and result surface (port of `repro.runtime.options`;
 every section and validation message is the reference's, so options
-compare equal across the two packages — the port's Engine raises
-NotImplementedError for what it does not serve yet).
+compare equal across the two packages — the port's Engine serves every
+section but disaggregation and a mesh, for which it raises
+NotImplementedError).
 
-This module groups the engine's knobs into one frozen `EngineOptions` dataclass of themed sections
+This module groups the engine's knobs into one frozen `EngineOptions`
+dataclass of themed sections
 (sampling, schedule, paging, prefix cache, speculation, parallelism,
 disaggregation, debug), each validating itself in `__post_init__` so a bad knob fails at
 construction — before anything is traced — with the same error messages

@@ -1,5 +1,5 @@
 """Refcounted KV page allocator with copy-on-write prefix sharing (port
-of `repro.runtime.pages`, without speculative rollback and page transfer).
+of `repro.runtime.pages`, without the page transfer of disaggregation).
 
   PagePool    — the device-resident allocator state (per-page refcounts,
                 per-slot block tables, per-slot ownership bits).  Mutation
@@ -7,8 +7,10 @@ of `repro.runtime.pages`, without speculative rollback and page transfer).
                 register, in that order), `release` (refcount decrement;
                 zero reclaims), `cow_copy` (a shared page's rows copied into
                 a freshly granted private page at admission, never written
-                in place) and `apply_refs_delta` (bare registry deltas — the
-                commit of an eviction round that admitted no slot).
+                in place), `apply_refs_delta` (bare registry deltas — the
+                commit of an eviction round that admitted no slot) and
+                `rollback` (speculative rows the verify pass rejected,
+                zeroed under the write's own mask, ownership and bound).
   HostPool    — the host-side numpy mirror replaying the same rules, so the
                 engine knows every granted page id without a device sync.
   PrefixCache — the host-side prefix registry: chunk-incremental blake2b
@@ -35,6 +37,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from repro_torch.models import attention as attn
 
 
 class PagePool(NamedTuple):
@@ -136,6 +140,46 @@ def cow_copy(caches, pool_flags, src, dst):
                 leaf[:, frm.clamp(0, P - 1).long()]
 
     _walk(cp, caches, pool_flags)
+    return caches
+
+
+def zero_rows(leaf, index, ok) -> None:
+    """leaf[:, index] = 0 for the entries where `ok`, in place, over every
+    period of a (n_periods, ...) cache leaf; the other entries drop, through
+    `attention._scatter_drop` on a view with the period axis moved behind
+    the two indexed axes.  No host sync."""
+    view = leaf.movedim(0, 2)
+    zeros = torch.zeros((ok.shape[0],) + tuple(view.shape[2:]),
+                        dtype=leaf.dtype, device=leaf.device)
+    attn._scatter_drop(view, tuple(i.long() for i in index), zeros, ok)
+
+
+def rollback(caches, pool_flags, pv, positions):
+    """Zero the speculative KV rows the verify pass rejected, in place.
+    `positions` (S, L) holds the rejected rows' absolute positions per slot
+    (the caller routes kept rows to pv.max_seq, which drops); `pv` is the
+    attention.PagedKV bundle the window was WRITTEN with, so the rollback
+    honours the same write-mask / ownership / bound discipline: it never
+    touches a shared page, another slot's rows, or a row the write itself
+    dropped."""
+    ps, mp = pv.page_size, pv.tables.shape[1]
+    pg_idx = torch.div(positions, ps, rounding_mode="floor")
+    entry = pg_idx.clamp(0, mp - 1).long()
+    ok = pv.write_mask[:, None] & (pg_idx < pv.n_pages[:, None]) \
+        & (positions < pv.max_seq)
+    if pv.owned is not None:
+        ok = ok & torch.gather(pv.owned, 1, entry)
+    if pv.bound is not None:
+        ok = ok & (positions < pv.bound[:, None])
+    index = (torch.gather(pv.tables, 1, entry).reshape(-1),
+             torch.remainder(positions, ps).reshape(-1))
+    ok = ok.reshape(-1)
+
+    def zero(leaf, is_pool):
+        if is_pool:
+            zero_rows(leaf, index, ok)
+
+    _walk(zero, caches, pool_flags)
     return caches
 
 

@@ -1,5 +1,5 @@
 """On-device token sampling for the serving engine (port of
-`repro.runtime.sampling`, without the speculative `spec_verify`).
+`repro.runtime.sampling`, the speculative `spec_verify` included).
 
 Each request owns a `torch.Generator` on the engine's device, seeded from
 the engine seed and the request seed alone (`request_generator`), never
@@ -18,7 +18,10 @@ Methods:
                 (the best token is always kept).
 The stochastic methods sample by Gumbel-max over `_filter_logits`: the
 argmax of the filtered logits plus -log(-log(u)) noise, u uniform from the
-row's generator.  Nothing reads a device value back.
+row's generator.  `spec_verify` accepts or replaces a speculative window:
+greedy exactly as the reference (bit for bit), stochastic by rejection
+sampling against the draft's point mass, drawing per window from each
+request's generator.  Nothing reads a device value back.
 """
 from __future__ import annotations
 
@@ -85,15 +88,24 @@ def request_generator(base_seed: int, seed: int, device) -> torch.Generator:
     return g
 
 
-def gumbel_noise(gens, V: int, device) -> torch.Tensor:
-    """(len(gens), V) f32 Gumbel noise, one draw of V uniforms from each
+def _uniforms(gens, shape, device) -> torch.Tensor:
+    """(len(gens), *shape) f32 uniforms, one draw of `shape` from each
     row's generator.  A row whose generator is None draws nothing; its
-    noise is a constant and its token means nothing."""
-    u = torch.stack([
-        torch.full((V,), 0.5, device=device) if g is None
-        else torch.rand((V,), generator=g, device=device) for g in gens])
+    values are a constant and what it decides means nothing."""
+    return torch.stack([
+        torch.full(shape, 0.5, device=device) if g is None
+        else torch.rand(shape, generator=g, device=device) for g in gens])
+
+
+def _gumbel(u: torch.Tensor) -> torch.Tensor:
     tiny = torch.finfo(torch.float32).tiny
     return -torch.log(-torch.log(u.clamp_(min=tiny)))
+
+
+def gumbel_noise(gens, V: int, device) -> torch.Tensor:
+    """(len(gens), V) f32 Gumbel noise, one draw of V uniforms from each
+    row's generator (None: a constant, no draw)."""
+    return _gumbel(_uniforms(gens, (V,), device))
 
 
 def sample(logits, sc: SamplingConfig, gens=None):
@@ -105,3 +117,56 @@ def sample(logits, sc: SamplingConfig, gens=None):
     l = _filter_logits(logits, sc)
     noise = gumbel_noise(gens, l.shape[-1], l.device)
     return torch.argmax(l + noise, dim=-1).to(torch.int32)
+
+
+def spec_verify(logits, drafts, sc: SamplingConfig, gens=None):
+    """Vectorized accept/replace for one speculative draft window.
+
+    logits (B, L, V) scored over the chunk [last_tok, g_1 .. g_d] (L = d+1,
+    so logits[:, i] conditions on the first i drafts); drafts (B, d) the
+    proposed tokens; `gens` each row's generator (stochastic methods).
+
+    Returns (out (B, L) i32, n_acc (B,) i32): out[:, i] is the token the
+    stream emits at window index i if it reaches that far — accepted drafts
+    verbatim for i < n_acc, the model's own replacement at i == n_acc (the
+    rejection correction for i < d, the bonus token at i == d).  The
+    caller clamps how many are emitted (stop tokens / budget / max_seq).
+
+    Greedy: a draft is accepted iff it equals the argmax of the previous
+    position's logits, so every emitted token is the token non-speculative
+    greedy decoding would produce.  Draws nothing.
+
+    Stochastic: draft g at position i is accepted with probability p_i(g)
+    under the filtered distribution (u < p_i(g)); a rejection resamples
+    from p_i with g masked out (Gumbel-max over the masked filtered
+    logits; the bonus row at i == d masks nothing), so each emitted token
+    is marginally ~ p_i.  Each row draws, per window and in this order, L
+    acceptance uniforms and then L x V uniforms for the Gumbel noise from
+    its own generator; a row whose generator is None draws nothing."""
+    B, L, V = logits.shape
+    d = L - 1
+    if sc.method == "greedy":
+        t = torch.argmax(logits, dim=-1).to(torch.int32)           # (B, L)
+        ok = (drafts == t[:, :d]).to(torch.int64)
+        n_acc = torch.cumprod(ok, dim=1).sum(dim=1).to(torch.int32)
+        return t, n_acc
+    l = _filter_logits(logits.reshape(B * L, V), sc).reshape(B, L, V)
+    probs = torch.softmax(l, dim=-1)
+    u = _uniforms(gens, (L,), logits.device)                       # (B, L)
+    noise = _gumbel(_uniforms(gens, (L, V), logits.device))        # (B, L, V)
+    # a slot with no request may draft the -1 history padding; clamped, its
+    # acceptance means nothing (an active slot's drafts are real tokens)
+    p_draft = torch.gather(probs[:, :d], 2,
+                           drafts.long().clamp(0, V - 1)[..., None])[..., 0]
+    acc = (u[:, :d] < p_draft).to(torch.int64)
+    n_acc = torch.cumprod(acc, dim=1).sum(dim=1).to(torch.int32)
+    # -1 pads the bonus row's draft: it matches no vocabulary id
+    pad = torch.cat([drafts.to(torch.int32),
+                     torch.full((B, 1), -1, dtype=torch.int32,
+                                device=logits.device)], dim=1)     # (B, L)
+    vocab = torch.arange(V, device=logits.device)
+    lm = torch.where(vocab[None, None, :] == pad[..., None], float("-inf"), l)
+    repl = torch.argmax(lm + noise, dim=-1).to(torch.int32)
+    idx = torch.arange(L, device=logits.device)[None, :]
+    out = torch.where(idx < n_acc[:, None], pad, repl)
+    return out, n_acc

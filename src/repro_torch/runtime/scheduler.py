@@ -5,7 +5,9 @@ disaggregation).
 Every HOST decision lives here, every DEVICE computation in
 `runtime.workers`: the Scheduler owns the FIFO queue, the per-slot request
 registry, the `pages.HostPool` mirror, the prefix registry and the
-finished-result list.  `plan_round` is the admission policy — FIFO with
+finished-result list, and the speculation totals that `finish` folds
+each request's drafted/accepted counters into.  `plan_round` is the
+admission policy — FIFO with
 backpressure, prefix matching, LRU eviction of idle cached chains, and the
 mirror's admit-round replay that pins every granted page id host-side —
 and returns an `AdmissionRound` the PrefillWorker executes.
@@ -40,6 +42,8 @@ class Request:
     clamped: bool = False         # budget clamped by max_seq at submit
     aborted: bool = False
     prefill_tokens: int = 0       # prompt tokens whose prefill compute ran
+    drafted_tokens: int = 0       # speculative drafts proposed for it
+    accepted_tokens: int = 0      # of those, emitted
     pages_shared: int = 0         # prefix pages mapped read-only at admit
     result: RequestResult | None = None   # set when the request completes
 
@@ -82,6 +86,9 @@ class Scheduler:
         self.queue: list[Request] = []
         self.finished: list[RequestResult] = []
         self._next_uid = itertools.count()
+        # speculation totals over finished requests (finish folds them in)
+        self.tokens_drafted = 0
+        self.tokens_accepted = 0
 
     def _need_pages(self, prompt_len: int, max_new: int) -> int:
         """Pages a request occupies for its whole lifetime: prompt rows plus
@@ -234,7 +241,8 @@ class Scheduler:
 
     def finish(self, req: Request) -> None:
         """Seal a completed request: classify the finish reason (highest
-        precedence first) and build its RequestResult."""
+        precedence first), build its RequestResult and fold its speculation
+        counters into the totals."""
         req.done = True
         out = req.out_tokens
         if req.aborted:
@@ -247,9 +255,13 @@ class Scheduler:
             reason = "budget"
         else:
             reason = "max_seq"
+        self.tokens_drafted += req.drafted_tokens
+        self.tokens_accepted += req.accepted_tokens
         req.result = RequestResult(
             uid=req.uid, tokens=tuple(out), finish_reason=reason,
             prefill_tokens=req.prefill_tokens,
+            drafted_tokens=req.drafted_tokens,
+            accepted_tokens=req.accepted_tokens,
             pages_shared=req.pages_shared,
             ttft=(req.t_first - req.t_submit) if req.t_first else None)
         self.finished.append(req.result)

@@ -1,5 +1,5 @@
 """Continuous-batching serving engine (port of `repro.runtime.serve.Engine`
-for the colocated, non-speculative, single-device engine).
+for the colocated single-device engine).
 
 The engine composes three layers, as the reference's:
 
@@ -7,12 +7,13 @@ The engine composes three layers, as the reference's:
                       backpressure, prefix matching and LRU eviction, the
                       `pages.HostPool` mirror, request lifecycle, results.
   runtime.workers   — device computation: `PrefillWorker` (chunked admit,
-                      pool transaction, copy-on-write) and `DecodeWorker`
-                      (the decode tick).
+                      pool transaction, copy-on-write, drafter seeding) and
+                      `DecodeWorker` (the decode tick, plain or
+                      speculative).
   Engine (here)     — the composition and the public API: `submit`,
                       `step`, `run`, `abort`, `pages_in_use`,
-                      `prefix_stats`, KV-read accounting, `close` /
-                      context manager.
+                      `prefix_stats`, `spec_stats`, KV-read accounting,
+                      `close` / context manager.
 
 KV layouts (`kv_layout=`):
   "paged" (default) — attention KV lives in a shared pool of
@@ -38,10 +39,25 @@ syncs once per decode tick and once per admission round;
 `check_invariants=True` also reads the device allocator back after every
 sync and compares it with the host mirror.
 
+Speculative decoding (`EngineOptions.speculation.draft_len > 0`): each tick
+step drafts `draft_len` tokens from the configured drafter —
+`drafter="ngram"` (default), a per-slot n-gram table, or
+`drafter="model"`, the serving model's own weights requantized to
+`draft_bits` (the 2-bit BRAMAC datapath) decoding through a private
+per-slot draft KV cache (`runtime/speculate.py`) — scores the whole window
+[last_tok, g_1..g_d] in ONE forward through the chunked path prefill uses,
+and accepts/replaces every position on the device
+(`sampling.spec_verify`).  Greedy streams are identical to
+non-speculative decoding (invariants A1-A6 in speculate.py); the host
+still syncs once per tick whatever the acceptance length.  The verify
+window reads the KV cache through the gather oracle, so speculation turns
+the decode kernels off, and the model drafter turns the prefix cache off
+(a skipped prefill chunk would leave its draft-cache rows unwritten).
+`draft_len` is clamped to max_seq - 2.
+
 The engine runs on the card unless the caller asks for the CPU
 (`device="cpu"`); with no GPU and no explicit CPU request it raises.
-Speculation, disaggregation and a mesh raise NotImplementedError at
-construction.
+Disaggregation and a mesh raise NotImplementedError at construction.
 """
 from __future__ import annotations
 
@@ -54,6 +70,7 @@ from repro_torch.kernels import paged_attention as pk
 from repro_torch.models import model as M
 from repro_torch.models.transformer import tree_map
 from repro_torch.runtime import pages as pg
+from repro_torch.runtime import speculate as spc
 from repro_torch.runtime.options import EngineOptions, RequestResult
 from repro_torch.runtime.scheduler import Request, Scheduler
 from repro_torch.runtime.workers import (DecodeWorker, PrefillWorker,
@@ -74,8 +91,6 @@ def resolve_device(device=None) -> torch.device:
 
 def _unported(options: EngineOptions) -> str | None:
     """The first option this slice cannot serve, described, or None."""
-    if options.speculation.draft_len > 0:
-        return "speculative decoding"
     if options.disagg.enabled:
         return "prefill/decode disaggregation"
     if options.parallel.mesh is not None:
@@ -136,15 +151,41 @@ class Engine:
                 else self.num_slots * self.pages_per_slot
         else:
             self.num_pages = 0
+        # speculation opts out silently where a rejected draft cannot be
+        # rewound or verify/decode parity breaks (cross-attention, MoE
+        # capacity drops); the port serves attn+dense only, so it is on
+        spec = options.speculation
+        spec_ok = not any("xattn" in s or "moe" in s
+                          for s in cfg.layer_pattern)
+        self.draft_len = min(spec.draft_len, max(0, self.max_seq - 2)) \
+            if spec_ok else 0
+        self.drafter_kind = spec.drafter if self.draft_len else None
+        if not self.draft_len:
+            self.drafter = None
+        elif self.drafter_kind == "model":
+            # the 2-bit BRAMAC draft model: the engine's own weights
+            # requantized, with a private per-slot draft KV cache (A6)
+            self.drafter = spc.QuantDrafter.build(
+                cfg, self.params, self.max_seq, bits=spec.draft_bits,
+                draft_layers=spec.draft_layers)
+        else:
+            self.drafter = spc.NGramDrafter(spec.ngram, spec.table)
+        # dense speculative rollback zeroes the KV leaves, paged the pool's
+        kv_flags = M.cache_pool_flags(cfg) if self.draft_len else None
+        # the decode kernels read Sq=1; the verify window (Sq = d + 1)
+        # reads through the gather oracle
         dk = options.paging.decode_kernel
-        self.decode_kernel = paged and bool(dk if dk is not None
-                                            else device.type == "cuda")
-        # the prefix cache shares pool pages, so it is paged-only
+        self.decode_kernel = paged and not self.draft_len and bool(
+            dk if dk is not None else device.type == "cuda")
+        # the prefix cache shares pool pages, so it is paged-only; the
+        # model drafter opts out (a skipped prefill chunk would leave its
+        # draft-cache rows unwritten, breaking A6)
         self.prefix_chunk = int(options.prefix.chunk) \
             if options.prefix.chunk is not None else self.page_size
         prefix = pg.PrefixCache(self.prefix_chunk, self.page_size,
                                 max_chains=options.prefix.max_chains) \
-            if options.prefix.enabled and paged else None
+            if options.prefix.enabled and paged \
+            and self.drafter_kind != "model" else None
         self.sched = Scheduler(
             num_slots=self.num_slots, max_seq=self.max_seq,
             page_size=self.page_size, prefill_chunk=self.prefill_chunk,
@@ -153,14 +194,18 @@ class Engine:
         self.prefill = PrefillWorker(
             cfg=cfg, num_slots=self.num_slots, max_seq=self.max_seq,
             prefill_chunk=self.prefill_chunk, stop_cap=self._stop_cap,
-            sampling=self.sampling, paged=paged, base_seed=sch.seed)
+            sampling=self.sampling, paged=paged, base_seed=sch.seed,
+            draft_len=self.draft_len, drafter=self.drafter)
         self.decode = DecodeWorker(
             cfg=cfg, max_seq=self.max_seq, decode_steps=self.decode_steps,
             sampling=self.sampling, paged=paged,
-            decode_kernel=self.decode_kernel)
+            decode_kernel=self.decode_kernel, draft_len=self.draft_len,
+            drafter=self.drafter, kv_flags=kv_flags)
+        draft0 = self.drafter.init_state(self.num_slots, device) \
+            if self.draft_len else spc.empty_state(self.num_slots, device)
         self.state = init_slot_state(self.num_slots, self._stop_cap,
                                      self.pages_per_slot if paged else 0,
-                                     self.num_pages, device)
+                                     self.num_pages, device, draft0)
         self.caches = M.init_cache(cfg, self.num_slots, self.max_seq,
                                    num_pages=self.num_pages if paged
                                    else None, device=device)
@@ -191,6 +236,14 @@ class Engine:
     @property
     def slot_req(self) -> list:
         return self.sched.slot_req
+
+    @property
+    def tokens_drafted(self) -> int:
+        return self.sched.tokens_drafted
+
+    @property
+    def tokens_accepted(self) -> int:
+        return self.sched.tokens_accepted
 
     @property
     def pages_in_use(self) -> int:
@@ -275,6 +328,23 @@ class Engine:
                 "evictions": c.evictions, "cached_pages": c.cached_pages,
                 "chunks_skipped": self.prefill_chunks_skipped}
 
+    def spec_stats(self) -> dict:
+        """Speculation telemetry: the drafter ("ngram" | "model", None when
+        speculation is off) and drafted/accepted totals over finished
+        requests plus the live slots' counters.  `abort` retires a running
+        request through the same finish path, so its counters fold into
+        the totals rather than vanishing."""
+        drafted, accepted = self.tokens_drafted, self.tokens_accepted
+        for r in self.sched.slot_req:
+            if r is not None:
+                drafted += r.drafted_tokens
+                accepted += r.accepted_tokens
+        return {"enabled": bool(self.draft_len),
+                "draft_len": self.draft_len,
+                "drafter": self.drafter_kind,
+                "drafted": drafted, "accepted": accepted,
+                "acceptance_rate": accepted / drafted if drafted else 0.0}
+
     def _verify_pool(self, host: pg.HostPool, dev: pg.PagePool,
                      cached: int) -> None:
         """Mirror-vs-device cross-check: refcounts, free popcount, per-slot
@@ -329,6 +399,9 @@ class Engine:
         live = [r for r in self.sched.slot_req if r is not None]
         if not live:
             return False
+        # KV rows this tick's steps read (tick-start lengths): the kernels
+        # touch live pages only; the gather oracle (dense decode, and the
+        # speculative verify window) materializes num_slots x max_seq rows
         if self.decode_kernel:
             rows = pk.decode_read_rows(
                 [len(r.prompt) + len(r.out_tokens) for r in live],
@@ -339,21 +412,33 @@ class Engine:
         self.kv_read_steps += self.decode_steps
         self.state, self.caches, toks, emitted = self.decode.tick(
             self.params, self.state, self.caches)
-        n = toks.numel()
-        host = torch.cat([toks.reshape(-1), emitted.reshape(-1).to(torch.int32),
-                          self.state.active.to(torch.int32)]).cpu().numpy()
+        # plain tick: (steps, slots); speculative: (steps, slots, window) —
+        # normalized to a trailing window axis of 1
+        if toks.ndim == 2:
+            toks, emitted = toks[..., None], emitted[..., None]
+        n, ns = toks.numel(), self.num_slots
+        parts = [toks.reshape(-1), emitted.reshape(-1).to(torch.int32),
+                 self.state.active.to(torch.int32)]
+        if self.draft_len:
+            parts += [self.state.n_drafted, self.state.n_accepted]
+        host = torch.cat(parts).cpu().numpy()      # the tick's one sync
         toks_h = host[:n].reshape(toks.shape)
         emitted_h = host[n:2 * n].reshape(toks.shape).astype(bool)
-        active = host[2 * n:].astype(bool)
+        active = host[2 * n:2 * n + ns].astype(bool)
+        n_dr, n_ac = host[2 * n + ns:2 * n + 2 * ns], host[2 * n + 2 * ns:]
         self.n_ticks += 1
         self.n_syncs += 1
         for slot, req in enumerate(self.sched.slot_req):
             if req is None:
                 continue
             for t in range(toks_h.shape[0]):
-                if emitted_h[t, slot]:
-                    req.out_tokens.append(int(toks_h[t, slot]))
-                    self.n_generated += 1
+                for j in range(toks_h.shape[2]):
+                    if emitted_h[t, slot, j]:
+                        req.out_tokens.append(int(toks_h[t, slot, j]))
+                        self.n_generated += 1
+            if self.draft_len:
+                req.drafted_tokens = int(n_dr[slot])
+                req.accepted_tokens = int(n_ac[slot])
             if not active[slot]:
                 self._retire(slot)
         if self.check_invariants:

@@ -1,6 +1,6 @@
 """Device-facing worker roles: chunked prefill admission and the decode tick
-(port of `repro.runtime.workers` for the colocated, non-speculative
-engine, paged or dense).
+(port of `repro.runtime.workers` for the colocated engine, paged or dense,
+plain or speculative).
 
   PrefillWorker — executes a Scheduler `AdmissionRound`: fixed
                   `prefill_chunk`-token chunks, all admitting slots per
@@ -9,10 +9,16 @@ engine, paged or dense).
                   register) and the copy-on-write split, and a warm slot's
                   chunks start at its matched prefix length; the final
                   chunk of each prompt samples its first token on the
-                  device and commits the slot state.
+                  device and commits the slot state.  Under speculation it
+                  also seeds the drafter: reset on a slot's first chunk,
+                  observe the chunk's real tokens, and observe the sampled
+                  first token on the final chunk.
   DecodeWorker  — the tick: `decode_steps` decode → sample → terminate
-                  steps over every slot; under the paged layout, slots that
-                  terminate release their pages before the host looks.
+                  steps over every slot, or the speculative variant (draft
+                  → verify the window in one forward → accept/replace →
+                  clamp → roll back the rejected rows → observe); under the
+                  paged layout, slots that terminate release their pages
+                  before the host looks.
 
 Both run eagerly on device tensors and never read a device value back: the
 Engine syncs once per tick and once per admission round.  The host arrays
@@ -20,7 +26,7 @@ of a whole admission round are uploaded in one copy.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -29,12 +35,16 @@ from repro_torch.models import attention as attn
 from repro_torch.models import model as M
 from repro_torch.runtime import pages as pg
 from repro_torch.runtime import sampling as smp
+from repro_torch.runtime import speculate as spc
 
 
 class SlotState(NamedTuple):
     """Per-slot decode state; device tensors for all slots, plus each
     slot's sampling stream (the request's `torch.Generator`, None when the
-    slot holds no request or the sampling is greedy)."""
+    slot holds no request or the sampling is greedy).  `draft` is the
+    drafter's state (zero-width when speculation is off): the n-gram tables
+    (`speculate.DraftState`) or the model drafter's private draft KV cache
+    (`speculate.QuantDraftState`)."""
     last_tok: torch.Tensor   # (S,) i32  last sampled token (next input)
     pos: torch.Tensor        # (S,) i32  next cache index to write
     budget: torch.Tensor     # (S,) i32  tokens still to emit after this one
@@ -42,10 +52,13 @@ class SlotState(NamedTuple):
     stop: torch.Tensor       # (S, K) i32 per-request stop set, -1 padded
     pages: pg.PagePool       # refcounted page allocator (paged layout)
     gens: tuple              # (S,) torch.Generator | None
+    draft: Any               # drafter state (n-gram tables / draft KV)
+    n_drafted: torch.Tensor  # (S,) i32 drafted tokens, current occupant
+    n_accepted: torch.Tensor  # (S,) i32 drafted tokens emitted
 
 
 def init_slot_state(num_slots: int, stop_cap: int, table_len: int,
-                    num_pages: int, device) -> SlotState:
+                    num_pages: int, device, draft) -> SlotState:
     z = torch.zeros((num_slots,), dtype=torch.int32, device=device)
     return SlotState(
         last_tok=z, pos=z.clone(), budget=z.clone(),
@@ -53,17 +66,19 @@ def init_slot_state(num_slots: int, stop_cap: int, table_len: int,
         stop=torch.full((num_slots, stop_cap), -1, dtype=torch.int32,
                         device=device),
         pages=pg.init_pool(num_slots, table_len, num_pages, device),
-        gens=(None,) * num_slots)
+        gens=(None,) * num_slots, draft=draft, n_drafted=z.clone(),
+        n_accepted=z.clone())
 
 
 def _bundle(pool: pg.PagePool, max_seq: int, page_size: int, write_mask,
-            kernel: bool = False) -> attn.PagedKV:
+            kernel: bool = False, bound=None) -> attn.PagedKV:
     """The PagedKV bundle for one call: `owned` drops writes aimed at
     pages a slot does not own (shared prefix pages); `kernel` routes Sq=1
-    reads through the paged-decode kernels."""
+    reads through the paged-decode kernels; `bound` (speculation) also
+    drops rows at or past the per-slot accepted-length bound."""
     return attn.PagedKV(tables=pool.tables, n_pages=pool.n_pages,
                         write_mask=write_mask, max_seq=max_seq,
-                        page_size=page_size, owned=pool.owned,
+                        page_size=page_size, owned=pool.owned, bound=bound,
                         decode_kernel=kernel)
 
 
@@ -79,7 +94,8 @@ class DecodeWorker:
     """Runs the decode tick against one pool's state."""
 
     def __init__(self, *, cfg, max_seq: int, decode_steps: int, sampling,
-                 paged: bool, decode_kernel: bool):
+                 paged: bool, decode_kernel: bool, draft_len: int = 0,
+                 drafter=None, kv_flags=None):
         self.cfg = cfg
         self.max_seq = max_seq
         self.page_size = cfg.page_size
@@ -87,10 +103,18 @@ class DecodeWorker:
         self.sampling = sampling
         self.paged = paged
         self.decode_kernel = decode_kernel
+        self.draft_len = draft_len
+        self.drafter = drafter
+        # pool leaves (paged) or KV leaves (dense) that rollback zeroes
+        self.kv_flags = kv_flags
 
     def tick(self, params, state: SlotState, caches):
-        """`decode_steps` decode → sample → terminate steps.  Returns
-        (state, caches, toks (steps, S) i32, emitted (steps, S) bool)."""
+        """`decode_steps` decode → sample → terminate steps (the speculative
+        window steps when draft_len > 0).  Returns (state, caches, toks,
+        emitted): (steps, S) i32 and bool, or (steps, S, draft_len + 1)
+        under speculation."""
+        if self.draft_len:
+            return self._spec_tick(params, state, caches)
         max_seq = self.max_seq
         pre_active = state.active
         toks, emits = [], []
@@ -123,13 +147,81 @@ class DecodeWorker:
             state = state._replace(pages=pg.release(state.pages, dead))
         return state, caches, torch.stack(toks), torch.stack(emits)
 
+    def _spec_tick(self, params, state: SlotState, caches):
+        """Each of the `decode_steps` steps drafts `draft_len` tokens, scores
+        the window [last_tok, g_1..g_d] in ONE forward (logits[:, i]
+        conditions on the first i drafts), accepts/replaces on the device
+        (`sampling.spec_verify`) and clamps the emission count by stop
+        tokens / budget / max_seq as the sequential loop would (A3).
+        Rejected draft rows are rolled back before the step ends (A4), and
+        the drafter observes only the emitted tokens."""
+        max_seq, d = self.max_seq, self.draft_len
+        L = d + 1
+        dev = state.pos.device
+        idx = torch.arange(L, dtype=torch.int32, device=dev)[None]
+        pre_active = state.active
+        toks, emits = [], []
+        for _ in range(self.decode_steps):
+            active = state.active
+            drafts = self.drafter.propose(state.draft, d)         # (S, d)
+            chunk = torch.cat([state.last_tok[:, None], drafts], dim=1)
+            win = state.pos[:, None] + idx
+            # rows a non-speculative run could never reach drop at write
+            # time (the per-slot accepted-length bound)
+            bound = state.pos + state.budget
+            pv = _bundle(state.pages, max_seq, self.page_size, active,
+                         bound=bound) if self.paged \
+                else attn.DenseKV(write_mask=active, max_seq=max_seq,
+                                  bound=bound)
+            logits, _, caches = M.forward(params, {"tokens": chunk}, self.cfg,
+                                          caches=caches, cache_pos=state.pos,
+                                          paged=pv)
+            out, n_acc = smp.spec_verify(logits, drafts, self.sampling,
+                                         state.gens)
+            is_stop = (out[..., None] == state.stop[:, None, :]).any(dim=-1)
+            stop_at = torch.where(is_stop, idx, L).amin(dim=1)
+            # accepted drafts + the correction/bonus, clamped per token as
+            # the sequential loop clamps; >= 1 for every active slot
+            n_emit = torch.minimum(
+                torch.minimum(n_acc + 1, stop_at + 1),
+                torch.minimum(state.budget, max_seq - 1 - state.pos))
+            n_emit = torch.where(active, n_emit, 0).to(torch.int32)
+            emit = idx < n_emit[:, None]                          # (S, L)
+            # roll back the rejected rows (window indices >= n_emit)
+            rej = torch.where(emit | ~active[:, None], max_seq, win)
+            if self.paged:
+                pg.rollback(caches, self.kv_flags, pv, rej)
+            else:
+                spc.rollback_dense(caches, self.kv_flags, rej, active,
+                                   max_seq)
+            last = torch.gather(out, 1, (n_emit - 1).clamp(0, L - 1)
+                                .long()[:, None])[:, 0]
+            pos = state.pos + n_emit
+            budget = state.budget - n_emit
+            stopped = (is_stop & emit).any(dim=1)
+            # the drafter learns only VERIFIED emissions, in order
+            ds = self.drafter.observe(state.draft, out, emit)
+            state = state._replace(
+                last_tok=torch.where(active, last, state.last_tok),
+                pos=pos, budget=budget,
+                active=active & ~stopped & (budget > 0) & (pos < max_seq - 1),
+                draft=ds,
+                n_drafted=state.n_drafted + active.to(torch.int32) * d,
+                n_accepted=state.n_accepted + (n_emit - 1).clamp(min=0))
+            toks.append(out)
+            emits.append(emit)
+        if self.paged:
+            dead = pre_active & ~state.active
+            state = state._replace(pages=pg.release(state.pages, dead))
+        return state, caches, torch.stack(toks), torch.stack(emits)
+
 
 class PrefillWorker:
     """Runs the chunked admission path against one pool's state."""
 
     def __init__(self, *, cfg, num_slots: int, max_seq: int,
                  prefill_chunk: int, stop_cap: int, sampling, paged: bool,
-                 base_seed: int):
+                 base_seed: int, draft_len: int = 0, drafter=None):
         self.cfg = cfg
         self.num_slots = num_slots
         self.max_seq = max_seq
@@ -141,16 +233,20 @@ class PrefillWorker:
         self.paged = paged
         self.base_seed = base_seed
         self.pool_flags = M.cache_pool_flags(cfg) if paged else None
+        self.draft_len = draft_len
+        self.drafter = drafter
 
     def admit_chunk(self, params, state: SlotState, caches, tokens, valid,
-                    offsets, true_lens, budgets0, stops, gens, txn=None):
+                    offsets, true_lens, budgets0, stops, gens, txn=None,
+                    first=None):
         """One prefill chunk for every admitting slot.  `gens` holds the
         generator of each slot whose prompt ends in this chunk (None
         elsewhere).  `txn` (paged only, a round's first chunk) is the pool
         transaction (admitting, shared, n_shared, new_pages, cow_src,
         evict_delta, register_delta): `admit_update`, then the
         copy-on-write split into table entry n_shared, both before any
-        write of the forward."""
+        write of the forward.  `first` (S,) bool marks the slots whose
+        first chunk this is (speculation resets their drafter state)."""
         ns, C = tokens.shape
         max_seq = self.max_seq
         if txn is not None:
@@ -186,6 +282,20 @@ class PrefillWorker:
             stop=torch.where(final[:, None], stops, state.stop),
             gens=tuple(g if g is not None else old
                        for g, old in zip(gens, state.gens)))
+        if self.draft_len:
+            # seed the drafter from the prompt: clear the slot on its first
+            # chunk, observe this chunk's real tokens in order, then the
+            # sampled first token on the final chunk, so tick-time
+            # proposals draft from the prompt (prompt-lookup decoding)
+            ds = self.drafter.reset(state.draft, first)
+            cmask = valid[:, None] & (
+                offsets[:, None] + torch.arange(C, device=tokens.device)[None]
+                < true_lens[:, None])
+            ds = self.drafter.observe(ds, tokens, cmask)
+            ds = self.drafter.observe(ds, toks[:, None], final[:, None])
+            state = state._replace(
+                draft=ds, n_drafted=torch.where(first, 0, state.n_drafted),
+                n_accepted=torch.where(first, 0, state.n_accepted))
         if self.paged:
             # a request that terminates AT admission (first token a stop
             # token, or no decode room) drops its references right here
@@ -265,6 +375,8 @@ class PrefillWorker:
                 params, state, caches, row[:ns * C].reshape(ns, C),
                 cols[0].bool(), cols[1], cols[2], cols[3],
                 row[ns * C + 4 * ns:].reshape(ns, K), tuple(gens[ci]),
-                txn if ci == 0 else None)
+                txn if ci == 0 else None,
+                cols[0].bool() if ci == 0 else torch.zeros_like(
+                    cols[0], dtype=torch.bool))
             out.append(toks)
         return state, caches, torch.stack(out)
