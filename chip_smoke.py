@@ -20,9 +20,15 @@ depend on the seed only.  Phase 9 serves speculative decoding at
 granite-8b full size: an integer-exact structured stream without
 speculation, with the n-gram drafter and with the 2-bit draft model (all
 36 layers), then phase 5's weights and prompts with both drafters, every
-`bramac_matmul` launch held to its derived count.  Phase 2 also times
-the speculative shapes (the verify window at M=20; 2-bit at M=4 with the
-unpack of the packed weights).  Imports torch, numpy and `repro_torch`
+`bramac_matmul` launch held to its derived count.  Phase 10 serves
+prefill/decode disaggregation at granite-8b full size (streams and launch
+counts equal to phase 5's colocated serves, invariants I1–I7 checked on
+both pools, decode-pool backpressure, the transfer rounds timed beside
+their byte bound) and minicpm3-4b (MLA) at full size, colocated and
+disaggregated.  Phase 2 also times the speculative shapes (the verify
+window at M=20; 2-bit at M=4 with the unpack of the packed weights) and
+every minicpm3-4b linear; phase 6 also holds disaggregated == colocated
+and minicpm3-4b's identities.  Imports torch, numpy and `repro_torch`
 only.  Exits non-zero, printing no result, when any phase fails or no
 CUDA device is present.
 
@@ -33,6 +39,7 @@ them; and, last, {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import os
 import re
@@ -266,11 +273,13 @@ def phase_matmul(gen, report):
               f"(8-bit) {r8['ms']:.4f} ms")
     spec_rows, n_spec = phase_matmul_spec(case)
     n += n_spec
+    mc_rows, n_mc = phase_matmul_minicpm(case)
+    n += n_mc
     print(f"phase 2 bramac_matmul: {n} cases bit-exact vs plain, max abs "
           f"err {worst:.3g} (bits 2/4/8, signed+unsigned, 4-bit packed, "
           f"f32+bf16 out, scalar and per-channel scales, ragged M/K/N at the "
           f"16/64-row, 128-byte and 128-column tile edges, split K, unaligned "
-          f"views and granite shapes)")
+          f"views, granite-8b and minicpm3-4b shapes)")
     main = next(r for r in rows if r["shape"] == "w_gate/w_up" and r["M"] == 4)
     report["bramac_matmul"] = dict(
         name="bramac_matmul", route="cuda",
@@ -278,7 +287,46 @@ def phase_matmul(gen, report):
         replaces="src/repro/kernels/bramac_matmul.py:47", max_abs_err=worst,
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
         bound_by=main["bound_by"], library_ms=main["library_ms"],
-        shapes=rows, spec_shapes=spec_rows)
+        shapes=rows, spec_shapes=spec_rows, minicpm3_shapes=mc_rows)
+
+
+# every minicpm3-4b linear at the rows its serve gives it: the seven MLA
+# projections and the MLP at decode (M = 4 slots) and prefill (M = 64 = 4
+# slots x 16-token chunks); w_uk / w_uv always run over the gathered
+# (slots x max_seq) view, M = 4 x 256 = 1024
+MINICPM3_SHAPES = {                 # name: (K, N, rows)
+    "w_dq": (2560, 768, (4, 64)), "w_uq": (768, 3840, (4, 64)),
+    "w_dkv": (2560, 256, (4, 64)), "w_kr": (2560, 32, (4, 64)),
+    "w_uk/w_uv": (256, 2560, (1024,)), "wo": (2560, 2560, (4, 64)),
+    "w_gate/w_up": (2560, 6400, (4, 64)), "w_down": (6400, 2560, (4, 64)),
+    "unembed": (2560, 73448, (4, 64))}
+
+
+def phase_matmul_minicpm(case):
+    """minicpm3-4b's linear shapes, 8-bit: bit-exact against the plain
+    version, and timed beside their bound and bf16 `torch.matmul` on the
+    same values.  w_kr's N = 32 is below one 128-column tile; unembed's
+    N = 73448 is ragged."""
+    from repro_torch.kernels import bramac_matmul as bm
+    rows, n = [], 0
+    for name, (K, N, ms) in MINICPM3_SHAPES.items():
+        for M in ms:
+            x, w, xs, ws, kw = case(M, K, N, 8, True, False, torch.bfloat16,
+                                    True)
+            n += 1
+            ms_ = time_cold(lambda: bm.bramac_matmul(x, w, xs, ws, **kw))
+            plain_ms = time_cold(
+                lambda: bm.bramac_matmul_plain(x, w, xs, ws, **kw), iters=5)
+            bound, by = _matmul_bound(M, K, N, K * N, 4)
+            xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+            lib_ms = time_cold(lambda: torch.matmul(xb, wb))
+            rows.append(dict(shape=name, M=M, K=K, N=N, ms=ms_,
+                             plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                             library="bf16 torch.matmul", library_ms=lib_ms))
+            print(f"  bramac_matmul minicpm3 {name} M={M} K={K} N={N}: "
+                  f"{ms_:.4f} ms (bound {bound:.4f} ms by {by}, plain "
+                  f"{plain_ms:.4f} ms, bf16 torch.matmul {lib_ms:.4f} ms)")
+    return rows, n
 
 
 def _matmul_bound(M, K, N, w_bytes, digits):
@@ -918,15 +966,24 @@ def _counters():
 
 
 def serve(cfg, params, prompts, new_tokens, *, decode_kernel=True,
-          num_slots=4, max_seq=256, **kw):
+          num_slots=4, max_seq=256, top2=None, **kw):
+    """Serve `prompts` on a fresh Engine and return the run's readings.
+    `top2` (a dict) collects, per (request uid, position), the top two
+    tokens and their logit gap of every logits row the decode ticks
+    computed from the request's own emitted context (`_log_top2`)."""
     from repro_torch.runtime.serve import Engine
     kw.setdefault("prefix_cache", False)
     with Engine(cfg, params, num_slots=num_slots, max_seq=max_seq,
                 decode_kernel=decode_kernel, device="cuda", **kw) as eng:
         reqs = [eng.submit(p, new_tokens) for p in prompts]
+        restore = _log_top2(eng, top2) if top2 is not None else None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        results = eng.run()
+        try:
+            results = eng.run()
+        finally:
+            if restore:
+                restore()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         steps = eng.n_ticks * eng.decode_steps
@@ -937,10 +994,86 @@ def serve(cfg, params, prompts, new_tokens, *, decode_kernel=True,
         spec = eng.spec_stats()
         ticks, admits = eng.n_ticks, eng.n_admit_calls
         reasons = [r.result.finish_reason for r in reqs]
+        disagg = eng.disagg_stats()
+        checks, i7 = eng.n_invariant_checks, eng.n_transfer_checks
+        drained = eng.kv_layout != "paged" or (
+            eng.pages_in_use == 0 and eng.sched.pool.pages_in_use == 0)
     return dict(streams=streams, done=done, wall=wall, steps=steps,
                 forwards=forwards, ttft=ttft, spec=spec, ticks=ticks,
-                admits=admits, reasons=reasons,
+                admits=admits, reasons=reasons, disagg=disagg, checks=checks,
+                transfer_checks=i7, drained=drained,
                 tokens=sum(len(s) for s in streams))
+
+
+def _log_top2(eng, out):
+    """Wrap `eng`'s decode tick so that every logits row whose context is
+    the request's emitted stream lands in `out[(uid, position)]` as (top
+    token, runner-up, logit gap): each active slot's row of a plain tick,
+    and the emitted rows (accepted drafts and the correction) of a verify
+    window.  Returns the function that restores the sampling hooks."""
+    from repro_torch.runtime import sampling as smp
+    seen = []
+    plain = (smp.sample, smp.spec_verify)
+    tick = eng.decode.tick
+
+    def sample(logits, *a, **k):
+        seen.append(logits)
+        return plain[0](logits, *a, **k)
+
+    def verify(logits, *a, **k):
+        seen.append(logits)
+        return plain[1](logits, *a, **k)
+
+    def logged_tick(params, state, caches):
+        pos = state.pos.cpu().tolist()
+        uids = [r.uid if r is not None else None for r in eng.slot_req]
+        seen.clear()
+        state, caches, toks, emitted = tick(params, state, caches)
+        lg = seen[0]                              # decode_steps 1
+        if lg.ndim == 2:
+            lg, em = lg[:, None], emitted[0][:, None]
+        else:
+            em = emitted[0]
+        v, i = torch.topk(lg.float(), 2, dim=-1)
+        v, i, em = v.cpu(), i.cpu(), em.cpu()
+        for s, uid in enumerate(uids):
+            for j in range(lg.shape[1]):
+                if uid is not None and em[s, j]:
+                    out[(uid, pos[s] + j)] = (int(i[s, j, 0]), int(i[s, j, 1]),
+                                              float(v[s, j, 0] - v[s, j, 1]))
+        return state, caches, toks, emitted
+
+    smp.sample, smp.spec_verify = sample, verify
+    eng.decode.tick = logged_tick
+
+    def restore():
+        smp.sample, smp.spec_verify = plain
+    return restore
+
+
+def same_or_near_tie(prompts, a, b, top_a, top_b, what):
+    """Streams `a` and `b` (request uid = index) must be equal, except that
+    a request may leave the other run's stream where both runs rank the
+    same two tokens first and differ only in their order: a near tie of
+    the top two logits, which programs of other shapes (a verify window
+    against a decode step) resolve differently at f32.  After such a swap
+    the contexts differ and nothing more is compared.  Returns the swaps
+    found, with both runs' gaps."""
+    swaps = []
+    for r, (x, y) in enumerate(zip(a, b)):
+        if x == y:
+            continue
+        j = next(k for k in range(min(len(x), len(y))) if x[k] != y[k])
+        key = (r, len(prompts[r]) + j - 1)
+        need(j > 0 and key in top_a and key in top_b,
+             f"{what}: request {r} differs at token {j} with no logged row")
+        need(top_a[key][:2] == (x[j], y[j]) and
+             top_b[key][:2] == (y[j], x[j]),
+             f"{what}: request {r} differs at token {j} beyond a swap of "
+             f"the top two: {top_a[key]} vs {top_b[key]}")
+        swaps.append(f"request {r} token {j}: top two swapped, gaps "
+                     f"{top_a[key][2]:.4g} / {top_b[key][2]:.4g}")
+    return swaps
 
 
 def spec_matmul_launches(cfg, run, draft_len, draft_layers=None):
@@ -984,6 +1117,7 @@ def phase_serve(report):
     counters = _counters()
     per_layer = 7 * cfg.num_layers + 1         # wq wk wv wo gate up down + unembed
     totals = {k: 0 for k in counters}
+    streams5, launches5 = {}, {}
     for quant_kv in (False, True):
         c = cfg.replace(quant_kv=quant_kv)
         # warm-up: a short serve pays the first-use costs (module loads,
@@ -1021,8 +1155,8 @@ def phase_serve(report):
         rep = serve(c, params, prompts, 16)
         need(rep["streams"] == run["streams"],
              "a repeated greedy serve gave other streams")
-        if not quant_kv:
-            streams5 = run["streams"]
+        streams5["int8" if quant_kv else "bf16"] = run["streams"]
+        launches5["int8" if quant_kv else "bf16"] = got
         rep_ttft = 1e3 * float(np.mean(rep["ttft"]))
         print(f"  repeat: {rep['tokens'] / rep['wall']:.1f} tok/s, mean TTFT "
               f"{rep_ttft:.1f} ms, same streams")
@@ -1037,8 +1171,10 @@ def phase_serve(report):
     report["profile_int8_kv"] = profile_serve(cfg.replace(quant_kv=True),
                                               params, prompts[:4])
     phase_engine(cfg, params, prompts, report)
-    phase_spec(cfg, params, prompts, streams5, report)
+    phase_spec(cfg, params, prompts, streams5["bf16"], report)
+    phase_disagg(cfg, params, prompts, streams5, launches5, report)
     del params
+    gc.collect()
     torch.cuda.empty_cache()
 
 
@@ -1452,6 +1588,221 @@ def phase_spec(cfg, params, prompts, streams5, report):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: prefill/decode disaggregation at granite-8b full size, and
+# minicpm3-4b (MLA) at full size
+# ---------------------------------------------------------------------------
+
+def transfer_bytes(cfg, n_pages):
+    """Bytes a transfer of `n_pages` pages moves: every pool row of every
+    layer (K, V and, for int8 KV, their row scales), `kv_row_bytes` per
+    token row."""
+    from repro_torch.kernels import paged_attention as pa
+    return n_pages * cfg.page_size * pa.kv_row_bytes(cfg)
+
+
+def timed_transfers(cfg, params, prompts, new_tokens=16):
+    """A disaggregated serve whose transfer rounds are timed with CUDA
+    events.  A device spin ahead of each round's start event keeps the
+    card busy while the host enqueues the round, so the interval is device
+    time.  Returns ([(device ms, pages, host ms)], streams)."""
+    from repro_torch.runtime.serve import Engine
+    spin = int(5.0 * spin_cycles_per_ms())
+    rounds = []
+    with Engine(cfg, params, num_slots=4, max_seq=256, disagg=True,
+                prefix_cache=False, device="cuda") as eng:
+        plain = eng._transfer
+
+        def timed():
+            if not eng.sched.ready:
+                return plain()
+            n0 = eng.pages_transferred
+            torch.cuda._sleep(spin)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            a.record()
+            plain()
+            b.record()
+            host = (time.perf_counter() - t0) * 1e3
+            if eng.pages_transferred > n0:
+                rounds.append((a, b, eng.pages_transferred - n0, host))
+
+        eng._transfer = timed
+        reqs = [eng.submit(p, new_tokens) for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        streams = [list(r.out_tokens) for r in reqs]
+    return [(a.elapsed_time(b), n, host) for a, b, n, host in rounds], streams
+
+
+def phase_disagg(cfg, params, prompts, streams5, launches5, report):
+    """Phase 10 at granite-8b full size, phase 5's weights and prompts:
+    (a) disaggregated serves, bf16 and int8 KV, decode kernels and
+    invariant checks on — streams and launch counts equal to phase 5's
+    colocated serves, an I7 content check after every transfer round, both
+    pools drained; (b) a decode pool of 9 pages, too small for two of the
+    larger requests: the transfer backpressures, streams stay equal and
+    nothing leaks; (c) the transfer round of the first wave (4 requests,
+    4 tokens) timed beside its byte bound."""
+    t_phase = time.perf_counter()
+    totals = {}
+    rows = []
+    for quant_kv in (False, True):
+        c = cfg.replace(quant_kv=quant_kv)
+        kv = "int8" if quant_kv else "bf16"
+        _zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        run = serve(c, params, prompts, 16, disagg=True,
+                    check_invariants=True)
+        got = _read_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        for k, n in got.items():
+            totals[k] = totals.get(k, 0) + n
+        dg = run["disagg"]
+        need(run["streams"] == streams5[kv],
+             f"phase 10a ({kv} KV): disaggregated streams != phase 5's "
+             f"colocated streams")
+        need(got == launches5[kv], f"phase 10a ({kv} KV): launches {got} "
+             f"!= the colocated serve's {launches5[kv]}")
+        need(dg["pages_transferred"] >= 8 and dg["transfer_rounds"] > 0,
+             f"phase 10a ({kv} KV): {dg}")
+        need(run["transfer_checks"] == dg["transfer_rounds"],
+             f"phase 10a ({kv} KV): {run['transfer_checks']} I7 checks for "
+             f"{dg['transfer_rounds']} transfer rounds")
+        need(run["drained"], f"phase 10a ({kv} KV): a pool kept pages")
+        need(all(r == "budget" for r in run["reasons"]),
+             f"phase 10a ({kv} KV): finish reasons {run['reasons']}")
+        ttft = 1e3 * float(np.mean(run["ttft"]))
+        print(f"phase 10a disagg serve granite-8b {kv} KV: streams == phase "
+              f"5's colocated streams; {dg['pages_transferred']} pages in "
+              f"{dg['transfer_rounds']} rounds "
+              f"({dg['transfers_backpressured']} backpressured), decode "
+              f"pool {dg['decode_pages_high_water']}/{dg['decode_pages']} "
+              f"high-water, prefill pool {dg['prefill_pages_high_water']}/"
+              f"{dg['prefill_pages']}; {run['checks']} invariant checks, "
+              f"{run['transfer_checks']} I7 content checks; "
+              f"{run['tokens'] / run['wall']:.1f} tok/s with the checks on, "
+              f"mean TTFT {ttft:.1f} ms, peak memory {peak:.2f} GB; "
+              f"launches {got} (= colocated)")
+    for k, n in totals.items():
+        report[k]["launches"] += n
+    small = serve(cfg, params, prompts, 16, disagg=True,
+                  check_invariants=True, num_pages=9)
+    dg = small["disagg"]
+    need(small["streams"] == streams5["bf16"],
+         "phase 10b: streams under decode-pool pressure != phase 5's")
+    need(dg["transfers_backpressured"] > 0 and
+         dg["decode_pages_high_water"] <= 9, f"phase 10b: {dg}")
+    need(small["drained"] and small["transfer_checks"] ==
+         dg["transfer_rounds"], "phase 10b: a pool leaked or a round went "
+         "unchecked")
+    print(f"phase 10b decode pool of 9 pages (bf16 KV): streams == phase "
+          f"5's; {dg['transfers_backpressured']} transfers backpressured, "
+          f"decode high-water {dg['decode_pages_high_water']}/9, "
+          f"{dg['transfer_rounds']} rounds, {small['ticks']} ticks, both "
+          f"pools drained")
+    for quant_kv in (False, True):
+        c = cfg.replace(quant_kv=quant_kv)
+        kv = "int8" if quant_kv else "bf16"
+        # the first wave only, 4 tokens each: one round of 4 transfers
+        timed, streams = timed_transfers(c, params, prompts[:4], 4)
+        need(streams == [x[:4] for x in streams5[kv][:4]],
+             f"phase 10c ({kv} KV): streams")
+        need(timed, f"phase 10c ({kv} KV): no transfer round timed")
+        for ms, n, host in timed:
+            nbytes = transfer_bytes(c, n)
+            bound = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+            rows.append(dict(kv=kv, pages=n, bytes=nbytes, ms=ms,
+                             bound_ms=bound, host_ms=host))
+        print(f"phase 10c transfer rounds ({kv} KV, "
+              f"{transfer_bytes(c, 1) / 1e6:.3f} MB a page): "
+              + "; ".join(f"{n} pages {ms:.4f} ms (bound {2 * transfer_bytes(c, n) / HBM_BYTES_PER_S * 1e3:.4f} ms, host enqueue {host:.3f} ms)"
+                          for ms, n, host in timed))
+    report["disagg"] = dict(transfers=rows)
+    spent = time.perf_counter() - t_phase
+    print(f"phase 10 (a-c) took {spent:.1f} s")
+    report["phase10_s"] = spent
+
+
+def phase_minicpm(report):
+    """Phase 10d: minicpm3-4b at full size (62 layers, d=2560, 40 heads,
+    MLA with q_lora 768 / kv_lora 256, vocab 73448; bf16, 8-bit weights,
+    random from a seed), phase 5's serve colocated and disaggregated: equal
+    streams, bramac_matmul launches = (10 x 62 + 1) per forward, no decode
+    kernel (MLA reads through the gather); then a device-only profile."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.bramac_linear import QuantConfig, \
+        tree_prepare_serving
+    from repro_torch.models import model as M
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9
+    q8 = QuantConfig(enabled=True, bits_w=8, bits_a=8)
+    cfg = get_config("minicpm3-4b").replace(quant=q8)
+    need((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+          cfg.d_ff, cfg.vocab_size) == (62, 2560, 40, 40, 6400, 73448),
+         "minicpm3-4b config")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = tree_prepare_serving(M.init_params(cfg, gen, "cuda"), q8)
+    torch.cuda.synchronize()
+    print(f"  minicpm3-4b params built and quantized in "
+          f"{time.perf_counter() - t_phase:.1f} s; {held:.2f} GB still held "
+          f"after granite-8b was freed, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB now")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n))
+               for n in rng.integers(17, 121, size=8)]
+    per_fwd = 10 * cfg.num_layers + 1
+    serve(cfg, params, prompts[:1], 2)                  # warm-up
+    runs = {}
+    for disagg in (False, True):
+        what = "disaggregated" if disagg else "colocated"
+        _zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        run = serve(cfg, params, prompts, 16, disagg=disagg)
+        got = _read_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        need(run["done"] == 8 and all(
+            len(x) == 16 and all(0 <= t < cfg.vocab_size for t in x)
+            for x in run["streams"]), f"phase 10d ({what}): streams")
+        need(got["bramac_matmul"] == per_fwd * run["forwards"],
+             f"phase 10d ({what}): bramac_matmul launches "
+             f"{got['bramac_matmul']} != {per_fwd} x {run['forwards']}")
+        need(got["paged_decode"] == got["paged_decode_q"] == 0,
+             f"phase 10d ({what}): a decode kernel launched: {got}")
+        need(run["drained"], f"phase 10d ({what}): a pool kept pages")
+        report["bramac_matmul"]["launches"] += got["bramac_matmul"]
+        ttft = 1e3 * float(np.mean(run["ttft"]))
+        runs[what] = dict(tok_s=run["tokens"] / run["wall"], ttft_ms=ttft,
+                          peak_gb=peak, forwards=run["forwards"],
+                          launches=got["bramac_matmul"], disagg=run["disagg"])
+        print(f"phase 10d serve minicpm3-4b {what}: {run['done']}/8 "
+              f"requests, {run['tokens']} tokens, "
+              f"{run['tokens'] / run['wall']:.1f} tok/s, mean TTFT "
+              f"{ttft:.1f} ms, peak memory {peak:.2f} GB, "
+              f"{run['forwards']} forwards, bramac_matmul launches "
+              f"{got['bramac_matmul']} (= {per_fwd} x forwards), no decode "
+              f"kernel" + (f"; {run['disagg']['pages_transferred']} pages "
+                           f"transferred" if disagg else ""))
+        runs[what]["streams"] = run["streams"]
+    need(runs["colocated"]["streams"] == runs["disaggregated"]["streams"],
+         "phase 10d: minicpm3-4b disaggregated streams != colocated")
+    prof = profile_serve(cfg, params, prompts[:4], new_tokens=4,
+                         label="phase 10d profile minicpm3-4b",
+                         host_ops=False)
+    for r in runs.values():
+        del r["streams"]
+    report["minicpm3"] = dict(runs, profile=prof)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    spent = time.perf_counter() - t_phase
+    print(f"phase 10d took {spent:.1f} s; phase 10 in all "
+          f"{report['phase10_s'] + spent:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # phase 6: kernel-on == kernel-off greedy streams (f32, full width)
 # ---------------------------------------------------------------------------
 
@@ -1515,6 +1866,16 @@ def phase_streams():
         need(warm["streams"] == cold["streams"],
              f"prefix on != off streams ({kv} KV): {warm['streams']} vs "
              f"{cold['streams']}")
+        _zero_counts()
+        dis = serve(c, params, prompts, 12, decode_kernel=True, num_slots=3,
+                    max_seq=96, disagg=True, check_invariants=True)
+        got = _read_counts()
+        need(dis["streams"] == on, f"disaggregated != colocated kernel-on "
+             f"streams ({kv} KV): {dis['streams']} vs {on}")
+        need(got[attn] == dis["steps"] * cfg.num_layers and dis["drained"]
+             and dis["transfer_checks"] == dis["disagg"]["transfer_rounds"]
+             > 0, f"disaggregated serve ({kv} KV): launches {got}, "
+             f"{dis['disagg']}")
         spec = spec_streams(c, params, prompts, off)
         print(f"  phase 6 speculation ({kv} KV, draft_len 4): streams equal "
               f"the non-speculative ones in {len(spec)} serves; "
@@ -1524,6 +1885,9 @@ def phase_streams():
     rej = spec_page_boundary(cfg, params)
     print(f"  phase 6 mid-window rejection across a page boundary (fp KV): "
           + "; ".join(f"{k}: {v}" for k, v in rej.items()))
+    del params
+    mla = streams_mla(prompt_lens=[len(p) for p in prompts])
+    print(f"  phase 6 minicpm3-4b (MLA, full width, 2 layers, f32): {mla}")
     print("phase 6 streams: kernel-on == kernel-off == dense-layout greedy "
           "streams at full width, 2 layers, f32 (fp KV and int8 KV; 6 "
           "requests, 3 slots; no decode kernel launch on the dense serves); "
@@ -1532,7 +1896,96 @@ def phase_streams():
           "every sync); speculation (draft_len 4, n-gram and 2-bit model "
           "drafters, paged with the prefix cache on and off, dense) == "
           "no speculation, a rejected window across a page boundary rolled "
-          f"back; {time.perf_counter() - t_phase:.1f} s")
+          "back; disaggregated == colocated with the decode kernels on; "
+          "minicpm3-4b paged == dense, prefix on == off, n-gram "
+          "speculation == off, disaggregated == colocated; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def streams_mla(prompt_lens):
+    """Phase 6 for MLA: minicpm3-4b at full width, 2 layers, f32, 8-bit
+    weights.  Greedy streams paged (decode kernels requested, never
+    launched) == dense == paged with n-gram speculation == disaggregated
+    (invariant and I7 checks on); staggered prompts with the prefix cache
+    on == off (3 hits, copy-on-write mid-page)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.bramac_linear import QuantConfig, \
+        tree_prepare_serving
+    from repro_torch.models import model as M
+    q8 = QuantConfig(enabled=True, bits_w=8, bits_a=8)
+    cfg = get_config("minicpm3-4b").replace(num_layers=2, dtype="float32",
+                                            quant=q8)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    params = tree_prepare_serving(M.init_params(cfg, gen, "cuda"), q8)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in prompt_lens]
+    stem = rng.integers(0, cfg.vocab_size, size=44)
+    tail = lambda n: rng.integers(0, cfg.vocab_size, size=n)  # noqa: E731
+    stag = [np.concatenate([stem, tail(5)]), np.concatenate([stem, tail(9)]),
+            np.concatenate([stem[:30], tail(7)]),
+            np.concatenate([stem, tail(3)])]
+    kw = dict(num_slots=3, max_seq=96)
+    def no_decode_kernel(what):
+        got = _read_counts()
+        need(got["paged_decode"] == got["paged_decode_q"] == 0
+             and got["bramac_matmul"] > 0,
+             f"minicpm3-4b {what}: launches {got}")
+
+    _zero_counts()
+    top_paged = {}
+    paged = serve(cfg, params, prompts, 12, decode_kernel=True,
+                  top2=top_paged, **kw)
+    no_decode_kernel("paged")
+    runs = {"dense": dict(kv_layout="dense"),
+            "n-gram speculation": dict(draft_len=4, drafter="ngram",
+                                       prefix_cache=True,
+                                       check_invariants=True),
+            "disaggregated": dict(disagg=True, check_invariants=True)}
+    out = {}
+    for what, extra in runs.items():
+        _zero_counts()
+        top = {}
+        run = serve(cfg, params, prompts, 12, top2=top, **kw, **extra)
+        no_decode_kernel(what)
+        if what == "n-gram speculation":
+            # the verify window (Sq = 5) against the decode step (Sq = 1):
+            # equal streams, or a swap of a near tie's top two (see
+            # same_or_near_tie)
+            swaps = same_or_near_tie(prompts, paged["streams"],
+                                     run["streams"], top_paged, top,
+                                     f"minicpm3-4b {what}")
+        else:
+            swaps = []
+            need(run["streams"] == paged["streams"], f"minicpm3-4b {what} "
+                 f"!= paged streams: {run['streams']} vs {paged['streams']}")
+        if what == "disaggregated":
+            need(run["drained"] and run["transfer_checks"] ==
+                 run["disagg"]["transfer_rounds"] > 0,
+                 f"minicpm3-4b disaggregated: {run['disagg']}")
+            out[what] = f"{run['disagg']['pages_transferred']} pages moved"
+        elif what == "n-gram speculation":
+            need(run["spec"]["drafted"] > 0, "minicpm3-4b: nothing drafted")
+            out[what] = (f"{run['spec']['accepted']}/"
+                         f"{run['spec']['drafted']} accepted, streams "
+                         f"equal" + (f" up to {len(swaps)} near-tie "
+                                     f"swap(s) ({', '.join(swaps)})"
+                                     if swaps else ""))
+        else:
+            out[what] = "equal"
+    warm = staggered(cfg, params, stag, prefix_cache=True)
+    cold = staggered(cfg, params, stag, prefix_cache=False)
+    st = warm["stats"]
+    need((st["hits"], st["tokens_skipped"]) == (3, 40 + 24 + 40),
+         f"minicpm3-4b staggered prefix stats: {st}")
+    need(warm["streams"] == cold["streams"], "minicpm3-4b prefix on != off")
+    for run in (warm, cold):
+        need(run["launches"]["paged_decode"] ==
+             run["launches"]["paged_decode_q"] == 0,
+             f"minicpm3-4b prefix serve launches {run['launches']}")
+    out["prefix on == off"] = f"{st['hits']} hits"
+    del params
+    torch.cuda.empty_cache()
+    return "; ".join(f"{k}: {v}" for k, v in out.items())
 
 
 def spec_streams(cfg, params, prompts, want):
@@ -1640,7 +2093,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import build
     smi = smi_line()
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     reports = build.build_all()
     for name in build.SOURCES:
         build.library(name)
@@ -1667,9 +2120,11 @@ def main() -> int:
     phase_paged(gen, report)
     phase_mac2(gen, report)
     phase_serve(report)
+    phase_minicpm(report)
     phase_streams()
     print(f"timing: {len(HOST_BOUND)} readings in which an enqueue outlasted "
           f"the device spin" + (f": {HOST_BOUND}" if HOST_BOUND else ""))
+    print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: report[n][k] for k in keys}

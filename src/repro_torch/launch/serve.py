@@ -11,15 +11,18 @@
         [--prefix-max-chains 4096] [--shared-prefix 0] \
         [--draft-len 0] [--spec-ngram 2] [--spec-table 512] \
         [--drafter ngram|model] [--draft-bits 2] [--draft-layers 0] \
+        [--role prefill|decode|both --prefill-slots 4 --prefill-pages 16] \
         [--check-invariants] [--device cuda|cpu]
 
 Runs on the card by default (`--device cpu` runs the plain PyTorch
 versions of the kernels).  Weights are random (`init_params` from a seeded
 generator) and, with --quant-bits, quantized once for serving.  The flags
-are the reference launcher's minus disaggregation and the mesh, and the
-report lines keep its wording: requests done and tok/s, syncs and finish
-reasons, speculation's acceptance and tokens per tick, the kv pool, the
-prefix cache's hit rate and refcount histogram, or the dense reservation.
+are the reference launcher's minus the mesh (`--role both` serves
+disaggregated in this process; "prefill" / "decode" raise, as the
+reference's do), and the report lines keep its wording: requests done and
+tok/s, syncs and finish reasons, speculation's acceptance and tokens per
+tick, the kv pool, the page transfer of disaggregation, the prefix
+cache's hit rate and refcount histogram, or the dense reservation.
 """
 from __future__ import annotations
 
@@ -33,9 +36,10 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.bramac_linear import QuantConfig, tree_prepare_serving
 from repro_torch.models import model as M
-from repro_torch.runtime.options import (DebugOptions, EngineOptions,
-                                         PagingOptions, PrefixOptions,
-                                         ScheduleOptions, SpeculationOptions)
+from repro_torch.runtime.options import (DebugOptions, DisaggOptions,
+                                         EngineOptions, PagingOptions,
+                                         PrefixOptions, ScheduleOptions,
+                                         SpeculationOptions)
 from repro_torch.runtime.sampling import SamplingConfig
 from repro_torch.runtime.serve import Engine, resolve_device
 
@@ -112,6 +116,20 @@ def main(argv=None):
     ap.add_argument("--draft-layers", type=int, default=0,
                     help="truncate the draft model to its first N blocks "
                          "(0 = full depth; whole layer-pattern periods)")
+    ap.add_argument("--role", default="",
+                    choices=("", "prefill", "decode", "both"),
+                    help="prefill/decode disaggregation: 'both' runs the "
+                         "split engine in-process (prefill worker with its "
+                         "own page pool, page-granularity KV handoff into "
+                         "the decode worker); 'prefill'/'decode' are the "
+                         "future multi-process endpoints (empty = "
+                         "colocated, no split)")
+    ap.add_argument("--prefill-slots", type=int, default=0,
+                    help="disagg: prefill-worker slot count (0 = same as "
+                         "--slots)")
+    ap.add_argument("--prefill-pages", type=int, default=0,
+                    help="disagg: prefill-worker pool pages (0 = capacity-"
+                         "equal: prefill_slots * ceil(max_seq/page_size))")
     ap.add_argument("--check-invariants", action="store_true",
                     help="cross-check the host page-pool mirror against "
                          "the device allocator after every sync")
@@ -153,6 +171,10 @@ def main(argv=None):
                                        draft_bits=args.draft_bits,
                                        draft_layers=args.draft_layers
                                        or None),
+        disagg=DisaggOptions(enabled=bool(args.role),
+                             role=args.role or "both",
+                             prefill_slots=args.prefill_slots or None,
+                             prefill_pages=args.prefill_pages or None),
         debug=DebugOptions(check_invariants=args.check_invariants))
     rng = np.random.default_rng(0)
     with Engine(cfg, params, options=options, device=device) as eng:
@@ -206,6 +228,17 @@ def main(argv=None):
                   f"{eng.kv_bytes_read / max(eng.kv_read_steps, 1):.0f} "
                   f"bytes/step over {eng.kv_read_steps} decode steps "
                   f"({'live-token bounded' if eng.decode_kernel else 'max_seq gather'})")
+            if eng.disagg:
+                dg = eng.disagg_stats()
+                print(f"  disagg: {dg['pages_transferred']} pages "
+                      f"transferred in {dg['transfer_rounds']} rounds "
+                      f"({dg['transfers_backpressured']} backpressured); "
+                      f"decode-worker occupancy "
+                      f"{dg['decode_pages_high_water']}/"
+                      f"{dg['decode_pages']} pages high-water, prefill "
+                      f"pool {dg['prefill_pages_high_water']}/"
+                      f"{dg['prefill_pages']} over {dg['prefill_slots']} "
+                      f"slots")
             st = eng.prefix_stats()
             if st["enabled"]:
                 hist = eng.pool.refcount_hist()

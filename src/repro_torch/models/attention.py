@@ -1,6 +1,6 @@
-"""GQA attention (+RoPE) with dense or paged KV caches, fp or int8.
+"""GQA and MLA attention (+RoPE) with dense or paged KV caches.
 
-Port of the GQA half of `repro.models.attention`.  Modes, as the
+Port of the GQA and MLA parts of `repro.models.attention`.  Modes, as the
 reference's:
   * train/prefill without a cache: causal attention, query-chunked;
   * serving: a decode step or prefill chunk against a KV cache written in
@@ -16,8 +16,12 @@ the gather (`paged_view` + `chunk_attention`) stays the oracle and the
 Sq>1 path.  Dense prefill chunks, the speculative verify window and the
 draft model's cache write through a `DenseKV` bundle, whose write mask
 keeps the rows of slots that are not writing and whose bound drops rows a
-non-speculative run could not reach.  MLA and cross-attention come with
-later slices.
+non-speculative run could not reach.  MLA (multi-head latent attention,
+MiniCPM3/DeepSeek style) caches only the normed latent `c_kv` and the
+roped `k_rope`, in the compute dtype (`quant_kv` does not apply), and
+always reads through the gather: its up-projections run over the whole
+gathered view, and the decode kernels, which read GQA pools, are never
+its path.  Cross-attention comes with a later slice.
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ import math
 import torch
 
 from repro_torch.kernels import paged_attention as pk
-from repro_torch.models.layers import apply_rope, dense, init_dense
+from repro_torch.models.layers import (apply_rope, dense, init_dense,
+                                       init_rmsnorm, rmsnorm)
 
 Q_CHUNK = 1024
 
@@ -345,3 +350,81 @@ def decode_attention_q(q, cache, positions):
     out = out_i.to(torch.float32) \
         * pscale.permute(0, 3, 1, 2)[..., None]             # (B,Sq,Hkv,g,1)
     return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, MiniCPM3/DeepSeek style)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen, cfg, device):
+    d, H = cfg.d_model, cfg.num_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    dt = cfg.compute_dtype
+    return {"w_dq": init_dense(gen, d, qr, dt, device),
+            "q_norm": init_rmsnorm(qr, dt, device),
+            "w_uq": init_dense(gen, qr, H * (nope + rope), dt, device),
+            "w_dkv": init_dense(gen, d, kvr, dt, device),
+            "kv_norm": init_rmsnorm(kvr, dt, device),
+            "w_kr": init_dense(gen, d, rope, dt, device),
+            "w_uk": init_dense(gen, kvr, H * nope, dt, device),
+            "w_uv": init_dense(gen, kvr, H * vd, dt, device),
+            "wo": init_dense(gen, H * vd, d, dt, device)}
+
+
+def mla(p, x, cfg, positions, cache=None, cache_pos=None, paged=None):
+    """Latent attention; the cache holds only (c_kv, k_rope), written in
+    place.  Every projection goes through the BRAMAC `dense`.  Under the
+    paged layout the up-projections run over the gathered (B, max_seq)
+    view, as the dense path runs them over its whole reservation; masked
+    rows of the view are zeros.  The bundle's `decode_kernel` flag is
+    ignored: MLA always reads through the gather."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q = dense(rmsnorm(p["q_norm"], dense(x, p["w_dq"], cfg.quant),
+                      cfg.norm_eps), p["w_uq"], cfg.quant)
+    q = q.reshape(B, S, H, nope + rope)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv = rmsnorm(p["kv_norm"], dense(x, p["w_dkv"], cfg.quant),
+                   cfg.norm_eps)
+    # RoPE through a temporary head axis: (B, S, 1, rope) -> (B, S, rope)
+    k_rope = apply_rope(dense(x, p["w_kr"], cfg.quant)[:, :, None, :],
+                        positions, cfg.rope_theta)[:, :, 0]
+    if cache is not None and isinstance(paged, DenseKV):
+        dense_update(cache["c_kv"], c_kv, positions, paged)
+        dense_update(cache["k_rope"], k_rope, positions, paged)
+        c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    elif cache is not None and paged is not None:
+        paged_update(cache["c_kv"], c_kv, positions, paged)
+        paged_update(cache["k_rope"], k_rope, positions, paged)
+        c_kv = paged_view(cache["c_kv"], paged)
+        k_rope = paged_view(cache["k_rope"], paged)
+    elif cache is not None:
+        _update_cache(cache["c_kv"], c_kv, cache_pos)
+        _update_cache(cache["k_rope"], k_rope, cache_pos)
+        c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    Sk = c_kv.shape[1]
+    k_nope = dense(c_kv, p["w_uk"], cfg.quant).reshape(B, Sk, H, nope)
+    v = dense(c_kv, p["w_uv"], cfg.quant).reshape(B, Sk, H, vd)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, Sk, H, rope)],
+                  dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    if cache is not None:                         # decode or prefill chunk
+        out = chunk_attention(q_full, k, v, positions)
+    else:
+        out = causal_attention(q_full, k[:, :S], v[:, :S])
+    return dense(out.reshape(B, S, H * vd), p["wo"], cfg.quant), cache
+
+
+def init_mla_cache(cfg, batch, max_seq, dtype, num_pages=None, device=None):
+    """The latent cache in the compute dtype (no int8 variant): dense
+    (batch, max_seq, ...) reservations, or a (num_pages, page_size, ...)
+    pool."""
+    lead = (batch, max_seq) if num_pages is None \
+        else (num_pages, cfg.page_size)
+    return {"c_kv": torch.zeros(lead + (cfg.kv_lora_rank,), dtype=dtype,
+                                device=device),
+            "k_rope": torch.zeros(lead + (cfg.qk_rope_dim,), dtype=dtype,
+                                  device=device)}

@@ -1,10 +1,11 @@
 """Layer stack: pattern-driven blocks over stacked per-period parameters.
 
-Port of `repro.models.transformer` for `attn+dense` blocks.  Parameters of
-pattern position i are stacked over `n_periods` as in the reference
-(`params["pos{i}"][leaf]` with a leading period axis); `stack_apply` walks
-the periods in a Python loop over period slices (views, no copies).  The
-other mixers and FFs raise NotImplementedError until their slice lands.
+Port of `repro.models.transformer` for `attn+dense` (GQA) and `mla+dense`
+(multi-head latent attention) blocks.  Parameters of pattern position i are
+stacked over `n_periods` as in the reference (`params["pos{i}"][leaf]`
+with a leading period axis); `stack_apply` walks the periods in a Python
+loop over period slices (views, no copies).  The other mixers (xattn,
+mamba, mlstm, slstm) and the MoE FF raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -18,16 +19,21 @@ from repro_torch.models.layers import init_mlp, init_rmsnorm, mlp, rmsnorm
 
 MIXERS = ("attn", "mla", "xattn", "mamba", "mlstm", "slstm")
 FFS = ("dense", "moe", "none")
+SERVED_MIXERS = ("attn", "mla")
 
 
 def parse_spec(spec: str) -> tuple[str, str]:
     mixer, ff = spec.split("+")
     if mixer not in MIXERS or ff not in FFS:
         raise ValueError(f"bad layer spec {spec!r}")
-    if (mixer, ff) != ("attn", "dense"):
+    if mixer not in SERVED_MIXERS:
         raise NotImplementedError(
-            f"layer {spec!r}: only attn+dense blocks are ported so far; "
-            "the mla, xattn, MoE, Mamba and xLSTM layers are not ported yet")
+            f"layer {spec!r}: the {mixer} mixer is not ported yet (the "
+            f"port serves {', '.join(SERVED_MIXERS)})")
+    if ff != "dense":
+        raise NotImplementedError(
+            f"layer {spec!r}: the {ff!r} feed-forward is not ported yet "
+            f"(the port serves dense)")
     return mixer, ff
 
 
@@ -48,10 +54,11 @@ def tree_map(fn, tree):
 # ---------------------------------------------------------------------------
 
 def init_block(gen, cfg, spec: str, device):
-    parse_spec(spec)
+    mixer, _ = parse_spec(spec)
     dt = cfg.compute_dtype
+    init = attn.init_gqa if mixer == "attn" else attn.init_mla
     return {"norm1": init_rmsnorm(cfg.d_model, dt, device),
-            "mixer": attn.init_gqa(gen, cfg, device),
+            "mixer": init(gen, cfg, device),
             "norm2": init_rmsnorm(cfg.d_model, dt, device),
             "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dt, device)}
 
@@ -59,8 +66,9 @@ def init_block(gen, cfg, spec: str, device):
 def init_block_cache(cfg, spec: str, batch: int, max_seq: int, dtype,
                      num_pages=None, device=None):
     """Decode-time KV state for one block (paged pool when num_pages)."""
-    parse_spec(spec)
-    return attn.init_gqa_cache(cfg, batch, max_seq, dtype, num_pages, device)
+    mixer, _ = parse_spec(spec)
+    init = attn.init_gqa_cache if mixer == "attn" else attn.init_mla_cache
+    return init(cfg, batch, max_seq, dtype, num_pages, device)
 
 
 # ---------------------------------------------------------------------------
@@ -69,11 +77,15 @@ def init_block_cache(cfg, spec: str, batch: int, max_seq: int, dtype,
 
 def block_apply(p, x, cfg, spec, *, positions, cache=None, cache_pos=None,
                 paged=None):
-    """Returns (x, aux_loss, cache)."""
-    parse_spec(spec)
+    """Returns (x, aux_loss, cache).  `paged` (a PagedKV or DenseKV
+    bundle) selects the cache discipline inside gqa/mla; its decode_kernel
+    flag routes Sq=1 gqa reads through the paged-decode kernels, and mla
+    ignores it (it always reads through the gather)."""
+    mixer, _ = parse_spec(spec)
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    y, new_cache = attn.gqa(p["mixer"], h, cfg, positions, cache, cache_pos,
-                            paged)
+    mix = attn.gqa if mixer == "attn" else attn.mla
+    y, new_cache = mix(p["mixer"], h, cfg, positions, cache, cache_pos,
+                       paged)
     x = x + y
     x = x + mlp(p["mlp"], rmsnorm(p["norm2"], x, cfg.norm_eps), cfg.quant)
     return x, torch.zeros((), dtype=torch.float32, device=x.device), new_cache
@@ -121,7 +133,8 @@ def init_stack_cache(cfg, batch, max_seq, dtype, num_pages=None, device=None):
 
 def stack_cache_pool_flags(cfg):
     """A tree matching init_stack_cache's paged structure with True at
-    shared page-pool leaves (every leaf of an attn block)."""
+    shared page-pool leaves: every leaf of an attn block (k, v and the int8
+    scales) and of an mla block (c_kv, k_rope)."""
     flags = {}
     for i, spec in enumerate(cfg.layer_pattern):
         shapes = init_block_cache(cfg, spec, 1, cfg.page_size, torch.float32,

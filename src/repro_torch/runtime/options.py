@@ -1,8 +1,7 @@
 """Engine configuration and result surface (port of `repro.runtime.options`;
 every section and validation message is the reference's, so options
 compare equal across the two packages — the port's Engine serves every
-section but disaggregation and a mesh, for which it raises
-NotImplementedError).
+section but a mesh, for which it raises NotImplementedError).
 
 This module groups the engine's knobs into one frozen `EngineOptions`
 dataclass of themed sections

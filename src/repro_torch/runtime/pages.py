@@ -1,5 +1,6 @@
-"""Refcounted KV page allocator with copy-on-write prefix sharing (port
-of `repro.runtime.pages`, without the page transfer of disaggregation).
+"""Refcounted KV page allocator with copy-on-write prefix sharing and the
+cross-pool page transfer of disaggregated serving (port of
+`repro.runtime.pages`).
 
   PagePool    — the device-resident allocator state (per-page refcounts,
                 per-slot block tables, per-slot ownership bits).  Mutation
@@ -8,9 +9,14 @@ of `repro.runtime.pages`, without the page transfer of disaggregation).
                 zero reclaims), `cow_copy` (a shared page's rows copied into
                 a freshly granted private page at admission, never written
                 in place), `apply_refs_delta` (bare registry deltas — the
-                commit of an eviction round that admitted no slot) and
+                commit of an eviction round that admitted no slot),
                 `rollback` (speculative rows the verify pass rejected,
-                zeroed under the write's own mask, ownership and bound).
+                zeroed under the write's own mask, ownership and bound) and
+                `adopt` (an imported request installed into a slot).
+  Transfer    — `export_pages` gathers a request's page tiles from every
+                pool leaf, `import_pages` writes them into another pool's
+                pages: the prefill→decode handoff of a disaggregated
+                engine, at page granularity.
   HostPool    — the host-side numpy mirror replaying the same rules, so the
                 engine knows every granted page id without a device sync.
   PrefixCache — the host-side prefix registry: chunk-incremental blake2b
@@ -20,14 +26,30 @@ of `repro.runtime.pages`, without the page transfer of disaggregation).
                 registry passes `max_chains`.  Pure numpy and hashlib: every
                 host decision equals the reference's on the same schedule.
 
-Invariants kept from the reference (I1–I5 of its module docstring):
-refcounts never go negative; a page is free iff its refcount is 0;
-sum(n_pages) == sum(refs) - cached_pages; grants take the lowest free page
-id first, admitting slots in ascending order; at most one slot owns a
-page, and shared mappings are never written.
+Invariants kept from the reference (I1–I7 of its module docstring):
+
+  I1  refcounts are never negative.
+  I2  a page is free iff its refcount is 0.
+  I3  sum(n_pages) == sum(refs) - cached_pages.
+  I4  grants take the lowest free page id first, admitting slots in
+      ascending order.
+  I5  at most one slot owns a page, and shared mappings are never written.
+  I6  speculative rows never outlive their rejection (`rollback`).
+  I7  page transfer preserves the allocator discipline across pools:
+      moving a request between pools (`export_pages` → `import_pages` +
+      `adopt`, the prefill→decode handoff of disaggregated serving)
+      copies its pages' contents bit-exactly, grants the destination ids
+      by the same lowest-free-id rule as admission (I4, replayed by the
+      destination HostPool, so no sync is needed), marks every imported
+      page owned with refcount 1, and releases the source references in
+      the same worker call that reads the tiles — so after any transfer
+      round both pools independently satisfy I1–I6 and the moved
+      request's rows read back identical to the rows the source pool held.
 
 The reference's scatter-with-drop (`.at[...].add(mode="drop")`) becomes a
-scatter-add whose masked entries add 0 — no extra page, no host sync.
+scatter-add whose masked entries add 0 — no extra page, no host sync; the
+transfer writes only its live entries, whose count the host knows from the
+scheduler's plan.
 """
 from __future__ import annotations
 
@@ -200,6 +222,71 @@ def release(pool: PagePool, dead) -> PagePool:
     return PagePool(refs, pool.tables,
                     torch.where(dead, 0, pool.n_pages).to(torch.int32),
                     pool.owned & ~dead[:, None])
+
+
+def export_pages(caches, pool_flags, src_ids):
+    """Gather the page tiles at `src_ids` (a 1-D int tensor of page ids)
+    from every pool leaf — the read half of a cross-pool transfer (I7).
+    The returned tree mirrors `caches`, each pool leaf's page axis (axis 1
+    of its (n_periods, P, ps, ...) shape) replaced by the gathered tiles;
+    other leaves come back zero-width, as the reference's do."""
+    idx = src_ids.long()
+
+    def take(leaf, is_pool):
+        if not is_pool:
+            return leaf[:, :0]
+        return leaf.index_select(1, idx.clamp(0, max(leaf.shape[1] - 1, 0)))
+
+    return _map(take, caches, pool_flags)
+
+
+def import_pages(caches, pool_flags, tiles, dst_ids, n: int):
+    """Write the first `n` tiles of an `export_pages` tree into this pool's
+    pages `dst_ids[:n]`, in place — the write half of a cross-pool
+    transfer (I7).  `n` is the request's live page count, known on the
+    host from the scheduler's plan, so the entries past it are never
+    written (the reference routes them to a drop index).  Contents land
+    bit-exact: the tiles were gathered, never recomputed."""
+    idx = dst_ids[:n].long()
+
+    def put(leaf, is_pool, tile):
+        if is_pool and n:
+            leaf.index_copy_(1, idx, tile[:, :n].to(leaf.dtype))
+
+    _walk2(put, caches, pool_flags, tiles)
+    return caches
+
+
+def adopt(pool: PagePool, slot: int, page_ids, n: int) -> PagePool:
+    """Install an imported request into `slot`: table entries [0, n) map
+    `page_ids` ((mp,) int32; entries past n ignored) with ownership and one
+    reference each.  The caller picks `page_ids` by the destination
+    mirror's grant rule (lowest free id first — I4/I7), so they are known
+    on the host without a sync."""
+    S, mp = pool.tables.shape
+    dev = pool.refs.device
+    live = torch.arange(mp, device=dev) < n
+    refs = _add_at(pool.refs, page_ids, live, 1)
+    row = torch.arange(S, device=dev) == slot
+    take = row[:, None] & live[None, :]
+    return PagePool(refs,
+                    torch.where(take, page_ids[None, :].to(torch.int32),
+                                pool.tables),
+                    torch.where(row, n, pool.n_pages).to(torch.int32),
+                    torch.where(take, True, pool.owned))
+
+
+def _map(fn, tree, flags):
+    return {k: _map(fn, v, flags[k]) if isinstance(v, dict)
+            else fn(v, flags[k]) for k, v in tree.items()}
+
+
+def _walk2(fn, tree, flags, other):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _walk2(fn, v, flags[k], other[k])
+        else:
+            fn(v, flags[k], other[k])
 
 
 class HostPool:

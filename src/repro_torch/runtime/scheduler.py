@@ -1,16 +1,25 @@
-"""Host-side serving policy: request lifecycle and admission planning
-(port of `repro.runtime.scheduler` for the colocated engine, without
-disaggregation).
+"""Host-side serving policy: request lifecycle, admission planning and
+the prefill→decode transfer of disaggregated serving (port of
+`repro.runtime.scheduler`).
 
 Every HOST decision lives here, every DEVICE computation in
 `runtime.workers`: the Scheduler owns the FIFO queue, the per-slot request
-registry, the `pages.HostPool` mirror, the prefix registry and the
+registries, the `pages.HostPool` mirror(s), the prefix registry and the
 finished-result list, and the speculation totals that `finish` folds
 each request's drafted/accepted counters into.  `plan_round` is the
-admission policy — FIFO with
-backpressure, prefix matching, LRU eviction of idle cached chains, and the
-mirror's admit-round replay that pins every granted page id host-side —
-and returns an `AdmissionRound` the PrefillWorker executes.
+admission policy — FIFO with backpressure, prefix matching, LRU eviction
+of idle cached chains, and the mirror's admit-round replay that pins every
+granted page id host-side — and returns an `AdmissionRound` the
+PrefillWorker executes.  `plan_transfers` is the disaggregated analogue
+for the handoff: it moves a prefilled request's bookkeeping between the
+two mirrors (the destination ids by the same lowest-free-id grant rule —
+I7) and backpressures FIFO when no decode slot is free or the decode pool
+is dry.
+
+A colocated engine aliases the two sides (`decode_pool is pool`,
+`decode_slot_req is slot_req`), so the single-pool engine runs one code
+path; a disaggregated engine calls `attach_decode` to give the decode side
+its own mirror and slot registry.
 """
 from __future__ import annotations
 
@@ -64,19 +73,32 @@ class AdmissionRound:
     chunks_skipped: int = 0   # warm-prefix chunks admission never ran
 
 
+@dataclasses.dataclass
+class Transfer:
+    """One prefill→decode handoff, decided on the host: the destination
+    ids come from the decode mirror's own lowest-free-id grant pass (I7),
+    so the device export/import needs no sync."""
+    req: Request
+    src_slot: int             # prefill-side slot being vacated
+    dst_slot: int             # decode-side slot receiving the request
+    src_ids: list             # prefill-pool pages, block-table order
+    dst_ids: list             # decode-pool pages granted for them
+    n: int                    # live pages transferred
+
+
 class Scheduler:
-    """Request lifecycle + admission policy; no device state."""
+    """Request lifecycle + admission/transfer policy; no device state."""
 
     def __init__(self, *, num_slots: int, max_seq: int, page_size: int,
                  prefill_chunk: int, paged: bool, num_pages: int,
                  stop_cap: int, stop_tokens: tuple,
                  prefix: pg.PrefixCache | None):
-        self.num_slots = num_slots
+        self.num_slots = num_slots          # admission-side slots
         self.max_seq = max_seq
         self.page_size = page_size
         self.prefill_chunk = prefill_chunk
         self.paged = paged
-        self.num_pages = num_pages
+        self.num_pages = num_pages          # admission-side pool size
         self.stop_cap = stop_cap
         self.stop_tokens = stop_tokens
         self.prefix = prefix
@@ -85,10 +107,28 @@ class Scheduler:
         self.slot_req: list[Request | None] = [None] * num_slots
         self.queue: list[Request] = []
         self.finished: list[RequestResult] = []
+        # colocated: the decode side IS the admission side;
+        # attach_decode breaks the alias for disaggregation
+        self.decode_pool = self.pool
+        self.decode_slot_req = self.slot_req
+        self.decode_pages = num_pages
+        self.disagg = False
+        # disagg: prefilled requests awaiting their page transfer, FIFO
+        self.ready: list[Request] = []
+        self._ready_slot: dict[int, int] = {}     # uid -> prefill slot
         self._next_uid = itertools.count()
         # speculation totals over finished requests (finish folds them in)
         self.tokens_drafted = 0
         self.tokens_accepted = 0
+        self.transfers_backpressured = 0
+
+    def attach_decode(self, num_slots: int, num_pages: int) -> None:
+        """Give the decode side its own mirror and slot registry
+        (disaggregation); admission keeps the prefill-side pool."""
+        self.decode_pool = pg.HostPool(num_pages, num_slots)
+        self.decode_slot_req = [None] * num_slots
+        self.decode_pages = num_pages
+        self.disagg = True
 
     def _need_pages(self, prompt_len: int, max_new: int) -> int:
         """Pages a request occupies for its whole lifetime: prompt rows plus
@@ -123,12 +163,12 @@ class Scheduler:
             max_new_tokens = self.max_seq - len(prompt)
         if self.paged:
             need = self._need_pages(len(prompt), max_new_tokens)
-            if need > self.num_pages:
+            cap = min(self.num_pages, self.decode_pages)
+            if need > cap:
                 raise ValueError(
                     f"request needs {need} pages ({len(prompt)} prompt + "
                     f"{max_new_tokens} new tokens at page_size="
-                    f"{self.page_size}) but the pool only has "
-                    f"{self.num_pages}")
+                    f"{self.page_size}) but the pool only has {cap}")
         uid = next(self._next_uid)
         req = Request(uid=uid, prompt=prompt, max_new_tokens=max_new_tokens,
                       seed=uid if seed is None else int(seed),
@@ -230,13 +270,75 @@ class Scheduler:
         return AdmissionRound(admitted, plan, starts, n_chunks,
                               evict_delta, reg_delta, skipped)
 
-    def release_slot(self, slot: int) -> None:
-        """Retire the request in `slot`: free the slot, replay the device
-        release in the mirror, seal the request."""
+    # ------------------------------------------------------------------
+    # disagg transfer policy
+    # ------------------------------------------------------------------
+
+    def mark_ready(self, slot: int) -> None:
+        """Disagg: the prefill worker finished `slot`'s prompt; queue it
+        (FIFO) for the page transfer into the decode pool."""
+        req = self.slot_req[slot]
+        self.ready.append(req)
+        self._ready_slot[req.uid] = slot
+
+    def drop_ready(self, req: Request) -> int:
+        """Remove an aborted request from the transfer queue; returns the
+        prefill slot it still occupies (the caller releases it)."""
+        self.ready.remove(req)
+        return self._ready_slot.pop(req.uid)
+
+    def plan_transfers(self) -> list[Transfer]:
+        """This round's prefill→decode handoffs, FIFO over the ready list.
+        A transfer needs a free decode slot and enough free decode pages
+        for the request's whole table; when either is missing the WHOLE
+        list waits (no overtaking, as in admission) and the wait is
+        counted — the decode tick reclaims pages as requests end.  Both
+        mirrors are updated here (destination grant, source release), so
+        the device export/import that follows needs no sync."""
+        out: list[Transfer] = []
+        while self.ready:
+            req = self.ready[0]
+            src = self._ready_slot[req.uid]
+            n = len(self.pool.slot_tables[src])
+            dst = next((s for s, r in enumerate(self.decode_slot_req)
+                        if r is None), None)
+            if dst is None or n > self.decode_pool.free_pages:
+                self.transfers_backpressured += 1
+                break
+            self.ready.pop(0)
+            del self._ready_slot[req.uid]
+            src_ids = list(self.pool.slot_tables[src])
+            granted = self.decode_pool.admit_round([(dst, [], n)], {})
+            self.decode_slot_req[dst] = req
+            # the export releases the source refs in the same worker call
+            # that gathers the tiles; replay it here
+            self.pool.release_slot(src)
+            self.slot_req[src] = None
+            out.append(Transfer(req, src, dst, src_ids, granted[dst], n))
+        return out
+
+    # ------------------------------------------------------------------
+    # retirement
+    # ------------------------------------------------------------------
+
+    def release_admit_slot(self, slot: int) -> None:
+        """Retire a request from its admission-side slot (a first-token
+        termination, or a disagg abort before transfer): free the slot,
+        replay the device release in the admission mirror, seal it."""
         req = self.slot_req[slot]
         self.slot_req[slot] = None
         if self.pool is not None:
             self.pool.release_slot(slot)
+        self.finish(req)
+
+    def release_decode_slot(self, slot: int) -> None:
+        """Retire a request from its decode-side slot (the tick's normal
+        completion path; the same as `release_admit_slot` on a colocated
+        engine, whose two sides alias)."""
+        req = self.decode_slot_req[slot]
+        self.decode_slot_req[slot] = None
+        if self.decode_pool is not None:
+            self.decode_pool.release_slot(slot)
         self.finish(req)
 
     def finish(self, req: Request) -> None:

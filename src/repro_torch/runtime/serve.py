@@ -1,5 +1,5 @@
 """Continuous-batching serving engine (port of `repro.runtime.serve.Engine`
-for the colocated single-device engine).
+for one device, colocated or disaggregated).
 
 The engine composes three layers, as the reference's:
 
@@ -12,8 +12,8 @@ The engine composes three layers, as the reference's:
                       speculative).
   Engine (here)     — the composition and the public API: `submit`,
                       `step`, `run`, `abort`, `pages_in_use`,
-                      `prefix_stats`, `spec_stats`, KV-read accounting,
-                      `close` / context manager.
+                      `prefix_stats`, `spec_stats`, `disagg_stats`,
+                      KV-read accounting, `close` / context manager.
 
 KV layouts (`kv_layout=`):
   "paged" (default) — attention KV lives in a shared pool of
@@ -55,9 +55,26 @@ the decode kernels off, and the model drafter turns the prefix cache off
 (a skipped prefill chunk would leave its draft-cache rows unwritten).
 `draft_len` is clamped to max_seq - 2.
 
+Disaggregated mode (`disagg=True` / `EngineOptions.disagg`, paged layout
+only): prefill and decode run as separate workers with separate page pools
+and slot sets on the one device.  A prompt admits into the prefill
+worker's pool, prefills there (its first token sampled at admission, so
+TTFT is unchanged), then its KV pages move into the decode worker's pool
+at page granularity — `pages.export_pages` gathers the tiles, the decode
+mirror grants the destination ids by the same lowest-free-id rule, and
+`pages.import_pages` / `adopt` land them bit-exactly (invariant I7;
+`check_invariants=True` checks I1–I7 on both pools after every transfer
+round).  The request's sampling generator moves with it, so sampled
+streams do not depend on the split.  When no decode slot is free or the
+decode pool is dry the transfer backpressures, FIFO.  `role="both"` runs
+both workers in this process; "prefill" / "decode" name the endpoints of
+a multi-process transport and raise NotImplementedError.  The prefix
+cache and speculation switch off under disaggregation; the decode kernels
+stay on.
+
 The engine runs on the card unless the caller asks for the CPU
 (`device="cpu"`); with no GPU and no explicit CPU request it raises.
-Disaggregation and a mesh raise NotImplementedError at construction.
+A mesh raises NotImplementedError at construction.
 """
 from __future__ import annotations
 
@@ -74,7 +91,8 @@ from repro_torch.runtime import speculate as spc
 from repro_torch.runtime.options import EngineOptions, RequestResult
 from repro_torch.runtime.scheduler import Request, Scheduler
 from repro_torch.runtime.workers import (DecodeWorker, PrefillWorker,
-                                         SlotState, init_slot_state)
+                                         SlotState, _upload,
+                                         init_slot_state)
 
 __all__ = ["Engine", "Request", "SlotState", "RequestResult", "resolve_device"]
 
@@ -89,10 +107,15 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def _leaves(tree):
+    """The leaves of a nested-dict tree, in key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
 def _unported(options: EngineOptions) -> str | None:
-    """The first option this slice cannot serve, described, or None."""
-    if options.disagg.enabled:
-        return "prefill/decode disaggregation"
+    """The first option the port cannot serve, described, or None."""
     if options.parallel.mesh is not None:
         return "a device mesh (tensor and expert parallel serving)"
     return None
@@ -117,6 +140,29 @@ class Engine:
         self._build(cfg, params, options, resolve_device(device))
 
     def _build(self, cfg, params, options: EngineOptions, device) -> None:
+        dis = options.disagg
+        self.disagg = bool(dis.enabled)
+        if self.disagg:
+            # the reference's order and exception types; the mesh check
+            # comes before the mesh's own NotImplementedError
+            if dis.role in ("prefill", "decode"):
+                raise NotImplementedError(
+                    f"role={dis.role!r} is the single-process endpoint of "
+                    f"the multi-process transport, which is not implemented "
+                    f"yet — the page-transfer seam (pages.export_pages / "
+                    f"import_pages) is where it plugs in; use role='both'")
+            if options.paging.kv_layout != "paged":
+                raise ValueError("disaggregation requires kv_layout="
+                                 "'paged': pages are the transfer unit")
+            if options.parallel.mesh is not None:
+                raise ValueError("disaggregation and mesh= are mutually "
+                                 "exclusive (single-process transport)")
+            if not all(_leaves(M.cache_pool_flags(cfg))):
+                raise ValueError(
+                    "disaggregation requires every cache leaf to live in "
+                    "the shared page pool; recurrent/xattn per-slot state "
+                    f"has no page representation to transfer "
+                    f"(layer_pattern={cfg.layer_pattern})")
         missing = _unported(options)
         if missing is not None:
             raise NotImplementedError(f"{missing} is not ported to "
@@ -139,6 +185,7 @@ class Engine:
         self.decode_steps = sch.decode_steps
         self.check_invariants = options.debug.check_invariants
         self.n_invariant_checks = 0
+        self.n_transfer_checks = 0      # transfer rounds checked for I7
         self.prefill_chunk = max(1, min(sch.prefill_chunk, sch.max_seq - 1))
         self._stop_cap = max(4, len(self.stop_tokens))
         self.kv_layout = options.paging.kv_layout
@@ -151,12 +198,22 @@ class Engine:
                 else self.num_slots * self.pages_per_slot
         else:
             self.num_pages = 0
+        # disagg sizing: the prefill worker's own slot set and pool
+        self.prefill_slots = (int(dis.prefill_slots)
+                              if dis.prefill_slots is not None
+                              else self.num_slots) if self.disagg \
+            else self.num_slots
+        self.prefill_pages = (int(dis.prefill_pages)
+                              if dis.prefill_pages is not None
+                              else self.prefill_slots * self.pages_per_slot) \
+            if self.disagg else self.num_pages
         # speculation opts out silently where a rejected draft cannot be
         # rewound or verify/decode parity breaks (cross-attention, MoE
-        # capacity drops); the port serves attn+dense only, so it is on
+        # capacity drops; the port refuses those layers at parse_spec), and
+        # under disaggregation (drafter state has no page representation)
         spec = options.speculation
-        spec_ok = not any("xattn" in s or "moe" in s
-                          for s in cfg.layer_pattern)
+        spec_ok = not self.disagg and not any(
+            "xattn" in s or "moe" in s for s in cfg.layer_pattern)
         self.draft_len = min(spec.draft_len, max(0, self.max_seq - 2)) \
             if spec_ok else 0
         self.drafter_kind = spec.drafter if self.draft_len else None
@@ -179,20 +236,26 @@ class Engine:
             dk if dk is not None else device.type == "cuda")
         # the prefix cache shares pool pages, so it is paged-only; the
         # model drafter opts out (a skipped prefill chunk would leave its
-        # draft-cache rows unwritten, breaking A6)
+        # draft-cache rows unwritten, breaking A6), and so does
+        # disaggregation (cached pages would pin the prefill pool while
+        # the decode reads happen in the other pool)
         self.prefix_chunk = int(options.prefix.chunk) \
             if options.prefix.chunk is not None else self.page_size
         prefix = pg.PrefixCache(self.prefix_chunk, self.page_size,
                                 max_chains=options.prefix.max_chains) \
-            if options.prefix.enabled and paged \
+            if options.prefix.enabled and paged and not self.disagg \
             and self.drafter_kind != "model" else None
+        # the host-side scheduler; its admission side is the prefill side
         self.sched = Scheduler(
-            num_slots=self.num_slots, max_seq=self.max_seq,
+            num_slots=self.prefill_slots, max_seq=self.max_seq,
             page_size=self.page_size, prefill_chunk=self.prefill_chunk,
-            paged=paged, num_pages=self.num_pages, stop_cap=self._stop_cap,
-            stop_tokens=self.stop_tokens, prefix=prefix)
+            paged=paged, num_pages=self.prefill_pages,
+            stop_cap=self._stop_cap, stop_tokens=self.stop_tokens,
+            prefix=prefix)
+        if self.disagg:
+            self.sched.attach_decode(self.num_slots, self.num_pages)
         self.prefill = PrefillWorker(
-            cfg=cfg, num_slots=self.num_slots, max_seq=self.max_seq,
+            cfg=cfg, num_slots=self.prefill_slots, max_seq=self.max_seq,
             prefill_chunk=self.prefill_chunk, stop_cap=self._stop_cap,
             sampling=self.sampling, paged=paged, base_seed=sch.seed,
             draft_len=self.draft_len, drafter=self.drafter)
@@ -209,9 +272,24 @@ class Engine:
         self.caches = M.init_cache(cfg, self.num_slots, self.max_seq,
                                    num_pages=self.num_pages if paged
                                    else None, device=device)
+        if self.disagg:
+            # the prefill worker's own state and pool
+            self.p_state = init_slot_state(
+                self.prefill_slots, self._stop_cap, self.pages_per_slot,
+                self.prefill_pages, device,
+                spc.empty_state(self.prefill_slots, device))
+            self.p_caches = M.init_cache(cfg, self.prefill_slots,
+                                         self.max_seq,
+                                         num_pages=self.prefill_pages,
+                                         device=device)
+        # pool occupancy lives in the HostPool mirror(s); pages_high_water
+        # is the decode side's (a colocated engine's only pool)
         self.pages_high_water = 0
         self.pages_shared_high_water = 0
+        self.prefill_pages_high_water = 0
         self.prefill_chunks_skipped = 0
+        self.pages_transferred = 0
+        self.transfer_rounds = 0
         # one host sync per tick and per admission round
         self.n_ticks = 0
         self.n_admit_calls = 0
@@ -226,8 +304,9 @@ class Engine:
     # ------------------------------------------------------------------
     @property
     def pool(self) -> pg.HostPool | None:
-        """The HostPool mirror of the page pool; None under dense."""
-        return self.sched.pool
+        """The decode-side HostPool mirror (a colocated engine's only
+        pool); None under dense."""
+        return self.sched.decode_pool
 
     @property
     def prefix(self) -> pg.PrefixCache | None:
@@ -235,7 +314,8 @@ class Engine:
 
     @property
     def slot_req(self) -> list:
-        return self.sched.slot_req
+        """Decode-side slot occupancy (a colocated engine's only one)."""
+        return self.sched.decode_slot_req
 
     @property
     def tokens_drafted(self) -> int:
@@ -247,8 +327,9 @@ class Engine:
 
     @property
     def pages_in_use(self) -> int:
-        """Pages with refcount > 0, slot-held and cache-held alike."""
-        pool = self.sched.pool
+        """Decode-pool pages with refcount > 0, slot-held and cache-held
+        alike."""
+        pool = self.sched.decode_pool
         return pool.pages_in_use if pool is not None else 0
 
     def submit(self, prompt, max_new_tokens: int = 16,
@@ -260,42 +341,69 @@ class Engine:
         sampling stream (default: its uid)."""
         return self.sched.submit(prompt, max_new_tokens, seed, stop_tokens)
 
-    def _retire(self, slot: int) -> None:
-        """Host side of a slot's release: its generator goes, the
-        scheduler seals the request."""
-        gens = list(self.state.gens)
+    def _admit_side(self):
+        """(state, caches) of the pool admission lands in: the prefill
+        worker's own under disaggregation, the one pool otherwise."""
+        return (self.p_state, self.p_caches) if self.disagg \
+            else (self.state, self.caches)
+
+    def _set_admit_side(self, state, caches) -> None:
+        if self.disagg:
+            self.p_state, self.p_caches = state, caches
+        else:
+            self.state, self.caches = state, caches
+
+    @staticmethod
+    def _drop_gen(state, slot: int):
+        """The slot's sampling generator goes with its request."""
+        gens = list(state.gens)
         gens[slot] = None
-        self.state = self.state._replace(gens=tuple(gens))
-        self.sched.release_slot(slot)
+        return state._replace(gens=tuple(gens))
+
+    def _retire_admit(self, slot: int) -> None:
+        """Retire a request from its admission-side slot."""
+        st, ca = self._admit_side()
+        self._set_admit_side(self._drop_gen(st, slot), ca)
+        self.sched.release_admit_slot(slot)
+
+    def _retire_decode(self, slot: int) -> None:
+        """Retire a request from its decode-side slot."""
+        self.state = self._drop_gen(self.state, slot)
+        self.sched.release_decode_slot(slot)
 
     def _admit(self) -> None:
         paged = self.kv_layout == "paged"
         rnd = self.sched.plan_round()
         if rnd is None:
             return
+        st, ca = self._admit_side()
         if not rnd.admitted:
             # eviction-only round: the registry already dropped its chains
             # host-side; commit the decrements on the device pool
-            ev = np.zeros((self.num_pages,), np.int32)
+            ev = np.zeros((st.pages.refs.shape[0],), np.int32)
             for p, d in rnd.evict_delta.items():
                 ev[p] = d
-            self.state = self.state._replace(pages=pg.apply_refs_delta(
-                self.state.pages, torch.from_numpy(ev).to(self.device)))
+            self._set_admit_side(st._replace(pages=pg.apply_refs_delta(
+                st.pages, torch.from_numpy(ev).to(self.device))), ca)
             if self.check_invariants:
                 self._verify_invariants()
             return
         if paged:
-            self.pages_high_water = max(self.pages_high_water,
-                                        self.sched.pool.pages_in_use)
+            hw = self.sched.pool.pages_in_use
+            if self.disagg:
+                self.prefill_pages_high_water = max(
+                    self.prefill_pages_high_water, hw)
+            else:
+                self.pages_high_water = max(self.pages_high_water, hw)
             self.pages_shared_high_water = max(self.pages_shared_high_water,
                                                self.sched.pool.pages_shared)
         self.prefill_chunks_skipped += rnd.chunks_skipped
-        self.state, self.caches, toks = self.prefill.run_round(
-            self.params, self.state, self.caches, rnd)
+        st, ca, toks = self.prefill.run_round(self.params, st, ca, rnd)
+        self._set_admit_side(st, ca)
         self.n_admit_calls += toks.shape[0]
         # one blocking sync for the whole admission round
         host = torch.cat([toks.reshape(-1),
-                          self.state.active.to(torch.int32)]).cpu().numpy()
+                          st.active.to(torch.int32)]).cpu().numpy()
         toks_h = host[:toks.numel()].reshape(toks.shape)
         active = host[toks.numel():].astype(bool)
         now = time.perf_counter()
@@ -304,11 +412,47 @@ class Engine:
             req.t_first = now
             self.n_generated += 1
             if not active[slot]:
-                # terminated at admission; the device already released it
-                self._retire(slot)
+                # terminated at admission; the device already released it,
+                # and it never transfers
+                self._retire_admit(slot)
+            elif self.disagg:
+                self.sched.mark_ready(slot)
         self.n_syncs += 1
         if self.check_invariants:
             self._verify_invariants()
+
+    def _transfer(self) -> None:
+        """Disagg: move every transferable prefilled request's pages into
+        the decode pool (FIFO, backpressured by the scheduler).  The page
+        ids of the whole round go to the device in one copy; nothing is
+        read back."""
+        plans = self.sched.plan_transfers()
+        if not plans:
+            return
+        mp = self.pages_per_slot
+        ids = np.zeros((len(plans), 2, mp), np.int32)
+        for i, t in enumerate(plans):
+            ids[i, 0, :t.n] = t.src_ids
+            ids[i, 1, :t.n] = t.dst_ids
+        ids = _upload(ids, self.device)
+        checked = [] if self.check_invariants else None
+        for i, t in enumerate(plans):
+            self.p_state, tiles, scalars = self.prefill.export_request(
+                self.p_state, self.p_caches, ids[i, 0], t.n, t.src_slot)
+            self.state, self.caches = self.decode.import_request(
+                self.state, self.caches, tiles, scalars, ids[i, 1], t.n,
+                t.dst_slot)
+            self.pages_transferred += t.n
+            if checked is not None:
+                checked.append((t, tiles, ids[i, 1]))
+        self.transfer_rounds += 1
+        self.pages_high_water = max(self.pages_high_water,
+                                    self.sched.decode_pool.pages_in_use)
+        if self.check_invariants:
+            self._verify_invariants()
+            for t, tiles, dst in checked:
+                self._verify_transfer(t, tiles, dst)
+            self.n_transfer_checks += 1
 
     # ------------------------------------------------------------------
     # telemetry / debug
@@ -335,7 +479,7 @@ class Engine:
         request through the same finish path, so its counters fold into
         the totals rather than vanishing."""
         drafted, accepted = self.tokens_drafted, self.tokens_accepted
-        for r in self.sched.slot_req:
+        for r in self.sched.decode_slot_req:
             if r is not None:
                 drafted += r.drafted_tokens
                 accepted += r.accepted_tokens
@@ -345,60 +489,111 @@ class Engine:
                 "drafted": drafted, "accepted": accepted,
                 "acceptance_rate": accepted / drafted if drafted else 0.0}
 
+    def disagg_stats(self) -> dict:
+        """Disaggregation telemetry: the transfer volume and both pools'
+        high-water occupancy (the prefill side reads 0 on a colocated
+        engine)."""
+        return {"enabled": self.disagg,
+                "pages_transferred": self.pages_transferred,
+                "transfer_rounds": self.transfer_rounds,
+                "transfers_backpressured":
+                    self.sched.transfers_backpressured,
+                "decode_pages_high_water": self.pages_high_water,
+                "decode_pages": self.num_pages,
+                "prefill_pages_high_water": self.prefill_pages_high_water,
+                "prefill_pages": self.prefill_pages if self.disagg else 0,
+                "prefill_slots": self.prefill_slots if self.disagg else 0}
+
     def _verify_pool(self, host: pg.HostPool, dev: pg.PagePool,
-                     cached: int) -> None:
-        """Mirror-vs-device cross-check: refcounts, free popcount, per-slot
-        block tables and ownership, and the I3 identity
+                     num_slots: int, cached: int, label: str) -> None:
+        """One pool's mirror-vs-device cross-check: refcounts, free
+        popcount, per-slot block tables and ownership, and the I3 identity
         sum(n_pages) == sum(refs) - cached_pages."""
         refs = dev.refs.cpu().numpy()
         if (refs < 0).any():
-            raise AssertionError(f"device refcounts negative: {refs}")
+            raise AssertionError(f"[{label}] device refcounts negative: "
+                                 f"{refs}")
         if not np.array_equal(refs, host.refs):
-            raise AssertionError(f"host/device refcount drift:\n host "
-                                 f"{host.refs}\n device {refs}")
+            raise AssertionError(f"[{label}] host/device refcount drift:\n "
+                                 f"host {host.refs}\n device {refs}")
         if int((refs == 0).sum()) != host.free_pages:
             raise AssertionError(
-                f"free popcount drift: host {host.free_pages}, device "
-                f"{int((refs == 0).sum())}")
+                f"[{label}] free popcount drift: host {host.free_pages}, "
+                f"device {int((refs == 0).sum())}")
         n_pages = dev.n_pages.cpu().numpy()
         tables = dev.tables.cpu().numpy()
         owned = dev.owned.cpu().numpy()
-        for s in range(self.num_slots):
+        for s in range(num_slots):
             t = host.slot_tables[s]
             if int(n_pages[s]) != len(t):
-                raise AssertionError(f"slot {s} n_pages drift: host "
-                                     f"{len(t)}, device {int(n_pages[s])}")
+                raise AssertionError(
+                    f"[{label}] slot {s} n_pages drift: host {len(t)}, "
+                    f"device {int(n_pages[s])}")
             if list(tables[s, :len(t)]) != t:
-                raise AssertionError(f"slot {s} table drift: host {t}, "
-                                     f"device {list(tables[s, :len(t)])}")
+                raise AssertionError(
+                    f"[{label}] slot {s} table drift: host {t}, "
+                    f"device {list(tables[s, :len(t)])}")
             if list(owned[s, :len(t)]) != host.slot_owned[s]:
                 raise AssertionError(
-                    f"slot {s} ownership drift: host {host.slot_owned[s]}, "
+                    f"[{label}] slot {s} ownership drift: host "
+                    f"{host.slot_owned[s]}, "
                     f"device {list(owned[s, :len(t)])}")
         if int(n_pages.sum()) != int(refs.sum()) - cached:
             raise AssertionError(
-                f"refcount identity broken: sum(n_pages)="
+                f"[{label}] refcount identity broken: sum(n_pages)="
                 f"{int(n_pages.sum())}, sum(refs)={int(refs.sum())}, "
                 f"cached={cached}")
 
     def _verify_invariants(self) -> None:
-        """Debug-mode cross-check (`check_invariants=True`): the HostPool
-        mirror must equal the device allocator exactly.  Reads device
-        tensors back; not counted in `n_syncs`."""
+        """Debug-mode cross-check (`check_invariants=True`): every HostPool
+        mirror must equal its device allocator exactly; under disagg both
+        pools are checked (I7: each side satisfies I1–I6 on its own after
+        every transfer round).  Reads device tensors back; not counted in
+        `n_syncs`."""
         if self.kv_layout != "paged":
             return
-        cached = self.prefix.cached_pages if self.prefix is not None else 0
-        self._verify_pool(self.sched.pool, self.state.pages, cached)
+        if self.disagg:
+            self._verify_pool(self.sched.pool, self.p_state.pages,
+                              self.prefill_slots, 0, "prefill")
+            self._verify_pool(self.sched.decode_pool, self.state.pages,
+                              self.num_slots, 0, "decode")
+        else:
+            cached = self.prefix.cached_pages \
+                if self.prefix is not None else 0
+            self._verify_pool(self.sched.pool, self.state.pages,
+                              self.num_slots, cached, "pool")
         self.n_invariant_checks += 1
+
+    def _verify_transfer(self, t, tiles, dst) -> None:
+        """I7 content check: the imported pages, exported again from the
+        decode pool, must equal the moved tiles bit for bit."""
+        got = pg.export_pages(self.caches, self.decode.pool_flags, dst[:t.n])
+        for a, b in zip(_leaves(tiles), _leaves(got)):
+            if not torch.equal(a[:, :t.n], b[:, :t.n]):
+                raise AssertionError(
+                    f"I7 broken: transferred pages for request "
+                    f"{t.req.uid} differ between pools")
 
     # ------------------------------------------------------------------
     def step(self) -> bool:
-        """One engine tick: admit queued prompts, then `decode_steps`
-        decode steps for all active slots, ending in one host sync."""
+        """One engine tick: admit queued prompts (disagg: after moving
+        transferable prefilled requests into the decode pool, which frees
+        prefill slots for this round, and again after, so a freshly
+        prefilled prompt decodes in the same step as it would colocated),
+        then `decode_steps` decode steps for all active decode slots,
+        ending in one host sync."""
+        if self.disagg:
+            self._transfer()
         self._admit()
-        live = [r for r in self.sched.slot_req if r is not None]
+        if self.disagg:
+            self._transfer()
+        live = [r for r in self.sched.decode_slot_req if r is not None]
         if not live:
-            return False
+            # prefill-side work (queued, mid-prefill or awaiting transfer)
+            # still counts as progress
+            return self.disagg and bool(
+                self.sched.queue or self.sched.ready
+                or any(r is not None for r in self.sched.slot_req))
         # KV rows this tick's steps read (tick-start lengths): the kernels
         # touch live pages only; the gather oracle (dense decode, and the
         # speculative verify window) materializes num_slots x max_seq rows
@@ -428,7 +623,7 @@ class Engine:
         n_dr, n_ac = host[2 * n + ns:2 * n + 2 * ns], host[2 * n + 2 * ns:]
         self.n_ticks += 1
         self.n_syncs += 1
-        for slot, req in enumerate(self.sched.slot_req):
+        for slot, req in enumerate(self.sched.decode_slot_req):
             if req is None:
                 continue
             for t in range(toks_h.shape[0]):
@@ -440,7 +635,7 @@ class Engine:
                 req.drafted_tokens = int(n_dr[slot])
                 req.accepted_tokens = int(n_ac[slot])
             if not active[slot]:
-                self._retire(slot)
+                self._retire_decode(slot)
         if self.check_invariants:
             self._verify_invariants()
         return True
@@ -458,7 +653,8 @@ class Engine:
         """Cancel a request.  Queued: removed before it ever runs.  Running:
         its slot is deactivated and (paged) its page references released
         at once — the freed pages are grantable in the next admission
-        round.  Returns False if the request had already finished.  Either
+        round.  Disagg: a prefilled request awaiting transfer is dropped on
+        the prefill side and never moves.  Returns False if the request had already finished.  Either
         way an aborted request keeps the tokens it emitted, with
         finish_reason "aborted"."""
         if req.done:
@@ -468,7 +664,20 @@ class Engine:
             self.sched.queue.remove(req)
             self.sched.finish(req)
             return True
-        for slot, r in enumerate(self.sched.slot_req):
+        if self.disagg and req.uid in self.sched._ready_slot:
+            # prefilled, awaiting transfer: dropped on the prefill side,
+            # never moves
+            slot = self.sched.drop_ready(req)
+            dead = torch.arange(self.prefill_slots,
+                                device=self.device) == slot
+            self.p_state = self.p_state._replace(
+                active=self.p_state.active & ~dead,
+                pages=pg.release(self.p_state.pages, dead))
+            self._retire_admit(slot)
+            if self.check_invariants:
+                self._verify_invariants()
+            return True
+        for slot, r in enumerate(self.sched.decode_slot_req):
             if r is req:
                 dead = torch.arange(self.num_slots,
                                     device=self.device) == slot
@@ -477,7 +686,7 @@ class Engine:
                     state = state._replace(pages=pg.release(state.pages,
                                                             dead))
                 self.state = state
-                self._retire(slot)
+                self._retire_decode(slot)
                 if self.check_invariants:
                     self._verify_invariants()
                 return True
@@ -490,6 +699,8 @@ class Engine:
             self._closed = True
             self.caches = None
             self.state = None
+            self.p_caches = None
+            self.p_state = None
 
     def __enter__(self) -> "Engine":
         return self

@@ -1,6 +1,6 @@
-"""Device-facing worker roles: chunked prefill admission and the decode tick
-(port of `repro.runtime.workers` for the colocated engine, paged or dense,
-plain or speculative).
+"""Device-facing worker roles: chunked prefill admission, the decode tick
+and the two halves of a page transfer (port of `repro.runtime.workers`:
+paged or dense, plain or speculative, colocated or disaggregated).
 
   PrefillWorker — executes a Scheduler `AdmissionRound`: fixed
                   `prefill_chunk`-token chunks, all admitting slots per
@@ -12,13 +12,20 @@ plain or speculative).
                   device and commits the slot state.  Under speculation it
                   also seeds the drafter: reset on a slot's first chunk,
                   observe the chunk's real tokens, and observe the sampled
-                  first token on the final chunk.
+                  first token on the final chunk.  `export_request`
+                  (disaggregation) gathers a prefilled request's page tiles
+                  and slot scalars, takes its sampling generator out of the
+                  slot, and releases the source references in the same
+                  call (I7).
   DecodeWorker  — the tick: `decode_steps` decode → sample → terminate
                   steps over every slot, or the speculative variant (draft
                   → verify the window in one forward → accept/replace →
                   clamp → roll back the rejected rows → observe); under the
                   paged layout, slots that terminate release their pages
-                  before the host looks.
+                  before the host looks.  `import_request`
+                  (disaggregation) writes exported tiles into this pool's
+                  granted pages, adopts them into the slot's block table
+                  and installs the slot scalars and generator.
 
 Both run eagerly on device tensors and never read a device value back: the
 Engine syncs once per tick and once per admission round.  The host arrays
@@ -107,6 +114,8 @@ class DecodeWorker:
         self.drafter = drafter
         # pool leaves (paged) or KV leaves (dense) that rollback zeroes
         self.kv_flags = kv_flags
+        # pool leaves a transfer writes
+        self.pool_flags = M.cache_pool_flags(cfg) if paged else None
 
     def tick(self, params, state: SlotState, caches):
         """`decode_steps` decode → sample → terminate steps (the speculative
@@ -216,6 +225,30 @@ class DecodeWorker:
         return state, caches, torch.stack(toks), torch.stack(emits)
 
 
+    def import_request(self, state: SlotState, caches, tiles, scalars,
+                       dst_ids, n: int, slot: int):
+        """The import half of a page transfer (I7): write the exported
+        tiles into this pool's pages `dst_ids[:n]` ((mp,) int32 on the
+        device, granted by the decode mirror), adopt them into `slot`'s
+        block table (refcount 1, owned) and install the slot's scalars,
+        stop row and sampling generator.  Caches are written in place."""
+        pg.import_pages(caches, self.pool_flags, tiles, dst_ids, n)
+        pool = pg.adopt(state.pages, slot, dst_ids, n)
+        last_tok, pos, budget, stop_row, gen = scalars
+        onehot = torch.arange(state.pos.shape[0],
+                              device=state.pos.device) == slot
+        gens = list(state.gens)
+        gens[slot] = gen
+        state = state._replace(
+            last_tok=torch.where(onehot, last_tok, state.last_tok),
+            pos=torch.where(onehot, pos, state.pos),
+            budget=torch.where(onehot, budget, state.budget),
+            active=onehot | state.active,
+            stop=torch.where(onehot[:, None], stop_row[None, :], state.stop),
+            pages=pool, gens=tuple(gens))
+        return state, caches
+
+
 class PrefillWorker:
     """Runs the chunked admission path against one pool's state."""
 
@@ -302,6 +335,29 @@ class PrefillWorker:
             state = state._replace(pages=pg.release(state.pages,
                                                     final & ~act))
         return state, caches, toks
+
+    def export_request(self, state: SlotState, caches, src_ids, n: int,
+                       slot: int):
+        """The export half of a page transfer (I7): gather the departing
+        slot's first `n` page tiles (`src_ids`, int32 on the device), read
+        its scalars and stop row, take its sampling generator out of the
+        slot, then deactivate it and release its references — all in this
+        one call, so the source pool is never seen holding references for
+        rows already copied out.  The caches are not written: the released
+        pages' rows are overwritten by the next grant's prefill.  Returns
+        (state, tiles, scalars)."""
+        tiles = pg.export_pages(caches, self.pool_flags, src_ids[:n])
+        scalars = (state.last_tok[slot].clone(), state.pos[slot].clone(),
+                   state.budget[slot].clone(), state.stop[slot].clone(),
+                   state.gens[slot])
+        onehot = torch.arange(state.pos.shape[0],
+                              device=state.pos.device) == slot
+        gens = list(state.gens)
+        gens[slot] = None
+        state = state._replace(active=state.active & ~onehot,
+                               pages=pg.release(state.pages, onehot),
+                               gens=tuple(gens))
+        return state, tiles, scalars
 
     def run_round(self, params, state, caches, rnd):
         """Execute an AdmissionRound.  Returns (state, caches, toks

@@ -3,7 +3,7 @@ package's Engine on the same inputs (the smoke config, numpy prompts from a
 seed).
 
 Greedy streams must be identical across {prefix cache on, off} x {paged,
-dense} x {fp KV, int8 KV, 8-bit weights}, prompts that diverge from a
+dense} x {fp KV, int8 KV, 8-bit weights, MLA}, prompts that diverge from a
 cached prefix mid-page included (the copy-on-write split).  The host
 bookkeeping must equal the reference's exactly: `prefix_stats()`, the
 high-water marks, every RequestResult's counters and the final HostPool
@@ -11,6 +11,8 @@ refcounts, tables and ownership.  Then the reference's own prefix-cache
 cases (tests/test_prefix_cache.py), each run through both engines.  Every
 paged engine here runs with `check_invariants=True`, so each sync also
 re-proves mirror == device allocator."""
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -24,7 +26,9 @@ from test_torch_convert import smoke_pair, to_torch
 
 jax.config.update("jax_platform_name", "cpu")
 
-VARIANTS = {"fp": {}, "int8_kv": {"quant_kv": True}, "quant8": {"quant_bits": 8}}
+# "mla" is minicpm3-4b's smoke config, with its own weights
+VARIANTS = {"fp": {}, "int8_kv": {"quant_kv": True}, "quant8": {"quant_bits": 8},
+            "mla": {"arch": "minicpm3-4b"}}
 
 
 @pytest.fixture(scope="module")
@@ -34,11 +38,21 @@ def base():
     return jp, to_torch(jp)
 
 
+@functools.lru_cache(maxsize=None)
+def _arch_params(arch):
+    jc, _ = smoke_pair(arch)
+    jp = JM.init_params(jc, jax.random.PRNGKey(0))
+    return jp, to_torch(jp)
+
+
 def _pair(base, variant="fp"):
     """(JAX cfg, JAX params, port cfg, port params) of one variant."""
     jp, tp = base
     over = dict(VARIANTS[variant])
-    jc, tc = smoke_pair(**over)
+    arch = over.pop("arch", "granite-8b")
+    if arch != "granite-8b":
+        jp, tp = _arch_params(arch)
+    jc, tc = smoke_pair(arch, **over)
     if over.get("quant_bits"):
         jp = jbl.tree_prepare_serving(jp, jc.quant)
         tp = tbl.tree_prepare_serving(tp, tc.quant)

@@ -109,11 +109,12 @@ def test_eos_at_admission_and_max_seq_clip(base):
 
 
 @pytest.mark.parametrize("option", [
-    {"disagg": True, "draft_len": 2}, {"disagg": True}, {"mesh": "model=2"}])
+    {"disagg": True, "role": "prefill"}, {"disagg": True, "role": "decode"},
+    {"mesh": "model=2"}])
 def test_unported_options_raise(base, option):
-    """Speculation is served (tests/test_torch_speculate.py); under
-    disaggregation, alone or with speculation, and on a mesh the Engine
-    still raises."""
+    """Speculation and disaggregation in this process are served
+    (tests/test_torch_speculate.py, tests/test_torch_disagg.py); the
+    multi-process roles of disaggregation and a mesh still raise."""
     _, tp, _ = base
     _, tc = smoke_pair()
     with pytest.raises(NotImplementedError):

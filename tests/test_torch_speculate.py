@@ -447,15 +447,21 @@ def _serve(engine_cls, cfg, params, jobs, **kw):
 
 
 @pytest.mark.parametrize("drafter", ["ngram", "model"])
-@pytest.mark.parametrize("arch", ["gqa", "int8kv"])
+@pytest.mark.parametrize("arch", ["gqa", "int8kv", "mla"])
 def test_engine_greedy_streams_equal_jax_and_non_speculative(base, arch,
                                                              drafter):
     """A1: the port with speculation == the JAX Engine with speculation ==
     the port without, over {paged + prefix cache, paged, dense}; the
-    n-gram drafter's drafted/accepted counts equal the reference's too."""
+    n-gram drafter's drafted/accepted counts equal the reference's too.
+    `mla` is minicpm3-4b's smoke config with its own weights."""
     _, jp, _, tp = base
-    over = {"quant_kv": True} if arch == "int8kv" else {}
-    jc, tc = smoke_pair(**over)
+    if arch == "mla":
+        jc, tc = smoke_pair("minicpm3-4b")
+        jp = JM.init_params(jc, jax.random.PRNGKey(0))
+        tp = to_torch(jp)
+    else:
+        over = {"quant_kv": True} if arch == "int8kv" else {}
+        jc, tc = smoke_pair(**over)
     jobs = _jobs(tc.vocab_size)
     plain, _ = _serve(TEngine, tc, tp, jobs, kv_layout="dense")
     jspec, jeng = _serve(JEngine, jc, jp, jobs, draft_len=4, drafter=drafter)
@@ -642,8 +648,8 @@ def test_draft_len_clamped_and_unported_options(base):
     assert TEngine(tc, tp, device="cpu").spec_stats() == {
         "enabled": False, "draft_len": 0, "drafter": None, "drafted": 0,
         "accepted": 0, "acceptance_rate": 0.0}
-    with pytest.raises(NotImplementedError, match="disaggregation"):
-        TEngine(tc, tp, disagg=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        TEngine(tc, tp, mesh="model=2", device="cpu")
 
 
 @pytest.mark.parametrize("args", [["--draft-len", "4"],
