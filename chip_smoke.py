@@ -25,11 +25,19 @@ prefill/decode disaggregation at granite-8b full size (streams and launch
 counts equal to phase 5's colocated serves, invariants I1–I7 checked on
 both pools, decode-pool backpressure, the transfer rounds timed beside
 their byte bound) and minicpm3-4b (MLA) at full size, colocated and
-disaggregated.  Phase 2 also times the speculative shapes (the verify
-window at M=20; 2-bit at M=4 with the unpack of the packed weights) and
-every minicpm3-4b linear; phase 6 also holds disaggregated == colocated
-and minicpm3-4b's identities.  Imports torch, numpy and `repro_torch`
-only.  Exits non-zero, printing no result, when any phase fails or no
+disaggregated.  Phase 11 serves the MoE feed-forward: the expert einsum
+(one `bramac_matmul` per expert) bit-exact and timed at
+qwen3-moe-30b-a3b's shapes, one MoE layer at full width against its
+dense reference, qwen3-moe-30b-a3b at full width (48 layers, 128
+experts, each layer quantized as it is drawn) with bf16 and int8 KV, and
+its stream identities at 2 layers.  Phase 2 also times the speculative
+shapes (the verify window at M=20; 2-bit at M=4 with the unpack of the
+packed weights), every minicpm3-4b linear and qwen3-moe-30b-a3b's
+attention linears and unembed; phases 3-4 also hold both decode kernels
+at qwen3-moe-30b-a3b's heads (32/4, hd 64); phase 6 also holds
+disaggregated == colocated and minicpm3-4b's identities, the exact one
+on integer-exact structured weights.  Imports torch, numpy and
+`repro_torch` only.  Exits non-zero, printing no result, when any phase fails or no
 CUDA device is present.
 
 Output: one line per phase; then a JSON line listing every kernel with its
@@ -96,14 +104,14 @@ def spin_cycles_per_ms() -> float:
     return 20_000_000 / a.elapsed_time(b)
 
 
-def time_cold(fn, iters: int = 20) -> float:
+def time_cold(fn, iters: int = 20, spin_factor: float = 4) -> float:
     """Mean ms of `fn()` on the device, the L2 flushed before each launch.
     A spin kernel ahead of the start event keeps the device busy while the
     host enqueues `fn`, so the interval holds device time, not the
-    wrapper's Python time.  The spin lasts 4x the host's enqueue time of
-    one call (at least 1 ms); a reading in which some call's enqueue still
-    outlasted the spin may include host time, and is printed and kept in
-    HOST_BOUND."""
+    wrapper's Python time.  The spin lasts `spin_factor` x the host's
+    enqueue time of one call (at least 1 ms); a reading in which some
+    call's enqueue still outlasted the spin may include host time, and is
+    printed and kept in HOST_BOUND."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     for _ in range(3):
         fn()
@@ -112,7 +120,7 @@ def time_cold(fn, iters: int = 20) -> float:
     fn()
     enqueue_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
-    spin_ms = max(1.0, 4 * enqueue_ms)
+    spin_ms = max(1.0, spin_factor * enqueue_ms)
     cycles = int(spin_ms * spin_cycles_per_ms())
     pairs, host_ms = [], []
     for _ in range(iters):
@@ -273,13 +281,14 @@ def phase_matmul(gen, report):
               f"(8-bit) {r8['ms']:.4f} ms")
     spec_rows, n_spec = phase_matmul_spec(case)
     n += n_spec
-    mc_rows, n_mc = phase_matmul_minicpm(case)
-    n += n_mc
+    mc_rows, n_mc = phase_matmul_model(case, "minicpm3", MINICPM3_SHAPES)
+    qw_rows, n_qw = phase_matmul_model(case, "qwen3-moe", QWEN3_SHAPES)
+    n += n_mc + n_qw
     print(f"phase 2 bramac_matmul: {n} cases bit-exact vs plain, max abs "
           f"err {worst:.3g} (bits 2/4/8, signed+unsigned, 4-bit packed, "
           f"f32+bf16 out, scalar and per-channel scales, ragged M/K/N at the "
           f"16/64-row, 128-byte and 128-column tile edges, split K, unaligned "
-          f"views, granite-8b and minicpm3-4b shapes)")
+          f"views, granite-8b, minicpm3-4b and qwen3-moe-30b-a3b shapes)")
     main = next(r for r in rows if r["shape"] == "w_gate/w_up" and r["M"] == 4)
     report["bramac_matmul"] = dict(
         name="bramac_matmul", route="cuda",
@@ -287,7 +296,8 @@ def phase_matmul(gen, report):
         replaces="src/repro/kernels/bramac_matmul.py:47", max_abs_err=worst,
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
         bound_by=main["bound_by"], library_ms=main["library_ms"],
-        shapes=rows, spec_shapes=spec_rows, minicpm3_shapes=mc_rows)
+        shapes=rows, spec_shapes=spec_rows, minicpm3_shapes=mc_rows,
+        qwen3_moe_shapes=qw_rows)
 
 
 # every minicpm3-4b linear at the rows its serve gives it: the seven MLA
@@ -301,15 +311,21 @@ MINICPM3_SHAPES = {                 # name: (K, N, rows)
     "w_gate/w_up": (2560, 6400, (4, 64)), "w_down": (6400, 2560, (4, 64)),
     "unembed": (2560, 73448, (4, 64))}
 
+# qwen3-moe-30b-a3b's attention linears and unembed at its serve's rows
+# (phase 11c: 4 slots, 16-token chunks); its expert einsums are phase 11a's
+QWEN3_SHAPES = {                    # name: (K, N, rows)
+    "wq/wo": (2048, 2048, (4, 64)), "wk/wv": (2048, 256, (4, 64)),
+    "unembed": (2048, 151936, (4, 64))}
 
-def phase_matmul_minicpm(case):
-    """minicpm3-4b's linear shapes, 8-bit: bit-exact against the plain
-    version, and timed beside their bound and bf16 `torch.matmul` on the
-    same values.  w_kr's N = 32 is below one 128-column tile; unembed's
-    N = 73448 is ragged."""
+
+def phase_matmul_model(case, label, shapes):
+    """A model's linear shapes (`shapes`: name -> (K, N, rows)), 8-bit:
+    bit-exact against the plain version, and timed beside their bound and
+    bf16 `torch.matmul` on the same values.  minicpm3-4b's w_kr has N = 32,
+    below one 128-column tile; its unembed's N = 73448 is ragged."""
     from repro_torch.kernels import bramac_matmul as bm
     rows, n = [], 0
-    for name, (K, N, ms) in MINICPM3_SHAPES.items():
+    for name, (K, N, ms) in shapes.items():
         for M in ms:
             x, w, xs, ws, kw = case(M, K, N, 8, True, False, torch.bfloat16,
                                     True)
@@ -323,7 +339,7 @@ def phase_matmul_minicpm(case):
             rows.append(dict(shape=name, M=M, K=K, N=N, ms=ms_,
                              plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                              library="bf16 torch.matmul", library_ms=lib_ms))
-            print(f"  bramac_matmul minicpm3 {name} M={M} K={K} N={N}: "
+            print(f"  bramac_matmul {label} {name} M={M} K={K} N={N}: "
                   f"{ms_:.4f} ms (bound {bound:.4f} ms by {by}, plain "
                   f"{plain_ms:.4f} ms, bf16 torch.matmul {lib_ms:.4f} ms)")
     return rows, n
@@ -538,15 +554,18 @@ CASES = {                          # (lengths, n_pages): below / at / across
 
 
 # the int8 kernel's cluster split at its edges: (lengths, n_pages, H, Hkv,
-# max_pages).  max_pages 256 splits a walk over 8 blocks of 32 pages, and
-# lengths up to 4096 make all 8 active; H/Hkv = 16 and H = Hkv; max_pages
-# 1024 at H/Hkv = 16 keeps the scores in the device scratch buffer
+# max_pages, hd).  max_pages 256 splits a walk over 8 blocks of 32 pages,
+# and lengths up to 4096 make all 8 active; H/Hkv = 16 and H = Hkv;
+# max_pages 1024 at H/Hkv = 16 keeps the scores in the device scratch
+# buffer.  "qwen3" is qwen3-moe-30b-a3b's decode read in phase 11c (32/4
+# heads, hd 64) at its last step's lengths (prompts 105/83/70/45 + 7)
 Q_CASES = {
-    "long": ((4096, 3000, 1500, 4000), (256, 188, 94, 256), H, HKV, 256),
-    "long_g16": ((4096, 2500, 1, 3333), (256, 160, 1, 209), 32, 2, 256),
-    "g1": ((57, 104, 121, 136), (4, 7, 8, 9), 8, 8, MAXP),
+    "long": ((4096, 3000, 1500, 4000), (256, 188, 94, 256), H, HKV, 256, HD),
+    "long_g16": ((4096, 2500, 1, 3333), (256, 160, 1, 209), 32, 2, 256, HD),
+    "g1": ((57, 104, 121, 136), (4, 7, 8, 9), 8, 8, MAXP, HD),
     "scratch_g16": ((16384, 9000, 20, 12000), (1024, 563, 2, 750), 32, 2,
-                    1024),
+                    1024, HD),
+    "qwen3": ((112, 90, 77, 52), (7, 6, 5, 4), 32, 4, MAXP, 64),
 }
 
 
@@ -559,10 +578,11 @@ Q_CASES = {
 # largest plan the wrapper accepts (H/Hkv 16, 128 pages a block; its bf16
 # run holds the most shared memory of any plan)
 FP_CASES = {
-    **{name: Q_CASES[name] + (HD, PS) for name in ("long", "long_g16", "g1")},
+    **{name: Q_CASES[name] + (PS,)
+       for name in ("long", "long_g16", "g1", "qwen3")},
     "hd100_ps12": ((450, 13, 0, 200), (38, 2, 0, 40), 8, 2, 40, 100, 12),
     "hd256": CASES["serve"] + (H, HKV, MAXP, 256, PS),
-    "hd256_g16": Q_CASES["scratch_g16"] + (256, PS),
+    "hd256_g16": Q_CASES["scratch_g16"][:5] + (256, PS),
 }
 
 
@@ -656,7 +676,7 @@ def phase_paged(gen, report):
         if 0 in n_pages:
             need(bool((got[list(n_pages).index(0)] == 0).all()),
                  "paged_decode: a slot without pages must emit zeros")
-        if cname in ("serve", "long") and dt == torch.bfloat16:
+        if cname in ("serve", "long", "qwen3") and dt == torch.bfloat16:
             live, walked = _live_rows(lengths, n_pages, ps)
             nbytes = 2 * live * Hkv * hd * 2 + 2 * (2 * B * H * hd) \
                 + 4 * (walked + 2 * B)
@@ -670,7 +690,8 @@ def phase_paged(gen, report):
                 q, k, v, tables, npg, lens))
             lib_ms, lib_err = _sdpa_yardstick(pa, q, k, v, tables, npg, lens)
             timed.append((cname, ms, plain_ms))
-            rows.append(dict(case=cname, B=B, H=H, Hkv=Hkv, max_pages=maxp,
+            rows.append(dict(case=cname, B=B, H=H, Hkv=Hkv, hd=hd,
+                             max_pages=maxp,
                              lengths=lengths, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound, bound_by=by, library_ms=lib_ms))
             print(f"  paged_decode {cname} bf16 B={B} H={H} Hkv={Hkv} "
@@ -700,23 +721,24 @@ def phase_paged(gen, report):
           f"bit-identical; poisoned unread pages and rows ignored; free slot "
           f"emits zeros; cluster split up to 8 blocks at max_pages 256, H/Hkv "
           f"16 and 1, 12-row pages, hd 100, and hd 256 (f32: 16-row ring "
-          f"tiles) up to H/Hkv 16 at max_pages 1024")
+          f"tiles) up to H/Hkv 16 at max_pages 1024; qwen3-moe-30b-a3b's "
+          f"32/4 heads at hd 64")
 
     worst = 0.0
-    timed = []
+    timed, q_rows = [], []
 
-    def q_case(cname, lengths, n_pages, dt, H, Hkv, maxp):
+    def q_case(cname, lengths, n_pages, dt, H, Hkv, maxp, hd=HD):
         nonlocal worst
         B = len(lengths)
         tables, npg, lens, read = _pool_case(gen, lengths, n_pages, maxp)
         P = B * maxp
-        k = torch.randint(-127, 128, (P, PS, Hkv, HD), generator=gen,
+        k = torch.randint(-127, 128, (P, PS, Hkv, hd), generator=gen,
                           device="cuda").to(torch.int8)
-        v = torch.randint(-127, 128, (P, PS, Hkv, HD), generator=gen,
+        v = torch.randint(-127, 128, (P, PS, Hkv, hd), generator=gen,
                           device="cuda").to(torch.int8)
         ks = torch.rand(P, PS, Hkv, generator=gen, device="cuda") * 0.02
         vs = torch.rand(P, PS, Hkv, generator=gen, device="cuda") * 0.02
-        qq = torch.randint(-127, 128, (B, H, HD), generator=gen,
+        qq = torch.randint(-127, 128, (B, H, hd), generator=gen,
                            device="cuda").to(torch.int8)
         qs = torch.rand(B, H, generator=gen, device="cuda") * 0.02
         args = (qq, qs, k, ks, v, vs, tables, npg, lens)
@@ -742,11 +764,11 @@ def phase_paged(gen, report):
         worst = max(worst, diff.max().item())
         need(bool((diff <= tol).all()),
              f"paged_decode_q {cname} {dt}: max err {diff.max().item()}")
-        if cname in ("serve", "long") and dt == torch.bfloat16:
+        if cname in ("serve", "long", "qwen3") and dt == torch.bfloat16:
             rows, walked = _live_rows(lengths, n_pages)
-            nbytes = 2 * rows * Hkv * (HD + 4) + B * H * (HD + 4) \
-                + 2 * B * H * HD + 4 * (walked + 2 * B)
-            ops = 4 * rows * H * HD
+            nbytes = 2 * rows * Hkv * (hd + 4) + B * H * (hd + 4) \
+                + 2 * B * H * hd + 4 * (walked + 2 * B)
+            ops = 4 * rows * H * hd
             bound = max(nbytes / HBM_BYTES_PER_S,
                         ops / INT8_OPS_PER_S) * 1e3
             by = "bytes" if nbytes / HBM_BYTES_PER_S >= \
@@ -754,6 +776,10 @@ def phase_paged(gen, report):
             ms = time_cold(lambda: pa.paged_decode_q(*args, dt))
             plain_ms = time_cold(lambda: pa.paged_decode_q_plain(*args, dt))
             timed.append((cname, ms, plain_ms))
+            q_rows.append(dict(case=cname, B=B, H=H, Hkv=Hkv, hd=hd,
+                               max_pages=maxp, lengths=lengths, ms=ms,
+                               plain_ms=plain_ms, bound_ms=bound,
+                               bound_by=by))
             if cname == "serve":
                 report["paged_decode_q"] = dict(
                     name="paged_decode_q", route="cuda",
@@ -770,16 +796,18 @@ def phase_paged(gen, report):
         for cname, (lengths, n_pages) in CASES.items():
             q_case(cname, lengths, n_pages, dt, H, HKV, MAXP)
             n += 1
-        for cname, (lengths, n_pages, H_, Hkv_, maxp) in Q_CASES.items():
-            q_case(cname, lengths, n_pages, dt, H_, Hkv_, maxp)
+        for cname, (lengths, n_pages, H_, Hkv_, maxp, hd) in \
+                Q_CASES.items():
+            q_case(cname, lengths, n_pages, dt, H_, Hkv_, maxp, hd)
             n += 1
     need(all(ms < plain_ms for _, ms, plain_ms in timed),
          f"paged_decode_q slower than its plain version: {timed}")
-    report["paged_decode_q"]["max_abs_err"] = worst
+    report["paged_decode_q"].update(max_abs_err=worst, shapes=q_rows)
     print(f"phase 4 paged_decode_q: {n} cases within tolerance (<= 2 "
           f"requantization flips), max abs err {worst:.3g}; poisoned unread "
           f"pages and rows ignored; cluster split up to 8 blocks at "
-          f"max_pages 256 and 1024 (scratch), H/Hkv 16 and 1")
+          f"max_pages 256 and 1024 (scratch), H/Hkv 16 and 1; "
+          f"qwen3-moe-30b-a3b's 32/4 heads at hd 64")
 
 
 # ---------------------------------------------------------------------------
@@ -966,24 +994,28 @@ def _counters():
 
 
 def serve(cfg, params, prompts, new_tokens, *, decode_kernel=True,
-          num_slots=4, max_seq=256, top2=None, **kw):
+          num_slots=4, max_seq=256, top2=None, routes=None, **kw):
     """Serve `prompts` on a fresh Engine and return the run's readings.
     `top2` (a dict) collects, per (request uid, position), the top two
     tokens and their logit gap of every logits row the decode ticks
-    computed from the request's own emitted context (`_log_top2`)."""
+    computed from the request's own emitted context (`_log_top2`);
+    `routes` (a list) collects every decode tick's router probabilities
+    (`_log_routes`)."""
     from repro_torch.runtime.serve import Engine
     kw.setdefault("prefix_cache", False)
     with Engine(cfg, params, num_slots=num_slots, max_seq=max_seq,
                 decode_kernel=decode_kernel, device="cuda", **kw) as eng:
         reqs = [eng.submit(p, new_tokens) for p in prompts]
-        restore = _log_top2(eng, top2) if top2 is not None else None
+        restore = [_log_top2(eng, top2)] if top2 is not None else []
+        if routes is not None:
+            restore.append(_log_routes(eng, routes))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         try:
             results = eng.run()
         finally:
-            if restore:
-                restore()
+            for undo in restore:
+                undo()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         steps = eng.n_ticks * eng.decode_steps
@@ -998,10 +1030,11 @@ def serve(cfg, params, prompts, new_tokens, *, decode_kernel=True,
         checks, i7 = eng.n_invariant_checks, eng.n_transfer_checks
         drained = eng.kv_layout != "paged" or (
             eng.pages_in_use == 0 and eng.sched.pool.pages_in_use == 0)
+        kernel = eng.decode_kernel
     return dict(streams=streams, done=done, wall=wall, steps=steps,
                 forwards=forwards, ttft=ttft, spec=spec, ticks=ticks,
                 admits=admits, reasons=reasons, disagg=disagg, checks=checks,
-                transfer_checks=i7, drained=drained,
+                transfer_checks=i7, drained=drained, decode_kernel=kernel,
                 tokens=sum(len(s) for s in streams))
 
 
@@ -1049,6 +1082,107 @@ def _log_top2(eng, out):
     def restore():
         smp.sample, smp.spec_verify = plain
     return restore
+
+
+def _log_routes(eng, out):
+    """Wrap `models.moe.route` and `eng`'s decode tick so that every decode
+    tick appends (request uid per slot, position per slot, [each MoE
+    layer's router probabilities, (slots, E), on the host]) to `out`.
+    Returns the function that restores `route`."""
+    from repro_torch.models import moe as moe_mod
+    plain, tick = moe_mod.route, eng.decode.tick
+    calls = []
+
+    def route(p, xf, cfg, capacity_factor):
+        r = plain(p, xf, cfg, capacity_factor)
+        calls.append(r.probs)
+        return r
+
+    def logged_tick(params, state, caches):
+        pos = state.pos.cpu().tolist()
+        uids = [r.uid if r is not None else None for r in eng.slot_req]
+        calls.clear()
+        res = tick(params, state, caches)
+        out.append((uids, pos, [c.cpu() for c in calls]))
+        return res
+
+    moe_mod.route = route
+    eng.decode.tick = logged_tick
+    return lambda: setattr(moe_mod, "route", plain)
+
+
+# Two runs whose activations differ in last bits (and in the 8-bit
+# roundings those move) see router log-probabilities that differ by some
+# d at a row; its top-k expert set can then differ only where the k-th
+# and (k+1)-th log-probabilities lie within 2d in both runs.  Held: d
+# below ROUTE_MOVE_EPS, a tenth of the router logits' unit spread, at
+# every compared row
+ROUTE_MOVE_EPS = 0.1
+# the same at f32 weights, where nothing is requantized: the routes differ
+# by f32 reassociation only
+F32_ROUTE_EPS = 1e-4
+
+
+def expert_switches(prompts, a, b, top_a, top_b, ra, rb, k):
+    """Runs a and b of one schedule: streams, `_log_top2` rows and
+    `_log_routes` ticks.  Each request's rows are compared tick by tick up
+    to the tick that emits its first differing token (whose input is
+    still the same) or its first expert switch: a MoE layer whose top-k
+    set differs between the runs.  Every compared row's router
+    log-probabilities must agree within ROUTE_MOVE_EPS.  A request whose
+    streams part must have a switch in its own row at or before that
+    tick, or part by a swap of its top two tokens (`same_or_near_tie`).
+    Returns {"d_max": the largest log-probability move, "rows",
+    "switches": each switch's readings, "partings": how each request
+    parted}."""
+    last = {}                     # uid -> position of its parting tick
+    for r, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            j = next(i for i in range(min(len(x), len(y))) if x[i] != y[i])
+            need(j > 0, f"request {r} differs at its first token")
+            last[r] = len(prompts[r]) + j - 1
+    switch, seen, d_max, rows = {}, set(), 0.0, 0
+    for t, ((ua, pa, ca), (ub, pb, cb)) in enumerate(zip(ra, rb)):
+        if (ua, pa) != (ub, pb):
+            break                 # schedules part (a stream stopped)
+        for s, uid in enumerate(ua):
+            if uid is None or uid in switch or pa[s] > last.get(uid, 1 << 30):
+                continue
+            if pa[s] == last.get(uid):
+                seen.add(uid)
+            for layer, (x, y) in enumerate(zip(ca, cb)):
+                moved = float((torch.log(x[s]) - torch.log(y[s])).abs().max())
+                d_max, rows = max(d_max, moved), rows + 1
+                need(moved < ROUTE_MOVE_EPS,
+                     f"request {uid} tick {t} layer {layer}: router "
+                     f"log-probabilities moved {moved} between the runs "
+                     f"(limit {ROUTE_MOVE_EPS})")
+                vx, ix = torch.sort(x[s], descending=True, stable=True)
+                vy, iy = torch.sort(y[s], descending=True, stable=True)
+                sx, sy = set(ix[:k].tolist()), set(iy[:k].tolist())
+                if sx == sy:
+                    continue
+                gaps = [float(torch.log(v[k - 1] / v[k])) for v in (vx, vy)]
+                switch[uid] = (
+                    pa[s], f"request {uid}: expert switch at position "
+                    f"{pa[s]} layer {layer} ({sorted(sx - sy)} -> "
+                    f"{sorted(sy - sx)}, k-th/(k+1)-th log gaps "
+                    f"{gaps[0]:.3g} / {gaps[1]:.3g}, log-probabilities moved "
+                    f"up to {moved:.3g})")
+                break
+    need(set(last) <= seen, f"parting ticks not logged: {set(last) - seen}")
+    partings = []
+    for r, pos in sorted(last.items()):
+        if r in switch:
+            partings.append(f"request {r} parts at position {pos}, after "
+                            f"its switch at {switch[r][0]}")
+        else:
+            only = [[x if i == r else [] for i, x in enumerate(run)]
+                    for run in (a, b)]
+            partings += same_or_near_tie(prompts, *only, top_a, top_b,
+                                         f"phase 11d request {r}")
+    return dict(d_max=d_max, rows=rows, partings=partings,
+                switches=[w for _, (_, w) in sorted(switch.items())])
 
 
 def same_or_near_tie(prompts, a, b, top_a, top_b, what):
@@ -1803,6 +1937,376 @@ def phase_minicpm(report):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the MoE feed-forward, and qwen3-moe-30b-a3b at full width
+# ---------------------------------------------------------------------------
+
+# qwen3-moe-30b-a3b's expert einsums, (K, N) per expert, and the rows C an
+# expert's buffer has in its serve: a 4-slot decode step (T = 4: C = 1), a
+# 64-token admission chunk (C = round(64 x 8 / 128 x 1.25) = 5), and the
+# no-drop capacity E / k at 64 tokens (C = 64)
+QWEN3_EINSUMS = {"w_gate/w_up": (2048, 768), "w_down": (768, 2048)}
+
+
+def _qwen3_cfg(**over):
+    from repro_torch.configs import get_config
+    from repro_torch.core.bramac_linear import QuantConfig
+    q8 = QuantConfig(enabled=True, bits_w=8, bits_a=8)
+    cfg = get_config("qwen3-moe-30b-a3b").replace(quant=q8, **over)
+    need((cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.num_experts,
+          cfg.experts_per_token, cfg.expert_d_ff, cfg.vocab_size,
+          cfg.layer_pattern) == (2048, 32, 4, 128, 8, 768, 151936,
+                                 ("attn+moe",)), "qwen3-moe-30b-a3b config")
+    return cfg, q8
+
+
+def _moe_matmul_launches(cfg) -> int:
+    """bramac_matmul launches of one forward: wq wk wv wo and the three
+    expert einsums of E calls each per layer, and the unembed."""
+    return (4 + 3 * cfg.num_experts) * cfg.num_layers + 1
+
+
+def phase_moe(report):
+    """Phase 11: (a) the expert einsum at qwen3-moe-30b-a3b's shapes, (b)
+    one MoE layer at full width, (c) qwen3-moe-30b-a3b served at full
+    width, (d) its stream identities at 2 layers, f32."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, q8 = _qwen3_cfg()
+    need(cfg.num_layers == 48 and cfg.dtype == "bfloat16",
+         "qwen3-moe-30b-a3b config")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    report["moe_einsum"] = phase_moe_einsum(gen, cfg)
+    report["moe_layer"] = phase_moe_layer(gen, cfg, q8)
+    phase_moe_serve(cfg, q8, report)
+    report["moe_streams"] = phase_moe_streams()
+    spent = time.perf_counter() - t_phase
+    report["phase11_s"] = spent
+    print(f"phase 11 took {spent:.1f} s")
+
+
+def phase_moe_einsum(gen, cfg):
+    """11a: `serve_einsum_edf` (one `bramac_matmul` per expert, all E
+    calls) bit-exact against `serve_einsum_edf_plain`, timed beside its
+    bound and one bf16 `torch.bmm` over the same (E, C, K) x (E, K, N)."""
+    from repro_torch.core.bramac_linear import (QuantConfig, prepare_serving,
+                                                serve_einsum_edf,
+                                                serve_einsum_edf_plain)
+    E = cfg.num_experts
+    cases = [(name, K, N, C, 8) for name, (K, N) in QWEN3_EINSUMS.items()
+             for C in (1, 5, 64)]
+    cases += [("w_gate/w_up",) + QWEN3_EINSUMS["w_gate/w_up"] + (5, bits)
+              for bits in (4, 2)]
+    rows = []
+    for name, K, N, C, bits in cases:
+        x = torch.randn((E, C, K), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        w = (torch.randn((E, K, N), generator=gen, device="cuda")
+             / K ** 0.5).to(torch.bfloat16)
+        qw = prepare_serving(w, QuantConfig(enabled=True, bits_w=bits,
+                                            bits_a=8))
+        got = serve_einsum_edf(x, qw, False)
+        want = serve_einsum_edf_plain(x, qw, False)
+        torch.cuda.synchronize()
+        need(torch.equal(got, want), f"phase 11a: serve_einsum_edf != plain "
+             f"at {name} C={C} {bits}-bit")
+        # 128 calls of Python enqueue ~10x longer than the device runs
+        # them: a long spin keeps host hiccups out of the device interval
+        ms = time_cold(lambda: serve_einsum_edf(x, qw, False),
+                       spin_factor=10)
+        plain_ms = time_cold(lambda: serve_einsum_edf_plain(x, qw, False),
+                             iters=3, spin_factor=10)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            serve_einsum_edf(x, qw, False)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 5
+        wb = qw.dequantize().to(torch.bfloat16)
+        lib_ms = time_cold(lambda: torch.bmm(x, wb))
+        # x in, weights as stored, both scales, the bf16 out; 4 digit passes
+        nbytes = E * (2 * C * K + K * N * bits // 8 + 4 * (C + N)
+                      + 2 * C * N)
+        ops = 2 * E * C * K * N * 4
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3
+        by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / INT8_OPS_PER_S \
+            else "operations"
+        rows.append(dict(shape=name, C=C, K=K, N=N, bits=bits, calls=E,
+                         ms=ms, wall_ms=wall_ms, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=by, library="bf16 torch.bmm",
+                         library_ms=lib_ms))
+        print(f"  expert einsum {name} E={E} C={C} K={K} N={N} {bits}-bit "
+              f"({E} bramac_matmul calls): {ms:.4f} ms on the device, "
+              f"{wall_ms:.2f} ms wall (bound {bound:.4f} ms by {by}, plain "
+              f"{plain_ms:.4f} ms, bf16 torch.bmm {lib_ms:.4f} ms)")
+        del x, w, qw, wb, got, want
+    print(f"phase 11a expert einsum: {len(rows)} cases bit-exact vs plain "
+          f"(qwen3-moe-30b-a3b gate/up and down over all {E} experts, C = "
+          f"1 / 5 / 64, 8-bit; 4- and 2-bit at C = 5)")
+    return rows
+
+
+def phase_moe_layer(gen, cfg, q8):
+    """11b: one MoE layer at full width (bf16, 8-bit weights, 64 tokens of
+    random input).  At no-drop capacity `moe` is within MOE_LAYER_RTOL of
+    `moe_reference` on the dequantized weights (f32); at the default
+    capacity the keep mask and drop count equal those of the same routing
+    on the CPU."""
+    from repro_torch.core.bramac_linear import tree_prepare_serving
+    from repro_torch.models import moe as moe_mod
+    p = moe_mod.init_moe(gen, cfg, "cuda")
+    qp = tree_prepare_serving(p, q8)
+    del p
+    x = torch.randn((1, 64, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    E, k = cfg.num_experts, cfg.experts_per_token
+    out, aux = moe_mod.moe(qp, x, cfg, capacity_factor=E / k)
+    deq = {n: (v if n == "router" else v.dequantize()) for n, v in qp.items()}
+    ref = moe_mod.moe_reference(deq, x.float(), cfg)
+    err = (out.float() - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    need(bool(torch.isfinite(out).all()) and err <= MOE_LAYER_RTOL * scale,
+         f"phase 11b: moe vs moe_reference max abs err {err} > "
+         f"{MOE_LAYER_RTOL} x {scale}")
+    xf = x.reshape(-1, cfg.d_model)
+    r = moe_mod.route(qp, xf, cfg, cfg.moe_capacity_factor)
+    rc = moe_mod.route({"router": qp["router"].cpu()}, xf.cpu(), cfg,
+                       cfg.moe_capacity_factor)
+    drops = int((~r.keep).sum())
+    need(r.C == rc.C and torch.equal(r.keep.cpu(), rc.keep),
+         "phase 11b: keep mask on the card != on the CPU")
+    need(drops == int((~rc.keep).sum()) and drops > 0,
+         f"phase 11b: drops {drops}")
+    print(f"phase 11b MoE layer at full width (d={cfg.d_model}, E={E}, "
+          f"top-{k}, ff={cfg.expert_d_ff}, bf16, 8-bit, 64 tokens): no-drop "
+          f"capacity vs moe_reference on the dequantized weights max abs "
+          f"err {err:.4g} (max |ref| {scale:.4g}, tolerance "
+          f"{MOE_LAYER_RTOL} x that), aux {aux.item():.4f}; capacity "
+          f"{cfg.moe_capacity_factor}: C = {r.C}, {drops} of {r.keep.numel()} "
+          f"assignments dropped, keep mask equal to the CPU's")
+    return dict(err=err, ref_max=scale, drops=drops, C=r.C,
+                assignments=r.keep.numel())
+
+
+# 8-bit activations of the buffer and of silu(g) * u (a step of 1/127 of
+# each row's max) and bf16 buffers: a few percent of the output's scale
+# (0.031 of it on a 32-expert layer of the same widths, on the CPU)
+MOE_LAYER_RTOL = 0.08
+
+
+def phase_moe_serve(cfg, q8, report):
+    """11c: qwen3-moe-30b-a3b at full width (48 layers, 128 experts top-8,
+    bf16, 8-bit weights, random from a seed) through the Engine: phase 5's
+    traffic cut to 4 requests x 8 new tokens, bf16 and int8 KV.
+    bramac_matmul launches (4 + 3 x 128) x 48 + 1 per forward, the decode
+    kernel 48 per decode step, the pools drained; then a device-only
+    profile of one short request."""
+    from repro_torch.core.quant import QuantizedTensor
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda", serving=q8)
+    torch.cuda.synchronize()
+    moe = params["layers"]["pos0"]["moe"]
+    expert_b = sum(moe[n].values.numel() for n in ("w_gate", "w_up",
+                                                    "w_down"))
+    attn_b = sum(t.values.numel() for t in
+                 params["layers"]["pos0"]["mixer"].values()
+                 if isinstance(t, QuantizedTensor))
+    print(f"  qwen3-moe-30b-a3b params built and quantized one period at a "
+          f"time in {time.perf_counter() - t0:.1f} s: experts "
+          f"{expert_b / 1e9:.2f} GB int8, attention {attn_b / 1e9:.2f} GB, "
+          f"unembed {params['embed']['unembed'].values.numel() / 1e9:.2f} "
+          f"GB, bf16 embedding "
+          f"{2 * params['embed']['embedding'].numel() / 1e9:.2f} GB; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n))
+               for n in rng.integers(17, 121, size=8)][:4]
+    per_fwd = _moe_matmul_launches(cfg)
+    need(per_fwd == 18625, f"qwen3 launches per forward {per_fwd}")
+    serve(cfg, params, [prompts[0][:5]], 2)                 # warm-up
+    runs = {}
+    for quant_kv in (False, True):
+        c = cfg.replace(quant_kv=quant_kv)
+        kv = "int8" if quant_kv else "bf16"
+        attn = "paged_decode_q" if quant_kv else "paged_decode"
+        other = "paged_decode" if quant_kv else "paged_decode_q"
+        _zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        run = serve(c, params, prompts, 8)
+        got = _read_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        need(run["done"] == 4 and all(
+            len(s) == 8 and all(0 <= t < cfg.vocab_size for t in s)
+            for s in run["streams"]), f"phase 11c ({kv} KV): streams")
+        need(got["bramac_matmul"] == per_fwd * run["forwards"],
+             f"phase 11c ({kv} KV): bramac_matmul launches "
+             f"{got['bramac_matmul']} != {per_fwd} x {run['forwards']}")
+        need(got[attn] == cfg.num_layers * run["steps"] > 0
+             and got[other] == 0, f"phase 11c ({kv} KV): decode kernel "
+             f"launches {got} for {run['steps']} steps")
+        need(run["drained"], f"phase 11c ({kv} KV): a pool kept pages")
+        for k, n in got.items():
+            report[k]["launches"] += n
+        ttft = 1e3 * float(np.mean(run["ttft"]))
+        runs[kv] = dict(tok_s=run["tokens"] / run["wall"], ttft_ms=ttft,
+                        wall_s=run["wall"], peak_gb=peak,
+                        forwards=run["forwards"], steps=run["steps"],
+                        launches=got,
+                        s_per_forward=run["wall"] / run["forwards"])
+        print(f"phase 11c serve qwen3-moe-30b-a3b {kv} KV: {run['done']}/4 "
+              f"requests, {run['tokens']} tokens in {run['wall']:.2f} s "
+              f"({run['tokens'] / run['wall']:.2f} tok/s), mean TTFT "
+              f"{ttft:.1f} ms, peak memory {peak:.2f} GB, "
+              f"{run['forwards']} forwards ({run['wall'] / run['forwards']:.3f}"
+              f" s each), launches {got} (= {per_fwd} x forwards and "
+              f"{cfg.num_layers} x {run['steps']} steps)")
+    prof = profile_serve(cfg, params, [prompts[0][:16]], new_tokens=2,
+                         label="phase 11c profile qwen3-moe-30b-a3b",
+                         host_ops=False)
+    report["qwen3_moe"] = dict(runs, profile=prof,
+                               expert_gb=expert_b / 1e9)
+    del params, moe
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 11c took {time.perf_counter() - t0:.1f} s")
+
+
+def phase_moe_streams(seed=3):
+    """11d: qwen3-moe-30b-a3b's width at 2 layers, f32, at capacity_factor
+    E / k, where no token is dropped and a row's output does not depend on
+    the other rows of its call.  With 8-bit weights, greedy streams are
+    equal across the Engine's modes within one attention route: with the
+    decode kernel, paged == disaggregated == prefix cache on == off ==
+    draft_len 4 (MoE opts out of speculation: no drafter); through the
+    gather oracle, paged == dense layout.  Across the two routes a
+    last-bit difference between the decode kernel's attention and the
+    gather oracle's moves a value across an 8-bit activation rounding now
+    and then.  In a dense model that changes a token only at a near tie of
+    the top two logits; a MoE layer also turns it into another expert
+    wherever the router's k-th and (k+1)-th probabilities nearly tie.  So
+    the decode kernel on == off == dense identity is held on f32 weights,
+    where no activation is requantized (there the two routes' router
+    log-probabilities agree within F32_ROUTE_EPS and pick the same
+    experts).  At 8 bits the routes' router probabilities are logged at
+    every decode tick (`expert_switches`): they agree within
+    ROUTE_MOVE_EPS, so an expert switch needs a k-th/(k+1)-th gap below
+    twice that, and every stream that parts must part at or after a
+    switch in its own row, or by a swap of its top two tokens."""
+    from repro_torch.core.bramac_linear import FP32, tree_prepare_serving
+    from repro_torch.models import model as M
+    cfg, q8 = _qwen3_cfg(num_layers=2, dtype="float32")
+    cfg = cfg.replace(moe_capacity_factor=cfg.num_experts
+                      / cfg.experts_per_token)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = tree_prepare_serving(M.init_params(cfg, gen, "cuda"), q8)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n))
+               for n in (15, 16, 17, 33, 5, 48)]
+    stem = rng.integers(0, cfg.vocab_size, size=44)
+    tail = lambda n: rng.integers(0, cfg.vocab_size, size=n)  # noqa: E731
+    stag = [np.concatenate([stem, tail(5)]), np.concatenate([stem, tail(9)]),
+            np.concatenate([stem[:30], tail(7)]),
+            np.concatenate([stem, tail(3)])]
+    kw = dict(num_slots=3, max_seq=96)
+    per_fwd = _moe_matmul_launches(cfg)
+
+    def run_checked(c, p, what, **extra):
+        _zero_counts()
+        run = serve(c, p, prompts, 12, **kw, **extra)
+        got = _read_counts()
+        kernel = c.quant.enabled
+        need(got["bramac_matmul"] == (per_fwd * run["forwards"] if kernel
+                                      else 0),
+             f"phase 11d ({what}): bramac_matmul launches {got}")
+        want = c.num_layers * run["steps"] if run["decode_kernel"] else 0
+        need(got["paged_decode"] == want and got["paged_decode_q"] == 0,
+             f"phase 11d ({what}): decode kernel launches {got}")
+        return run
+
+    logs = {r: ({}, []) for r in ("on", "off")}
+    on = run_checked(cfg, params, "8-bit, kernel on", top2=logs["on"][0],
+                     routes=logs["on"][1])
+    out = {}
+    for what, extra in {"disaggregated": dict(disagg=True,
+                                              check_invariants=True),
+                        "draft_len 4": dict(draft_len=4, drafter="ngram")
+                        }.items():
+        run = run_checked(cfg, params, f"8-bit, {what}", **extra)
+        need(run["streams"] == on["streams"], f"phase 11d: 8-bit {what} != "
+             f"kernel-on streams: {run['streams']} vs {on['streams']}")
+        if what == "disaggregated":
+            need(run["drained"] and run["transfer_checks"] ==
+                 run["disagg"]["transfer_rounds"] > 0,
+                 f"phase 11d disaggregated: {run['disagg']}")
+        else:
+            need(run["spec"]["drafter"] is None and
+                 run["spec"]["drafted"] == 0,
+                 f"phase 11d: speculation did not opt out: {run['spec']}")
+        out[what] = "equal"
+    warm = staggered(cfg, params, stag, prefix_cache=True)
+    cold = staggered(cfg, params, stag, prefix_cache=False)
+    st = warm["stats"]
+    need((st["hits"], st["tokens_skipped"]) == (3, 40 + 24 + 40),
+         f"phase 11d staggered prefix stats: {st}")
+    need(warm["streams"] == cold["streams"], "phase 11d: prefix on != off")
+    out["prefix on == off"] = f"{st['hits']} hits"
+    off = run_checked(cfg, params, "8-bit, kernel off", decode_kernel=False,
+                      top2=logs["off"][0], routes=logs["off"][1])
+    dense = run_checked(cfg, params, "8-bit, dense", kv_layout="dense")
+    need(dense["streams"] == off["streams"], f"phase 11d: 8-bit dense != "
+         f"kernel-off streams: {dense['streams']} vs {off['streams']}")
+    same = sum(a == b for a, b in zip(on["streams"], off["streams"]))
+    k = cfg.experts_per_token
+
+    def routes_of(x, y, tag):
+        return expert_switches(prompts, x["streams"], y["streams"],
+                               logs[f"{tag}on"][0], logs[f"{tag}off"][0],
+                               logs[f"{tag}on"][1], logs[f"{tag}off"][1], k)
+    q_routes = routes_of(on, off, "")
+    del params
+    torch.cuda.empty_cache()
+    fcfg = cfg.replace(quant=FP32)
+    fparams = M.init_params(fcfg, torch.Generator(device="cuda").manual_seed(
+        seed), "cuda")
+    logs.update({r: ({}, []) for r in ("f32on", "f32off")})
+    fon = run_checked(fcfg, fparams, "f32 weights, kernel on",
+                      top2=logs["f32on"][0], routes=logs["f32on"][1])
+    for what, extra in {"kernel off": dict(decode_kernel=False,
+                                           top2=logs["f32off"][0],
+                                           routes=logs["f32off"][1]),
+                        "dense layout": dict(kv_layout="dense")}.items():
+        run = run_checked(fcfg, fparams, f"f32 weights, {what}", **extra)
+        need(run["streams"] == fon["streams"], f"phase 11d: f32-weight "
+             f"{what} != kernel-on streams: {run['streams']} vs "
+             f"{fon['streams']}")
+        if what == "kernel off":
+            f_routes = routes_of(fon, run, "f32")
+    need(f_routes["d_max"] < F32_ROUTE_EPS and not f_routes["switches"],
+         f"phase 11d: f32-weight routes: {f_routes}")
+    del fparams
+    torch.cuda.empty_cache()
+    print(f"phase 11d qwen3-moe-30b-a3b streams (full width, 2 layers, f32, "
+          f"capacity_factor {cfg.moe_capacity_factor}: no drops): 8-bit "
+          f"weights with the decode kernel: paged == "
+          + "; ".join(f"{k}: {v}" for k, v in out.items())
+          + f"; through the gather oracle: paged == dense layout; f32 "
+          f"weights: decode kernel on == off == dense layout; 8-bit "
+          f"kernel on vs off: {same} of {len(prompts)} streams equal; "
+          f"router log-probabilities of the two routes within "
+          f"{f_routes['d_max']:.3g} at f32 weights and "
+          f"{q_routes['d_max']:.3g} at 8 bits (limits {F32_ROUTE_EPS}, "
+          f"{ROUTE_MOVE_EPS}; {q_routes['rows']} rows); "
+          f"{len(q_routes['switches'])} top-{k} expert switches at 8 bits"
+          + "".join(f"; {w}" for w in q_routes["switches"]
+                    + q_routes["partings"]))
+    return dict(out, routes_equal=same, requests=len(prompts),
+                f32_routes=f_routes, routes=q_routes)
+
+
+
+# ---------------------------------------------------------------------------
 # phase 6: kernel-on == kernel-off greedy streams (f32, full width)
 # ---------------------------------------------------------------------------
 
@@ -1983,9 +2487,36 @@ def streams_mla(prompt_lens):
              run["launches"]["paged_decode_q"] == 0,
              f"minicpm3-4b prefix serve launches {run['launches']}")
     out["prefix on == off"] = f"{st['hits']} hits"
+    out["structured weights"] = mla_structured_spec(cfg, params, q8)
     del params
     torch.cuda.empty_cache()
     return "; ".join(f"{k}: {v}" for k, v in out.items())
+
+
+def mla_structured_spec(cfg, params, q8):
+    """The exact check beside the near-tie-tolerant one above: minicpm3-4b
+    on integer-exact structured weights (`structured_params`), where the
+    greedy stream is t -> t+1, served without speculation and with the
+    n-gram and the 2-bit model drafters; the streams must be equal."""
+    sparams = structured_params(cfg, params, q8)
+    prompts = [[1, 2, 3], [700, 5, 9, 11, 40], list(range(100, 120))]
+    expect = [[(p[-1] + 1 + i) % cfg.d_model for i in range(16)]
+              for p in prompts]
+    out = []
+    for kind in ("none", "ngram", "model"):
+        kw = {} if kind == "none" else dict(draft_len=4, drafter=kind,
+                                            draft_bits=2)
+        run = serve(cfg, sparams, prompts, 16, num_slots=3, max_seq=64, **kw)
+        need(run["streams"] == expect, f"minicpm3-4b structured ({kind}): "
+             f"streams {run['streams']} != t+1")
+        if kind != "none":
+            need(run["spec"]["drafted"] > 0,
+                 f"minicpm3-4b structured ({kind}): nothing drafted")
+            out.append(f"{kind} {run['spec']['accepted']}/"
+                       f"{run['spec']['drafted']} accepted")
+    del sparams
+    return ("speculation on == off exactly, t -> t+1 (" + ", ".join(out)
+            + ")")
 
 
 def spec_streams(cfg, params, prompts, want):
@@ -2121,6 +2652,7 @@ def main() -> int:
     phase_mac2(gen, report)
     phase_serve(report)
     phase_minicpm(report)
+    phase_moe(report)
     phase_streams()
     print(f"timing: {len(HOST_BOUND)} readings in which an enqueue outlasted "
           f"the device spin" + (f": {HOST_BOUND}" if HOST_BOUND else ""))

@@ -3,7 +3,8 @@
 Port of the serving half of `repro.core.bramac_linear`: weights are
 quantized **once** offline (`prepare_serving`) into int8/packed storage —
 the "main BRAM" resident layout — and every call quantizes activations on
-the fly and runs the integer kernel (`serve_dense`).  The QAT path
+the fly and runs the integer kernel (`serve_dense`, and per expert
+`serve_einsum_edf`).  The QAT path
 (`ops.bramac_dense`, straight-through gradients) belongs to the training
 slice of the port, which is not written yet.
 
@@ -18,7 +19,9 @@ from typing import Any
 import torch
 
 from repro_torch.core import quant
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.bramac_matmul import bramac_matmul, \
+    bramac_matmul_plain
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +86,50 @@ def serve_dense(x: torch.Tensor, qw: quant.QuantizedTensor,
     y = ops.quant_matmul(qx.values, w_vals, qx.scale, qw.scale.reshape(1, -1),
                          bits_a=bits_a, bits_w=qw.bits, out_dtype=x.dtype)
     return y.reshape(*x.shape[:-1], y.shape[-1])
+
+
+def edf_accumulate(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """Unit-scale int32 mode of the expert einsum "ecd,edf->ecf": the exact
+    integer product of int8 (E, C, d) and (E, d, f) operands, int32 out, no
+    dequant (the reference's batched int8 `dot_general`).  Every product and
+    partial sum is an integer far below 2^53, so `ref.int_dot`'s float64
+    matmul is exact where f32 is not (2048 x 127 x 127 > 2^24)."""
+    return ref.int_dot(x_q, w_q).to(torch.int32)
+
+
+def _einsum_edf(x, qw, bits_a, matmul):
+    """Quantize the (E, C, a) buffer per row once, then one `matmul` call per
+    expert into its rows of one (E, C, b) output.  4-bit weights go as
+    stored, pair-packed along the contraction axis; 2-bit ones unpacked."""
+    qx = quant.quantize(x, bits_a, axis=-1)                 # per (e, c) row
+    packed = qw.packed and qw.bits == 4
+    w = qw.values if packed else qw.unpacked_values()
+    out = torch.empty(tuple(x.shape[:2]) + (w.shape[-1],), dtype=x.dtype,
+                      device=x.device)
+    for e in range(x.shape[0]):
+        matmul(qx.values[e], w[e], qx.scale[e], qw.scale[e], bits_a=bits_a,
+               bits_w=qw.bits, out_dtype=x.dtype, w_packed=packed,
+               out=out[e])
+    return out
+
+
+def serve_einsum_edf(x: torch.Tensor, qw: quant.QuantizedTensor,
+                     transpose_out: bool, bits_a: int = 8) -> torch.Tensor:
+    """Quantized expert einsum: "ecd,edf->ecf" (transpose_out=False) or
+    "ecf,efd->ecd" (True, the same contraction layout), one `bramac_matmul`
+    per expert.  The kernel's epilogue `(acc * x_scale) * w_scale` is the
+    reference's `acc * qx.scale * qw.scale`, so the result is bit-exact to
+    it.  All E experts run on every call, empty ones too: skipping them
+    would need the counts on the host."""
+    return _einsum_edf(x, qw, bits_a, bramac_matmul)
+
+
+def serve_einsum_edf_plain(x: torch.Tensor, qw: quant.QuantizedTensor,
+                           transpose_out: bool,
+                           bits_a: int = 8) -> torch.Tensor:
+    """`serve_einsum_edf` through `bramac_matmul_plain` on any device: what
+    the kernel route is held against on the card."""
+    return _einsum_edf(x, qw, bits_a, bramac_matmul_plain)
 
 
 # Matmul weights consumed through dense() (quantizable at serving time);

@@ -42,17 +42,20 @@ def _plan(M: int, K: int, N: int, sms: int) -> tuple[int, int, int]:
 
 def bramac_matmul_plain(x_q, w_q, x_scale, w_scale, *, bits_a: int,
                         bits_w: int, signed: bool = True,
-                        out_dtype=torch.float32,
-                        w_packed: bool = False) -> torch.Tensor:
+                        out_dtype=torch.float32, w_packed: bool = False,
+                        out=None) -> torch.Tensor:
     """The plain version: unpack pair-packed weights along K, then the
-    digit-pass reference (`ref.quant_matmul_digit_ref`)."""
+    digit-pass reference (`ref.quant_matmul_digit_ref`); with `out`, the
+    result is written there."""
     if w_packed:
         w_q = quant.unpack_axis(w_q, bits_w, 0)
-    return ref.quant_matmul_digit_ref(x_q, w_q, x_scale, w_scale, bits_a=bits_a,
-                                      signed=signed, out_dtype=out_dtype)
+    y = ref.quant_matmul_digit_ref(x_q, w_q, x_scale, w_scale, bits_a=bits_a,
+                                   signed=signed, out_dtype=out_dtype)
+    return y if out is None else out.copy_(y)
 
 
-def _check(x_q, w_q, x_scale, w_scale, bits_a, bits_w, out_dtype, w_packed):
+def _check(x_q, w_q, x_scale, w_scale, bits_a, bits_w, out_dtype, w_packed,
+           out):
     if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
         raise TypeError(f"bramac_matmul takes int8 operands, got "
                         f"{x_q.dtype} x {w_q.dtype}")
@@ -78,12 +81,18 @@ def _check(x_q, w_q, x_scale, w_scale, bits_a, bits_w, out_dtype, w_packed):
                          f"{tuple(w_scale.shape)}")
     if out_dtype not in _OUT_DTYPES:
         raise TypeError(f"out_dtype must be one of {_OUT_DTYPES}")
+    if out is not None and (tuple(out.shape) != (M, N) or
+                            out.dtype != out_dtype or
+                            out.device != x_q.device or
+                            not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous ({M}, {N}) {out_dtype} "
+                         f"tensor on {x_q.device}")
     return M, K, N
 
 
 def bramac_matmul(x_q, w_q, x_scale, w_scale, *, bits_a: int, bits_w: int,
                   signed: bool = True, out_dtype=torch.float32,
-                  w_packed: bool = False) -> torch.Tensor:
+                  w_packed: bool = False, out=None) -> torch.Tensor:
     """Quantized matmul (M,K)·(K,N) → (M,N) via the BRAMAC dataflow.
 
     x_q:     (M, K) int8 holding bits_a-bit values.
@@ -91,19 +100,23 @@ def bramac_matmul(x_q, w_q, x_scale, w_scale, *, bits_a: int, bits_w: int,
              (byte r: low nibble W[2r], high nibble W[2r+1]).
     x_scale: (M, 1) or (1, 1) f32 per-row activation scales.
     w_scale: (1, N) or (1, 1) f32 per-column weight scales.
+    out:     optional contiguous (M, N) `out_dtype` tensor to write into
+             (the expert einsum's rows of its (E, C, N) output).
     """
     M, K, N = _check(x_q, w_q, x_scale, w_scale, bits_a, bits_w, out_dtype,
-                     w_packed)
+                     w_packed, out)
     tensors = (x_q, w_q, x_scale, w_scale)
     if all(t.device.type == "cpu" for t in tensors):
         return bramac_matmul_plain(x_q, w_q, x_scale, w_scale, bits_a=bits_a,
                                    bits_w=bits_w, signed=signed,
-                                   out_dtype=out_dtype, w_packed=w_packed)
+                                   out_dtype=out_dtype, w_packed=w_packed,
+                                   out=out)
     dev = x_q.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("bramac_matmul operands must all be on one CUDA "
                          "device (or all on the CPU)")
-    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    if out is None:
+        out = torch.empty((M, N), dtype=out_dtype, device=dev)
     if M == 0 or N == 0:
         return out
     x_q, w_q = x_q.contiguous(), w_q.contiguous()

@@ -3,6 +3,7 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
         [--smoke] [--requests 8] [--new-tokens 12] [--slots 4] \
         [--max-seq 128] [--quant-bits 8] \
+        [--capacity-factor 1.0] [--dispatch global|per_source] \
         [--sampling top_p --temperature 0.8 --top-p 0.95] [--seed 0] \
         [--decode-steps 1] [--prefill-chunk 16] \
         [--kv-layout paged|dense] [--page-size 16] [--num-pages 0] \
@@ -16,10 +17,12 @@
 
 Runs on the card by default (`--device cpu` runs the plain PyTorch
 versions of the kernels).  Weights are random (`init_params` from a seeded
-generator) and, with --quant-bits, quantized once for serving.  The flags
+generator) and, with --quant-bits, quantized for serving one period at a
+time as they are drawn (so qwen3-moe-30b-a3b fits the card at 8 bits).  The flags
 are the reference launcher's minus the mesh (`--role both` serves
 disaggregated in this process; "prefill" / "decode" raise, as the
-reference's do), and the report lines keep its wording: requests done and
+reference's do; without a mesh `--dispatch per_source` is the dense
+dispatch, as in the reference), and the report lines keep its wording: requests done and
 tok/s, syncs and finish reasons, speculation's acceptance and tokens per
 tick, the kv pool, the page transfer of disaggregation, the prefix
 cache's hit rate and refcount histogram, or the dense reservation.
@@ -34,12 +37,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core.bramac_linear import QuantConfig, tree_prepare_serving
+from repro_torch.core.bramac_linear import QuantConfig
 from repro_torch.models import model as M
 from repro_torch.runtime.options import (DebugOptions, DisaggOptions,
                                          EngineOptions, PagingOptions,
-                                         PrefixOptions, ScheduleOptions,
-                                         SpeculationOptions)
+                                         ParallelOptions, PrefixOptions,
+                                         ScheduleOptions, SpeculationOptions)
 from repro_torch.runtime.sampling import SamplingConfig
 from repro_torch.runtime.serve import Engine, resolve_device
 
@@ -53,6 +56,14 @@ def main(argv=None):
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--quant-bits", type=int, default=0, choices=(0, 2, 4, 8))
+    ap.add_argument("--capacity-factor", type=float, default=0.0,
+                    help="MoE expert-capacity factor (0 = config default, "
+                         "%(default)s); lower is lossier but faster")
+    ap.add_argument("--dispatch", default="",
+                    choices=("", "global", "per_source"),
+                    help="MoE token dispatch: 'global' or 'per_source' "
+                         "(without a mesh both are the dense dispatch; "
+                         "empty = config default)")
     ap.add_argument("--sampling", default="greedy",
                     choices=("greedy", "temperature", "top_k", "top_p"),
                     help="on-device sampling method (%(default)s)")
@@ -146,9 +157,7 @@ def main(argv=None):
                                             bits_w=args.quant_bits,
                                             bits_a=args.quant_bits))
     gen = torch.Generator(device=device).manual_seed(0)
-    params = M.init_params(cfg, gen, device)
-    if args.quant_bits:
-        params = tree_prepare_serving(params, cfg.quant)
+    params = M.init_params(cfg, gen, device, serving=cfg.quant)
     options = EngineOptions(
         sampling=SamplingConfig(method=args.sampling,
                                 temperature=args.temperature,
@@ -171,6 +180,9 @@ def main(argv=None):
                                        draft_bits=args.draft_bits,
                                        draft_layers=args.draft_layers
                                        or None),
+        parallel=ParallelOptions(capacity_factor=args.capacity_factor
+                                 or None,
+                                 dispatch=args.dispatch or None),
         disagg=DisaggOptions(enabled=bool(args.role),
                              role=args.role or "both",
                              prefill_slots=args.prefill_slots or None,

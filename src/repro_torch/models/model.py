@@ -9,23 +9,37 @@ Caches are written in place and returned.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.bramac_linear import QuantConfig, tree_prepare_serving
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import embed, init_embed, init_rmsnorm, \
     rmsnorm, unembed
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device) -> dict:
+                device, serving: QuantConfig | None = None) -> dict:
     """Random weights in the reference's tree structure and he_init
-    scaling, drawn from `generator` (which must live on `device`)."""
+    scaling, drawn from `generator` (which must live on `device`).
+
+    With `serving` (an enabled QuantConfig) each period's block is
+    quantized as soon as it is drawn: the result equals
+    `tree_prepare_serving(init_params(cfg, generator, device), serving)`
+    leaf for leaf, without ever holding the float stack (qwen3-moe-30b-a3b's
+    bf16 experts alone are ~58 GB)."""
     dt = cfg.compute_dtype
-    return {"embed": init_embed(generator, cfg.vocab_size, cfg.d_model, dt,
-                                device),
+    prepare = None
+    if serving is not None and serving.enabled:
+        prepare = functools.partial(tree_prepare_serving, cfg=serving)
+    emb = init_embed(generator, cfg.vocab_size, cfg.d_model, dt, device)
+    if prepare is not None:
+        emb = prepare(emb)
+    return {"embed": emb,
             "final_norm": init_rmsnorm(cfg.d_model, dt, device),
-            "layers": tf.init_stack(generator, cfg, device)}
+            "layers": tf.init_stack(generator, cfg, device, prepare)}
 
 
 def forward(params, batch, cfg: ModelConfig, caches=None, cache_pos=None,

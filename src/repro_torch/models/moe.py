@@ -1,0 +1,170 @@
+"""Mixture-of-Experts FFN: top-k routing, capacity-based dispatch.
+
+Port of `repro.models.moe` without its expert-parallel branches (they need
+a mesh, which the port does not serve yet).  Tokens are scattered into a
+per-expert capacity buffer (E, C, d) — the Switch-Transformer dispatch —
+so expert compute is E·C·(3·d·ff), about the *active* FLOPs.  Serving
+weights run each expert einsum as one `bramac_matmul` per expert
+(`bramac_linear.serve_einsum_edf`).
+
+Router math is f32; a Switch-style load-balancing aux loss is returned.
+Tokens overflowing an expert's capacity are dropped; every row of the call
+routes and takes capacity, inactive slots and padded chunk positions
+included, as in the reference.  Nothing here reads a device value on the
+host: the scatter adds zeros for dropped rows instead of masking them out.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import bramac_linear as bl
+from repro_torch.core.quant import QuantizedTensor
+from repro_torch.models.layers import he_init
+
+
+def _expert_matmul(x, w):
+    """(E,C,a)·(E,a,b)→(E,C,b) for float or serving-quantized weights.  The
+    reference calls the quantized einsum with its default 8-bit
+    activations whatever `cfg.quant.bits_a` is; so does the port."""
+    if isinstance(w, QuantizedTensor):
+        return bl.serve_einsum_edf(x, w, transpose_out=False)
+    return torch.einsum("ecd,edf->ecf", x, w)
+
+
+def init_moe(gen, cfg, device):
+    d, ff, E = cfg.d_model, cfg.expert_d_ff, cfg.num_experts
+    dt = cfg.compute_dtype
+    return {"router": he_init(gen, (d, E), torch.float32, device),
+            "w_gate": he_init(gen, (E, d, ff), dt, device, fan_in=d),
+            "w_up": he_init(gen, (E, d, ff), dt, device, fan_in=d),
+            "w_down": he_init(gen, (E, ff, d), dt, device, fan_in=ff)}
+
+
+def moe_capacity(T: int, E: int, k: int, capacity_factor: float) -> int:
+    """Per-expert buffer rows C — the one formula every dispatch path
+    derives from."""
+    return int(max(1, round(T * k / E * capacity_factor)))
+
+
+def _one_hot(i: torch.Tensor, E: int, dtype) -> torch.Tensor:
+    """one_hot by comparison (F.one_hot validates its input on the host)."""
+    return (i[..., None] == torch.arange(E, device=i.device)).to(dtype)
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """`jax.lax.top_k`: descending, ties to the lower index (a stable sort;
+    `torch.topk` promises no order among ties)."""
+    v, i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+class Routing(NamedTuple):
+    probs: torch.Tensor      # (T, E) f32 router softmax
+    top_p: torch.Tensor      # (T, k) f32, renormalised
+    top_i: torch.Tensor      # (T, k) expert ids, descending probability
+    a: torch.Tensor          # (T*k,) assignments, token-major
+    pos_c: torch.Tensor      # (T*k,) row in the expert's buffer
+    keep: torch.Tensor       # (T*k,) bool: within capacity
+    C: int                   # rows per expert
+
+
+def route(p, xf: torch.Tensor, cfg, capacity_factor: float) -> Routing:
+    """The f32 router, top-k and the capacity dispatch of (T, d) rows."""
+    T = xf.shape[0]
+    E, k = cfg.num_experts, cfg.experts_per_token
+    logits = xf.to(torch.float32) @ p["router"]              # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_i = _top_k(probs, k)
+    top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
+    C = moe_capacity(T, E, k, capacity_factor)
+    a = top_i.reshape(T * k)
+    rank = _rank_in_expert_sort if cfg.moe_dispatch == "sort" \
+        else _rank_in_expert_cumsum
+    pos = rank(a, E)
+    keep = pos < C
+    pos_c = torch.where(keep, pos, C - 1).long()
+    return Routing(probs, top_p, top_i, a, pos_c, keep, C)
+
+
+def moe(p, x, cfg, capacity_factor: float | None = None,
+        dispatch: str | None = None):
+    """x: (B, S, d) → (out, aux_loss).
+
+    `capacity_factor` / `dispatch` default to `cfg.moe_capacity_factor` /
+    `cfg.ep_dispatch`.  Without a mesh "per_source" is the dense path
+    below, as in the reference (per-source semantics at one shard)."""
+    if capacity_factor is None:
+        capacity_factor = cfg.moe_capacity_factor
+    if dispatch is None:
+        dispatch = cfg.ep_dispatch
+    if dispatch not in ("global", "per_source"):
+        raise ValueError(f"ep_dispatch must be 'global' or 'per_source', "
+                         f"got {dispatch!r}")
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    T = B * S
+    xf = x.reshape(T, d)
+    r = route(p, xf, cfg, capacity_factor)
+
+    # ---- capacity dispatch: dropped rows add zeros at (a, C-1) ----
+    xk = torch.repeat_interleave(xf, k, dim=0)               # (T*k, d)
+    buf = torch.zeros((E, r.C, d), dtype=x.dtype, device=x.device)
+    buf.index_put_((r.a, r.pos_c), torch.where(r.keep[:, None], xk, 0),
+                   accumulate=True)
+
+    # ---- expert compute ----
+    g = _expert_matmul(buf, p["w_gate"])
+    u = _expert_matmul(buf, p["w_up"])
+    ye = _expert_matmul(F.silu(g) * u, p["w_down"])
+
+    # ---- combine ----
+    yk = ye[r.a, r.pos_c]                                    # (T*k, d)
+    w = (r.top_p.reshape(T * k).to(x.dtype) * r.keep.to(x.dtype))[:, None]
+    out = torch.sum((yk * w).reshape(T, k, d), dim=1).reshape(B, S, d)
+
+    # ---- Switch load-balance loss ----
+    frac_tokens = torch.mean(_one_hot(r.top_i, E, torch.float32), dim=(0, 1))
+    frac_probs = torch.mean(r.probs, dim=0)
+    aux = E * torch.sum(frac_tokens * frac_probs)
+    return out, aux
+
+
+def _rank_in_expert_cumsum(a: torch.Tensor, E: int) -> torch.Tensor:
+    """The one-hot running-count rank (moe_dispatch="cumsum")."""
+    onehot = _one_hot(a, E, torch.int32)                     # (T*k, E)
+    pos_in_e = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
+    return torch.gather(pos_in_e, 1, a.long()[:, None])[:, 0]
+
+
+def _rank_in_expert_sort(a: torch.Tensor, E: int) -> torch.Tensor:
+    """pos[i] = #{j : a[j] == a[i], j before i}: stable-sort the
+    assignments, rank each within its expert's run (index − the run's
+    start, found by a search of the sorted ids: `bincount` would size its
+    output on the host), scatter the ranks back."""
+    n = a.shape[0]
+    order = torch.argsort(a, stable=True)                    # expert-major
+    sorted_a = a[order].contiguous()
+    starts = torch.searchsorted(sorted_a, sorted_a)
+    rank_sorted = torch.arange(n, device=a.device) - starts
+    pos = torch.zeros((n,), dtype=torch.int32, device=a.device)
+    pos[order] = rank_sorted.to(torch.int32)
+    return pos
+
+
+def moe_reference(p, x, cfg):
+    """Dense all-experts reference (exact, no drops) for tests."""
+    E, k = cfg.num_experts, cfg.experts_per_token
+    logits = x.to(torch.float32) @ p["router"]
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_i = _top_k(probs, k)
+    top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
+    combine = torch.einsum("bske,bsk->bse",
+                           _one_hot(top_i, E, torch.float32),
+                           top_p).to(x.dtype)
+    g = torch.einsum("bsd,edf->ebsf", x, p["w_gate"])
+    u = torch.einsum("bsd,edf->ebsf", x, p["w_up"])
+    ye = torch.einsum("ebsf,efd->ebsd", F.silu(g) * u, p["w_down"])
+    return torch.einsum("ebsd,bse->bsd", ye, combine)

@@ -1,25 +1,30 @@
 """Layer stack: pattern-driven blocks over stacked per-period parameters.
 
-Port of `repro.models.transformer` for `attn+dense` (GQA) and `mla+dense`
-(multi-head latent attention) blocks.  Parameters of pattern position i are
-stacked over `n_periods` as in the reference (`params["pos{i}"][leaf]`
-with a leading period axis); `stack_apply` walks the periods in a Python
-loop over period slices (views, no copies).  The other mixers (xattn,
-mamba, mlstm, slstm) and the MoE FF raise NotImplementedError.
+Port of `repro.models.transformer` for blocks of the `attn` (GQA) and `mla`
+(multi-head latent attention) mixers with the `dense` (SwiGLU) or `moe`
+(`models.moe`) feed-forward.  Parameters of pattern position i are stacked
+over `n_periods` as in the reference (`params["pos{i}"][leaf]` with a
+leading period axis); `stack_apply` walks the periods in a Python loop over
+period slices (views, no copies) and sums the MoE aux losses.  The other
+mixers (xattn, mamba, mlstm, slstm) and the `none` FF raise
+NotImplementedError.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
 
 from repro_torch.core.quant import QuantizedTensor
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import init_mlp, init_rmsnorm, mlp, rmsnorm
 
 MIXERS = ("attn", "mla", "xattn", "mamba", "mlstm", "slstm")
 FFS = ("dense", "moe", "none")
 SERVED_MIXERS = ("attn", "mla")
+SERVED_FFS = ("dense", "moe")
 
 
 def parse_spec(spec: str) -> tuple[str, str]:
@@ -30,10 +35,10 @@ def parse_spec(spec: str) -> tuple[str, str]:
         raise NotImplementedError(
             f"layer {spec!r}: the {mixer} mixer is not ported yet (the "
             f"port serves {', '.join(SERVED_MIXERS)})")
-    if ff != "dense":
+    if ff not in SERVED_FFS:
         raise NotImplementedError(
             f"layer {spec!r}: the {ff!r} feed-forward is not ported yet "
-            f"(the port serves dense)")
+            f"(the port serves {', '.join(SERVED_FFS)})")
     return mixer, ff
 
 
@@ -54,13 +59,17 @@ def tree_map(fn, tree):
 # ---------------------------------------------------------------------------
 
 def init_block(gen, cfg, spec: str, device):
-    mixer, _ = parse_spec(spec)
+    mixer, ff = parse_spec(spec)
     dt = cfg.compute_dtype
     init = attn.init_gqa if mixer == "attn" else attn.init_mla
-    return {"norm1": init_rmsnorm(cfg.d_model, dt, device),
-            "mixer": init(gen, cfg, device),
-            "norm2": init_rmsnorm(cfg.d_model, dt, device),
-            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dt, device)}
+    p = {"norm1": init_rmsnorm(cfg.d_model, dt, device),
+         "mixer": init(gen, cfg, device),
+         "norm2": init_rmsnorm(cfg.d_model, dt, device)}
+    if ff == "moe":
+        p["moe"] = moe_mod.init_moe(gen, cfg, device)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dt, device)
+    return p
 
 
 def init_block_cache(cfg, spec: str, batch: int, max_seq: int, dtype,
@@ -81,13 +90,17 @@ def block_apply(p, x, cfg, spec, *, positions, cache=None, cache_pos=None,
     bundle) selects the cache discipline inside gqa/mla; its decode_kernel
     flag routes Sq=1 gqa reads through the paged-decode kernels, and mla
     ignores it (it always reads through the gather)."""
-    mixer, _ = parse_spec(spec)
+    mixer, ff = parse_spec(spec)
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     mix = attn.gqa if mixer == "attn" else attn.mla
     y, new_cache = mix(p["mixer"], h, cfg, positions, cache, cache_pos,
                        paged)
     x = x + y
-    x = x + mlp(p["mlp"], rmsnorm(p["norm2"], x, cfg.norm_eps), cfg.quant)
+    h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+    if ff == "moe":
+        y, aux = moe_mod.moe(p["moe"], h, cfg)
+        return x + y, aux, new_cache
+    x = x + mlp(p["mlp"], h, cfg.quant)
     return x, torch.zeros((), dtype=torch.float32, device=x.device), new_cache
 
 
@@ -95,28 +108,48 @@ def block_apply(p, x, cfg, spec, *, positions, cache=None, cache_pos=None,
 # stack
 # ---------------------------------------------------------------------------
 
-def init_stack(gen, cfg, device):
+def init_stack(gen, cfg, device, prepare=None):
     """{"pos{i}": stacked-over-periods block params}.  Each stacked leaf is
     allocated once and filled period by period, so a full-size model never
-    holds more than one period of f32 draws at a time."""
+    holds more than one period of f32 draws at a time.  `prepare` (the
+    serving quantizer) maps each period's block before it is stored, so a
+    quantized model never holds its float weights either."""
     params = {}
     for i, spec in enumerate(cfg.layer_pattern):
         stacked = None
         for period in range(cfg.n_periods):
             one = init_block(gen, cfg, spec, device)
+            if prepare is not None:
+                one = prepare(one)
             if stacked is None:
-                stacked = tree_map(lambda a: torch.empty(
-                    (cfg.n_periods,) + tuple(a.shape), dtype=a.dtype,
-                    device=a.device), one)
+                stacked = _alloc_stacked(one, cfg.n_periods)
             _copy_into(stacked, one, period)
+            del one
         params[f"pos{i}"] = stacked
     return params
+
+
+def _alloc_stacked(one, n):
+    """Empty leaves of `one`'s tree with a leading axis of n periods."""
+    if isinstance(one, dict):
+        return {k: _alloc_stacked(v, n) for k, v in one.items()}
+
+    def empty(a):
+        return torch.empty((n,) + tuple(a.shape), dtype=a.dtype,
+                           device=a.device)
+    if isinstance(one, QuantizedTensor):
+        return dataclasses.replace(one.map(empty),
+                                   shape=(n,) + tuple(one.shape))
+    return empty(one)
 
 
 def _copy_into(dst, src, i):
     for k, v in src.items():
         if isinstance(v, dict):
             _copy_into(dst[k], v, i)
+        elif isinstance(v, QuantizedTensor):
+            dst[k].values[i].copy_(v.values)
+            dst[k].scale[i].copy_(v.scale)
         else:
             dst[k][i].copy_(v)
 

@@ -207,10 +207,10 @@ class Engine:
                               if dis.prefill_pages is not None
                               else self.prefill_slots * self.pages_per_slot) \
             if self.disagg else self.num_pages
-        # speculation opts out silently where a rejected draft cannot be
-        # rewound or verify/decode parity breaks (cross-attention, MoE
-        # capacity drops; the port refuses those layers at parse_spec), and
-        # under disaggregation (drafter state has no page representation)
+        # speculation opts out silently where verify/decode parity breaks
+        # (MoE capacity drops depend on the rows of each call; cross-
+        # attention, which the port refuses at parse_spec), and under
+        # disaggregation (drafter state has no page representation)
         spec = options.speculation
         spec_ok = not self.disagg and not any(
             "xattn" in s or "moe" in s for s in cfg.layer_pattern)
