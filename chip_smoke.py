@@ -30,7 +30,14 @@ disaggregated.  Phase 11 serves the MoE feed-forward: the expert einsum
 qwen3-moe-30b-a3b's shapes, one MoE layer at full width against its
 dense reference, qwen3-moe-30b-a3b at full width (48 layers, 128
 experts, each layer quantized as it is drawn) with bf16 and int8 KV, and
-its stream identities at 2 layers.  Phase 2 also times the speculative
+its stream identities at 2 layers.  Phase 12 serves the recurrent
+mixers: one full-width mLSTM, sLSTM and mamba block (sequence == steps at
+f32; bf16 8-bit vs plain f32), xlstm-1.3b at full width (48 layers,
+one-token prefill) and jamba-1.5-large-398b at full width cut to one
+period (8 of its 72 layers), and their stream identities and slot reuse
+at 2 periods of the smoke widths; phase 2 holds `bramac_matmul` at their
+mixers' shapes and phases 3-4 both decode kernels at jamba's 64/8 heads.
+Phase 2 also times the speculative
 shapes (the verify window at M=20; 2-bit at M=4 with the unpack of the
 packed weights), every minicpm3-4b linear and qwen3-moe-30b-a3b's
 attention linears and unembed; phases 3-4 also hold both decode kernels
@@ -104,8 +111,10 @@ def spin_cycles_per_ms() -> float:
     return 20_000_000 / a.elapsed_time(b)
 
 
-def time_cold(fn, iters: int = 20, spin_factor: float = 4) -> float:
-    """Mean ms of `fn()` on the device, the L2 flushed before each launch.
+def time_cold(fn, iters: int = 20, spin_factor: float = 4,
+              warmup: int = 3) -> float:
+    """Mean ms of `fn()` on the device, the L2 flushed before each launch,
+    after `warmup` untimed calls.
     A spin kernel ahead of the start event keeps the device busy while the
     host enqueues `fn`, so the interval holds device time, not the
     wrapper's Python time.  The spin lasts `spin_factor` x the host's
@@ -113,7 +122,7 @@ def time_cold(fn, iters: int = 20, spin_factor: float = 4) -> float:
     call's enqueue still outlasted the spin may include host time, and is
     printed and kept in HOST_BOUND."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -283,12 +292,14 @@ def phase_matmul(gen, report):
     n += n_spec
     mc_rows, n_mc = phase_matmul_model(case, "minicpm3", MINICPM3_SHAPES)
     qw_rows, n_qw = phase_matmul_model(case, "qwen3-moe", QWEN3_SHAPES)
-    n += n_mc + n_qw
+    rec_rows, n_rec = phase_matmul_recurrent(case)
+    n += n_mc + n_qw + n_rec
     print(f"phase 2 bramac_matmul: {n} cases bit-exact vs plain, max abs "
           f"err {worst:.3g} (bits 2/4/8, signed+unsigned, 4-bit packed, "
           f"f32+bf16 out, scalar and per-channel scales, ragged M/K/N at the "
           f"16/64-row, 128-byte and 128-column tile edges, split K, unaligned "
-          f"views, granite-8b, minicpm3-4b and qwen3-moe-30b-a3b shapes)")
+          f"views, granite-8b, minicpm3-4b, qwen3-moe-30b-a3b, xlstm-1.3b "
+          f"and jamba-1.5-large-398b shapes)")
     main = next(r for r in rows if r["shape"] == "w_gate/w_up" and r["M"] == 4)
     report["bramac_matmul"] = dict(
         name="bramac_matmul", route="cuda",
@@ -297,7 +308,7 @@ def phase_matmul(gen, report):
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
         bound_by=main["bound_by"], library_ms=main["library_ms"],
         shapes=rows, spec_shapes=spec_rows, minicpm3_shapes=mc_rows,
-        qwen3_moe_shapes=qw_rows)
+        qwen3_moe_shapes=qw_rows, recurrent_shapes=rec_rows)
 
 
 # every minicpm3-4b linear at the rows its serve gives it: the seven MLA
@@ -342,6 +353,72 @@ def phase_matmul_model(case, label, shapes):
             print(f"  bramac_matmul {label} {name} M={M} K={K} N={N}: "
                   f"{ms_:.4f} ms (bound {bound:.4f} ms by {by}, plain "
                   f"{plain_ms:.4f} ms, bf16 torch.matmul {lib_ms:.4f} ms)")
+    return rows, n
+
+
+# every quantized linear of xlstm-1.3b and jamba-1.5-large-398b (K, N,
+# rows).  xlstm: the mLSTM's w_up, dense 4096 x 4096 q/k/v and w_down, the
+# sLSTM's w_gates and ragged w_up 2048 -> 2 x 2730 and w_down 2730 -> 2048,
+# and the unembed.  jamba (phase 12d): mamba w_in / w_out, the attention's
+# wq/wo and wk/wv (64/8 heads of 128), the dense FF (also each expert's
+# shapes) and the unembed.  Rows: M = 4 (4 slots, at decode and at the
+# one-token admission chunks of a recurrent arch), M = 64 (a 64-row
+# sequence), and for the FF M = 1: jamba's serve gives each of its 16
+# experts C = round(4 x 2 / 16 x 1.25) = 1 row
+XLSTM_SHAPES = {
+    "mLSTM w_up": (2048, 8192, (4, 64)),
+    "mLSTM wq/wk/wv": (4096, 4096, (4, 64)),
+    "mLSTM w_down": (4096, 2048, (4, 64)),
+    "sLSTM w_gates": (2048, 8192, (4, 64)),
+    "sLSTM w_up": (2048, 5460, (4, 64)),
+    "sLSTM w_down": (2730, 2048, (4, 64)),
+    "unembed": (2048, 50304, (4, 64))}
+JAMBA_SHAPES = {
+    "mamba w_in": (8192, 32768, (4, 64)),
+    "mamba w_out": (16384, 8192, (4, 64)),
+    "wq/wo": (8192, 8192, (4, 64)), "wk/wv": (8192, 1024, (4, 64)),
+    "dense FF / expert w_gate/w_up": (8192, 24576, (1, 4, 64)),
+    "dense FF / expert w_down": (24576, 8192, (1, 4, 64)),
+    "unembed": (8192, 65536, (4, 64))}
+
+
+def phase_matmul_recurrent(case):
+    """12a: every shape above at 8 bits, and the sLSTM's ragged shapes at 4
+    bits, pair-packed (K = 2730 packs to 1365 rows; N = 5460 rows are not
+    16-byte multiples): bit-exact against the plain version, timed beside
+    their bound and bf16 `torch.matmul`."""
+    from repro_torch.kernels import bramac_matmul as bm
+    rows, n = [], 0
+    for label, shapes in (("xlstm-1.3b", XLSTM_SHAPES),
+                          ("jamba-1.5-large-398b", JAMBA_SHAPES)):
+        r, k = phase_matmul_model(case, label, shapes)
+        rows += [dict(x, model=label, bits=8) for x in r]
+        n += k
+    for name in ("sLSTM w_up", "sLSTM w_down"):
+        K, N, _ = XLSTM_SHAPES[name]
+        for M in (4, 64):
+            x, w, xs, ws, kw = case(M, K, N, 4, True, True, torch.bfloat16,
+                                    True)
+            n += 1
+            ms = time_cold(lambda: bm.bramac_matmul(x, w, xs, ws, **kw))
+            plain_ms = time_cold(
+                lambda: bm.bramac_matmul_plain(x, w, xs, ws, **kw), iters=5)
+            bound, by = _matmul_bound(M, K, N, K * N // 2, 2)
+            xb = x.to(torch.bfloat16)
+            wb = torch.randn((K, N), device="cuda").to(torch.bfloat16)
+            lib_ms = time_cold(lambda: torch.matmul(xb, wb))
+            rows.append(dict(model="xlstm-1.3b", shape=name, M=M, K=K, N=N,
+                             bits=4, packed_rows=K // 2, ms=ms,
+                             plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                             library="bf16 torch.matmul", library_ms=lib_ms))
+            print(f"  bramac_matmul xlstm-1.3b {name} M={M} K={K} N={N} "
+                  f"4-bit packed ({K // 2} rows): {ms:.4f} ms (bound "
+                  f"{bound:.4f} ms by {by}, plain {plain_ms:.4f} ms, bf16 "
+                  f"torch.matmul {lib_ms:.4f} ms)")
+    print(f"phase 12a bramac_matmul: {n} cases bit-exact vs plain (every "
+          f"xlstm-1.3b and jamba-1.5-large-398b linear at M = 4 and 64, "
+          f"jamba's FF also at M = 1 (one row per expert), 8-bit; the "
+          f"sLSTM's w_up N=5460 and w_down K=2730 at 4 bits pair-packed)")
     return rows, n
 
 
@@ -558,7 +635,9 @@ CASES = {                          # (lengths, n_pages): below / at / across
 # and lengths up to 4096 make all 8 active; H/Hkv = 16 and H = Hkv;
 # max_pages 1024 at H/Hkv = 16 keeps the scores in the device scratch
 # buffer.  "qwen3" is qwen3-moe-30b-a3b's decode read in phase 11c (32/4
-# heads, hd 64) at its last step's lengths (prompts 105/83/70/45 + 7)
+# heads, hd 64) at its last step's lengths (prompts 105/83/70/45 + 7);
+# "jamba" is jamba-1.5-large-398b's attention layer in phase 12d (64/8
+# heads, hd 128) on the same traffic
 Q_CASES = {
     "long": ((4096, 3000, 1500, 4000), (256, 188, 94, 256), H, HKV, 256, HD),
     "long_g16": ((4096, 2500, 1, 3333), (256, 160, 1, 209), 32, 2, 256, HD),
@@ -566,6 +645,7 @@ Q_CASES = {
     "scratch_g16": ((16384, 9000, 20, 12000), (1024, 563, 2, 750), 32, 2,
                     1024, HD),
     "qwen3": ((112, 90, 77, 52), (7, 6, 5, 4), 32, 4, MAXP, 64),
+    "jamba": ((112, 90, 77, 52), (7, 6, 5, 4), 64, 8, MAXP, HD),
 }
 
 
@@ -579,7 +659,7 @@ Q_CASES = {
 # run holds the most shared memory of any plan)
 FP_CASES = {
     **{name: Q_CASES[name] + (PS,)
-       for name in ("long", "long_g16", "g1", "qwen3")},
+       for name in ("long", "long_g16", "g1", "qwen3", "jamba")},
     "hd100_ps12": ((450, 13, 0, 200), (38, 2, 0, 40), 8, 2, 40, 100, 12),
     "hd256": CASES["serve"] + (H, HKV, MAXP, 256, PS),
     "hd256_g16": Q_CASES["scratch_g16"][:5] + (256, PS),
@@ -676,7 +756,8 @@ def phase_paged(gen, report):
         if 0 in n_pages:
             need(bool((got[list(n_pages).index(0)] == 0).all()),
                  "paged_decode: a slot without pages must emit zeros")
-        if cname in ("serve", "long", "qwen3") and dt == torch.bfloat16:
+        if cname in ("serve", "long", "qwen3", "jamba") and \
+                dt == torch.bfloat16:
             live, walked = _live_rows(lengths, n_pages, ps)
             nbytes = 2 * live * Hkv * hd * 2 + 2 * (2 * B * H * hd) \
                 + 4 * (walked + 2 * B)
@@ -722,7 +803,8 @@ def phase_paged(gen, report):
           f"emits zeros; cluster split up to 8 blocks at max_pages 256, H/Hkv "
           f"16 and 1, 12-row pages, hd 100, and hd 256 (f32: 16-row ring "
           f"tiles) up to H/Hkv 16 at max_pages 1024; qwen3-moe-30b-a3b's "
-          f"32/4 heads at hd 64")
+          f"32/4 heads at hd 64; jamba-1.5-large-398b's 64/8 heads at hd "
+          f"128")
 
     worst = 0.0
     timed, q_rows = [], []
@@ -764,7 +846,8 @@ def phase_paged(gen, report):
         worst = max(worst, diff.max().item())
         need(bool((diff <= tol).all()),
              f"paged_decode_q {cname} {dt}: max err {diff.max().item()}")
-        if cname in ("serve", "long", "qwen3") and dt == torch.bfloat16:
+        if cname in ("serve", "long", "qwen3", "jamba") and \
+                dt == torch.bfloat16:
             rows, walked = _live_rows(lengths, n_pages)
             nbytes = 2 * rows * Hkv * (hd + 4) + B * H * (hd + 4) \
                 + 2 * B * H * hd + 4 * (walked + 2 * B)
@@ -807,7 +890,8 @@ def phase_paged(gen, report):
           f"requantization flips), max abs err {worst:.3g}; poisoned unread "
           f"pages and rows ignored; cluster split up to 8 blocks at "
           f"max_pages 256 and 1024 (scratch), H/Hkv 16 and 1; "
-          f"qwen3-moe-30b-a3b's 32/4 heads at hd 64")
+          f"qwen3-moe-30b-a3b's 32/4 heads at hd 64; "
+          f"jamba-1.5-large-398b's 64/8 heads at hd 128")
 
 
 # ---------------------------------------------------------------------------
@@ -993,6 +1077,13 @@ def _counters():
             "paged_decode_q": pa.paged_decode_q}
 
 
+def _phase5_prompts(vocab):
+    """Phase 5's traffic: 8 random prompts of 17-120 tokens (seed 0)."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, size=int(n))
+            for n in rng.integers(17, 121, size=8)]
+
+
 def serve(cfg, params, prompts, new_tokens, *, decode_kernel=True,
           num_slots=4, max_seq=256, top2=None, routes=None, **kw):
     """Serve `prompts` on a fresh Engine and return the run's readings.
@@ -1031,10 +1122,12 @@ def serve(cfg, params, prompts, new_tokens, *, decode_kernel=True,
         drained = eng.kv_layout != "paged" or (
             eng.pages_in_use == 0 and eng.sched.pool.pages_in_use == 0)
         kernel = eng.decode_kernel
+        chunk, prefix_on = eng.prefill_chunk, eng.prefix is not None
     return dict(streams=streams, done=done, wall=wall, steps=steps,
                 forwards=forwards, ttft=ttft, spec=spec, ticks=ticks,
                 admits=admits, reasons=reasons, disagg=disagg, checks=checks,
                 transfer_checks=i7, drained=drained, decode_kernel=kernel,
+                prefill_chunk=chunk, prefix_on=prefix_on,
                 tokens=sum(len(s) for s in streams))
 
 
@@ -1123,7 +1216,7 @@ ROUTE_MOVE_EPS = 0.1
 F32_ROUTE_EPS = 1e-4
 
 
-def expert_switches(prompts, a, b, top_a, top_b, ra, rb, k):
+def expert_switches(prompts, a, b, top_a, top_b, ra, rb, k, what="11d"):
     """Runs a and b of one schedule: streams, `_log_top2` rows and
     `_log_routes` ticks.  Each request's rows are compared tick by tick up
     to the tick that emits its first differing token (whose input is
@@ -1180,7 +1273,7 @@ def expert_switches(prompts, a, b, top_a, top_b, ra, rb, k):
             only = [[x if i == r else [] for i, x in enumerate(run)]
                     for run in (a, b)]
             partings += same_or_near_tie(prompts, *only, top_a, top_b,
-                                         f"phase 11d request {r}")
+                                         f"phase {what} request {r}")
     return dict(d_max=d_max, rows=rows, partings=partings,
                 switches=[w for _, (_, w) in sorted(switch.items())])
 
@@ -1245,9 +1338,7 @@ def phase_serve(report):
         for t in p["mlp"].values()) + params["embed"]["unembed"].values.numel()
     print(f"  granite-8b params built and quantized in "
           f"{time.perf_counter() - t0:.1f} s ({int8_bytes / 1e9:.2f} GB int8)")
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, size=int(n))
-               for n in rng.integers(17, 121, size=8)]
+    prompts = _phase5_prompts(cfg.vocab_size)
     counters = _counters()
     per_layer = 7 * cfg.num_layers + 1         # wq wk wv wo gate up down + unembed
     totals = {k: 0 for k in counters}
@@ -1884,9 +1975,7 @@ def phase_minicpm(report):
           f"{time.perf_counter() - t_phase:.1f} s; {held:.2f} GB still held "
           f"after granite-8b was freed, "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB now")
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, size=int(n))
-               for n in rng.integers(17, 121, size=8)]
+    prompts = _phase5_prompts(cfg.vocab_size)
     per_fwd = 10 * cfg.num_layers + 1
     serve(cfg, params, prompts[:1], 2)                  # warm-up
     runs = {}
@@ -2014,8 +2103,10 @@ def phase_moe_einsum(gen, cfg):
         # them: a long spin keeps host hiccups out of the device interval
         ms = time_cold(lambda: serve_einsum_edf(x, qw, False),
                        spin_factor=10)
+        # the plain loop takes ~1 s of host time a call: one warm-up, one
+        # timed call
         plain_ms = time_cold(lambda: serve_einsum_edf_plain(x, qw, False),
-                             iters=3, spin_factor=10)
+                             iters=1, spin_factor=10, warmup=1)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(5):
@@ -2120,9 +2211,7 @@ def phase_moe_serve(cfg, q8, report):
           f"GB, bf16 embedding "
           f"{2 * params['embed']['embedding'].numel() / 1e9:.2f} GB; "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, size=int(n))
-               for n in rng.integers(17, 121, size=8)][:4]
+    prompts = _phase5_prompts(cfg.vocab_size)[:4]
     per_fwd = _moe_matmul_launches(cfg)
     need(per_fwd == 18625, f"qwen3 launches per forward {per_fwd}")
     serve(cfg, params, [prompts[0][:5]], 2)                 # warm-up
@@ -2304,6 +2393,412 @@ def phase_moe_streams(seed=3):
     return dict(out, routes_equal=same, requests=len(prompts),
                 f32_routes=f_routes, routes=q_routes)
 
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the recurrent mixers; xlstm-1.3b at full width, and
+# jamba-1.5-large-398b at full width for one period
+# ---------------------------------------------------------------------------
+
+# 12b: a bf16 block with 8-bit weights against its plain f32 version (the
+# same 8-bit weights, f32 activations, run on the CPU, where every linear
+# takes bramac_matmul's plain version).  bf16 rounds every activation, and
+# each rounding that moves an input of a linear across an 8-bit
+# quantization edge (a step of 1/127 of its row's max) moves the output by
+# a whole step; mLSTM's normalizer max(|q.n|, exp(-m)) amplifies that.  On
+# the CPU (seeds 0-3 and 12-14, d = 512 and 2048) the max abs difference
+# was 2-9% of the max |output| (17% once at d = 256) and the mean 2.5-5%
+# of the mean |output|
+BLOCK_RTOL_MAX, BLOCK_RTOL_MEAN = 0.2, 0.08
+
+
+def _mixers():
+    """name -> (arch, init, sequence, step, init_state, linears per call)"""
+    from repro_torch.models import mamba as mb
+    from repro_torch.models import xlstm as xl
+    return {
+        "mLSTM": ("xlstm-1.3b", xl.init_mlstm, xl.mlstm_sequence,
+                  xl.mlstm_step, lambda c, B: xl.init_mlstm_state(c, B,
+                                                                  "cuda"), 5),
+        "sLSTM": ("xlstm-1.3b", xl.init_slstm, xl.slstm_sequence,
+                  xl.slstm_step, lambda c, B: xl.init_slstm_state(c, B,
+                                                                  "cuda"), 3),
+        "mamba": ("jamba-1.5-large-398b", mb.init_mamba, mb.mamba_sequence,
+                  mb.mamba_step, lambda c, B: mb.init_mamba_state(
+                      c, B, c.compute_dtype, "cuda"), 2)}
+
+
+def block_check(name, cfg, seed=12, S=32, chunk=8):
+    """12b for one mixer at `cfg`'s width: (1) at f32 on float weights,
+    `*_sequence` in chunks of `chunk` equals `*_step` taken S times, output
+    and final state within the reference's rtol = atol = 2e-4
+    (tests/test_model_invariants.py); (2) in bf16 with 8-bit weights (every
+    servable linear through `bramac_matmul`, its launches counted), the
+    sequence is within BLOCK_RTOL_MAX of the max and BLOCK_RTOL_MEAN of
+    the mean output of its plain f32 version: the same 8-bit weights and
+    f32 activations on the CPU, where no kernel runs.  The difference from
+    f32 on the dequantized weights (no activation rounding) is printed
+    beside it."""
+    from repro_torch.core.bramac_linear import FP32, QuantConfig, \
+        tree_prepare_serving
+    from repro_torch.core.quant import QuantizedTensor
+    from repro_torch.models.transformer import tree_leaves, tree_map
+    _, init, seq, step, state0, n_lin = _mixers()[name]
+    q8 = QuantConfig(enabled=True, bits_w=8, bits_a=8)
+    f32 = cfg.replace(dtype="float32", quant=FP32, chunk_size=chunk)
+    p32 = init(torch.Generator(device="cuda").manual_seed(seed), f32, "cuda")
+    x = torch.randn((2, S, cfg.d_model),
+                    generator=torch.Generator(device="cuda").manual_seed(seed),
+                    device="cuda")
+    a, sa = seq(p32, x, f32)
+    st, outs = state0(f32, 2), []
+    for t in range(S):
+        o, st = step(p32, x[:, t:t + 1], f32, st)
+        outs.append(o)
+    pairs = [(a, torch.cat(outs, dim=1))] + list(zip(tree_leaves(sa),
+                                                     tree_leaves(st)))
+    seq_err = max((u - v).abs().max().item() for u, v in pairs)
+    need(all(bool(torch.allclose(u, v, rtol=2e-4, atol=2e-4))
+             for u, v in pairs),
+         f"phase 12b {name}: sequence != steps (max abs diff {seq_err})")
+    del p32
+    bf = cfg.replace(quant=q8)
+    q = tree_prepare_serving(init(torch.Generator(device="cuda").manual_seed(
+        seed), bf, "cuda"), q8)
+    on_cpu = {k: v.map(lambda t: t.cpu()) if isinstance(v, QuantizedTensor)
+              else tree_map(lambda t: t.float().cpu(), v)
+              for k, v in q.items()}
+    deq = {k: (v.dequantize() if isinstance(v, QuantizedTensor)
+               else tree_map(lambda t: t.float(), v)) for k, v in q.items()}
+    xb = x[:, :16].to(torch.bfloat16)
+    _zero_counts()
+    y, _ = seq(q, xb, bf)
+    torch.cuda.synchronize()
+    launches = _read_counts()["bramac_matmul"]
+    f32 = f32.replace(chunk_size=cfg.chunk_size)
+    _zero_counts()
+    ref, _ = seq(on_cpu, xb.float().cpu(), f32.replace(quant=q8))
+    need(_read_counts()["bramac_matmul"] == 0,
+         f"phase 12b {name}: the plain reference launched the kernel")
+    ref = ref.cuda()
+    deq_ref, _ = seq(deq, xb.float(), f32)
+    diff = (y.float() - ref).abs()
+    err, mean_err = diff.max().item(), diff.mean().item()
+    scale, mean = ref.abs().max().item(), ref.abs().mean().item()
+    need(launches == n_lin, f"phase 12b {name}: {launches} bramac_matmul "
+         f"launches, not {n_lin}")
+    need(bool(torch.isfinite(y).all()) and err <= BLOCK_RTOL_MAX * scale
+         and mean_err <= BLOCK_RTOL_MEAN * mean,
+         f"phase 12b {name}: bf16 8-bit vs f32 max abs err {err} (max |ref| "
+         f"{scale}), mean {mean_err} (mean |ref| {mean})")
+    return dict(seq_vs_step=seq_err, err=err, ref_max=scale,
+                mean_err=mean_err, ref_mean=mean,
+                deq_err=(y.float() - deq_ref).abs().max().item(),
+                launches=launches)
+
+
+def phase_recurrent(report):
+    """Phase 12: (a) bramac_matmul at the recurrent mixers' shapes (run in
+    phase 2), (b) one full-width block of each mixer, (c) xlstm-1.3b served
+    at full width, (d) jamba-1.5-large-398b at full width for one period,
+    (e) stream identities and slot reuse at 2 periods of the smoke widths."""
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    for name, (arch, *_rest) in _mixers().items():
+        r = out[name] = block_check(name, get_config(arch))
+        print(f"phase 12b {name} block at full width ({arch}, d="
+              f"{get_config(arch).d_model}): sequence (chunks of 8) vs 32 "
+              f"steps at f32 max abs diff {r['seq_vs_step']:.3g} (rtol = "
+              f"atol = 2e-4); bf16 with 8-bit weights ({r['launches']} "
+              f"bramac_matmul launches) vs its plain f32 version (the CPU, "
+              f"no kernel): max abs "
+              f"err {r['err']:.4g} of max |ref| {r['ref_max']:.4g} (limit "
+              f"{BLOCK_RTOL_MAX} x), mean {r['mean_err']:.4g} of "
+              f"{r['ref_mean']:.4g} (limit {BLOCK_RTOL_MEAN} x); vs f32 on "
+              f"the dequantized weights max abs {r['deq_err']:.4g}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["recurrent_blocks"] = out
+    phase_xlstm_serve(report)
+    phase_jamba_serve(report)
+    report["recurrent_streams"] = phase_recurrent_streams()
+    spent = time.perf_counter() - t_phase
+    report["phase12_s"] = spent
+    print(f"phase 12 took {spent:.1f} s")
+
+
+def _recurrent_launches(cfg) -> int:
+    """bramac_matmul launches of one forward: 5 per mLSTM layer (w_up, wq,
+    wk, wv, w_down), 3 per sLSTM (w_gates, w_up, w_down), 2 per mamba
+    (w_in, w_out), 4 per attention layer, 3 per dense FF, 3 x E per MoE
+    FF, and the unembed."""
+    per = {"mlstm": 5, "slstm": 3, "mamba": 2, "attn": 4, "dense": 3,
+           "moe": 3 * cfg.num_experts, "none": 0}
+    return cfg.n_periods * sum(per[m] + per[f] for m, f in (
+        spec.split("+") for spec in cfg.layer_pattern)) + 1
+
+
+def phase_xlstm_serve(report):
+    """12c: xlstm-1.3b at full width (48 layers, d=2048, bf16, 8-bit
+    weights quantized period by period as drawn, random from seed 0) on
+    phase 5's traffic: 8 requests of 17-120 tokens, 16 new tokens, 4
+    slots, max_seq 256, greedy, paged.  Prompts prefill one token per
+    forward; bramac_matmul launches 229 times per forward and no decode
+    kernel launches (no attention layer).  Streams are equal under the
+    dense layout, and with the prefix cache and speculation requested
+    (both opt out); then a device-only profile."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.bramac_linear import QuantConfig
+    from repro_torch.core.quant import QuantizedTensor
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import tree_leaves
+    t0 = time.perf_counter()
+    q8 = QuantConfig(enabled=True, bits_w=8, bits_a=8)
+    cfg = get_config("xlstm-1.3b").replace(quant=q8)
+    need((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.vocab_size,
+          cfg.layer_pattern, cfg.dtype) ==
+         (48, 2048, 4, 50304, ("mlstm+none",) * 7 + ("slstm+none",),
+          "bfloat16"), "xlstm-1.3b config")
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda", serving=q8)
+    torch.cuda.synchronize()
+    build_peak = torch.cuda.max_memory_allocated() / 1e9
+    leaves = tree_leaves(params)
+    int8_b = sum(t.values.numel() for t in leaves
+                 if isinstance(t, QuantizedTensor))
+    float_b = sum(t.numel() * t.element_size() for t in leaves
+                  if isinstance(t, torch.Tensor))
+    n_params = sum(t.values.numel() * (2 if t.packed else 1)
+                   if isinstance(t, QuantizedTensor) else t.numel()
+                   for t in leaves)
+    print(f"  xlstm-1.3b params built and quantized one period at a time in "
+          f"{time.perf_counter() - t0:.1f} s: {n_params / 1e9:.3f} B "
+          f"parameters ({cfg.param_count() / 1e9:.3f} B by param_count()), "
+          f"{int8_b / 1e9:.2f} GB int8 + {float_b / 1e9:.2f} GB float "
+          f"(embedding, norms, gates, sLSTM r_gates); build peak "
+          f"{build_peak:.2f} GB")
+    prompts = _phase5_prompts(cfg.vocab_size)
+    per_fwd = _recurrent_launches(cfg)
+    need(per_fwd == 229, f"xlstm launches per forward {per_fwd}")
+    serve(cfg, params, [prompts[0][:5]], 2)                 # warm-up
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    run = serve(cfg, params, prompts, 16)
+    got = _read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    need(run["done"] == 8 and all(
+        len(s) == 16 and all(0 <= t < cfg.vocab_size for t in s)
+        for s in run["streams"]), "phase 12c: streams")
+    need(run["prefill_chunk"] == 1 and
+         run["admits"] >= max(len(p) for p in prompts),
+         f"phase 12c: prefill chunk {run['prefill_chunk']}, {run['admits']} "
+         f"admission forwards")
+    need(got["bramac_matmul"] == per_fwd * run["forwards"] and
+         got["paged_decode"] == got["paged_decode_q"] == 0,
+         f"phase 12c: launches {got} for {run['forwards']} forwards")
+    need(run["drained"], "phase 12c: the pool kept pages")
+    report["bramac_matmul"]["launches"] += got["bramac_matmul"]
+    ttft = 1e3 * float(np.mean(run["ttft"]))
+    print(f"phase 12c serve xlstm-1.3b (full width, 48 layers): "
+          f"{run['done']}/8 requests, {run['tokens']} tokens in "
+          f"{run['wall']:.2f} s ({run['tokens'] / run['wall']:.2f} tok/s), "
+          f"mean TTFT {ttft:.1f} ms, peak memory {peak:.2f} GB, "
+          f"{run['forwards']} forwards ({run['admits']} one-token admission "
+          f"forwards, {run['steps']} decode steps; "
+          f"{run['wall'] / run['forwards'] * 1e3:.1f} ms each), launches "
+          f"{got} (= {per_fwd} x forwards)")
+    same = {}
+    for what, extra in {"dense layout": dict(kv_layout="dense"),
+                        "prefix cache and speculation requested": dict(
+                            prefix_cache=True, draft_len=4)}.items():
+        other = serve(cfg, params, prompts, 16, **extra)
+        need(other["streams"] == run["streams"],
+             f"phase 12c: {what} streams != paged: {other['streams']} vs "
+             f"{run['streams']}")
+        need(not other["prefix_on"] and other["spec"]["drafted"] == 0
+             and other["spec"]["drafter"] is None,
+             f"phase 12c ({what}): prefix {other['prefix_on']}, "
+             f"{other['spec']}")
+        same[what] = other["tokens"] / other["wall"]
+    print(f"  streams equal: paged == " + " == ".join(same) + " (tok/s "
+          + ", ".join(f"{v:.2f}" for v in same.values()) + ")")
+    prof = profile_serve(cfg, params, [prompts[0][:16]], new_tokens=4,
+                         label="phase 12c profile xlstm-1.3b", host_ops=False)
+    report["xlstm"] = dict(tok_s=run["tokens"] / run["wall"], ttft_ms=ttft,
+                           wall_s=run["wall"], peak_gb=peak,
+                           build_peak_gb=build_peak,
+                           forwards=run["forwards"], admits=run["admits"],
+                           steps=run["steps"], launches=got,
+                           launches_per_forward=per_fwd,
+                           params_b=n_params / 1e9, int8_gb=int8_b / 1e9,
+                           other_tok_s=same, profile=prof)
+    del params, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 12c took {time.perf_counter() - t0:.1f} s")
+
+
+def phase_jamba_serve(report):
+    """12d: jamba-1.5-large-398b at full width (d=8192, 64/8 heads, mamba
+    d_inner 16384, 16 experts top-2 of d_ff 24576), cut to one period (8 of
+    its 72 layers: 7 mamba + 1 attention, 4 MoE + 4 dense FFs), 8-bit
+    weights quantized as drawn, random from seed 0.  Phase 5's first 4
+    prompts x 8 new tokens, bf16 and int8 KV: the decode kernel of the
+    KV dtype once per decode step (one attention layer), bramac_matmul 223
+    times per forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.bramac_linear import QuantConfig
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    q8 = QuantConfig(enabled=True, bits_w=8, bits_a=8)
+    full = get_config("jamba-1.5-large-398b")
+    cfg = full.replace(num_layers=8, quant=q8)
+    need((full.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+          cfg.num_experts, cfg.experts_per_token, cfg.expert_d_ff, cfg.d_ff,
+          cfg.mamba_expand * cfg.d_model, cfg.vocab_size, cfg.dtype) ==
+         (72, 8192, 64, 8, 16, 2, 24576, 24576, 16384, 65536, "bfloat16"),
+         "jamba-1.5-large-398b config")
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda", serving=q8)
+    torch.cuda.synchronize()
+    build_peak = torch.cuda.max_memory_allocated() / 1e9 - base
+    resident = torch.cuda.memory_allocated() / 1e9 - base
+    print(f"  jamba-1.5-large-398b one period (8 of 72 layers) built and "
+          f"quantized block by block in {time.perf_counter() - t0:.1f} s: "
+          f"{resident:.2f} GB resident, {build_peak:.2f} GB peak during the "
+          f"draw")
+    prompts = _phase5_prompts(cfg.vocab_size)[:4]
+    per_fwd = _recurrent_launches(cfg)
+    need(per_fwd == 223, f"jamba launches per forward {per_fwd}")
+    serve(cfg, params, [prompts[0][:5]], 2)                 # warm-up
+    runs = {}
+    for quant_kv in (False, True):
+        c = cfg.replace(quant_kv=quant_kv)
+        kv = "int8" if quant_kv else "bf16"
+        attn = "paged_decode_q" if quant_kv else "paged_decode"
+        other = "paged_decode" if quant_kv else "paged_decode_q"
+        _zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        run = serve(c, params, prompts, 8)
+        got = _read_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        need(run["done"] == 4 and all(
+            len(s) == 8 and all(0 <= t < cfg.vocab_size for t in s)
+            for s in run["streams"]), f"phase 12d ({kv} KV): streams")
+        need(run["prefill_chunk"] == 1, "phase 12d: prefill chunk")
+        need(got["bramac_matmul"] == per_fwd * run["forwards"],
+             f"phase 12d ({kv} KV): bramac_matmul launches "
+             f"{got['bramac_matmul']} != {per_fwd} x {run['forwards']}")
+        need(got[attn] == run["steps"] > 0 and got[other] == 0,
+             f"phase 12d ({kv} KV): decode kernel launches {got} for "
+             f"{run['steps']} steps")
+        need(run["drained"], f"phase 12d ({kv} KV): a pool kept pages")
+        for k, n in got.items():
+            report[k]["launches"] += n
+        ttft = 1e3 * float(np.mean(run["ttft"]))
+        runs[kv] = dict(tok_s=run["tokens"] / run["wall"], ttft_ms=ttft,
+                        wall_s=run["wall"], peak_gb=peak,
+                        forwards=run["forwards"], steps=run["steps"],
+                        launches=got)
+        print(f"phase 12d serve jamba-1.5-large-398b (full width, one period:"
+              f" 8 of 72 layers) {kv} KV: {run['done']}/4 requests, "
+              f"{run['tokens']} tokens in {run['wall']:.2f} s "
+              f"({run['tokens'] / run['wall']:.2f} tok/s), mean TTFT "
+              f"{ttft:.1f} ms, peak memory {peak:.2f} GB, {run['forwards']} "
+              f"forwards ({run['wall'] / run['forwards'] * 1e3:.1f} ms each), "
+              f"launches {got} (= {per_fwd} x forwards and 1 x "
+              f"{run['steps']} steps)")
+    report["jamba"] = dict(runs, resident_gb=resident, build_peak_gb=build_peak,
+                           launches_per_forward=per_fwd)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 12d took {time.perf_counter() - t0:.1f} s")
+
+
+def phase_recurrent_streams(seed=5):
+    """12e at 2 periods of the smoke widths, f32.  jamba-1.5-large-398b on
+    f32 weights: greedy streams with the decode kernel == through the
+    gather oracle == the dense layout; on 8-bit weights: kernel off ==
+    dense (one attention route), and kernel on == off, where a stream may
+    part only as phase 11d allows across the two routes (`expert_switches`:
+    after an expert switch in its own row, or by a swap of its top two
+    tokens).  A reused slot starts from the init state:
+    a request served after another in the engine's only slot streams as on
+    a fresh engine (jamba and xlstm-1.3b, 8-bit, decode kernel on)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.bramac_linear import QuantConfig, \
+        tree_prepare_serving
+    from repro_torch.models import model as M
+    q8 = QuantConfig(enabled=True, bits_w=8, bits_a=8)
+    rng = np.random.default_rng(seed)
+    out = {}
+    cfg = get_config("jamba-1.5-large-398b", smoke=True).replace(
+        num_layers=16)
+    need(cfg.dtype == "float32", "jamba smoke config")
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed), "cuda")
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n))
+               for n in (15, 16, 17, 33, 5, 48)]
+    kw = dict(num_slots=3, max_seq=96)
+    _zero_counts()
+    on = serve(cfg, params, prompts, 12, **kw)
+    got = _read_counts()
+    need(got["paged_decode"] == cfg.n_periods * on["steps"] > 0,
+         f"phase 12e: decode kernel launches {got}")
+    for what, extra in {"kernel off": dict(decode_kernel=False),
+                        "dense": dict(kv_layout="dense")}.items():
+        run = serve(cfg, params, prompts, 12, **kw, **extra)
+        need(run["streams"] == on["streams"], f"phase 12e: jamba f32 {what} "
+             f"!= kernel on: {run['streams']} vs {on['streams']}")
+    out["jamba f32"] = "kernel on == off == dense"
+    cq = cfg.replace(quant=q8)
+    qp = tree_prepare_serving(params, q8)
+    logs = {r: ({}, []) for r in ("on", "off")}
+    off = serve(cq, qp, prompts, 12, decode_kernel=False, top2=logs["off"][0],
+                routes=logs["off"][1], **kw)
+    dense = serve(cq, qp, prompts, 12, kv_layout="dense", **kw)
+    need(off["streams"] == dense["streams"],
+         f"phase 12e: jamba 8-bit dense != kernel off")
+    qon = serve(cq, qp, prompts, 12, top2=logs["on"][0],
+                routes=logs["on"][1], **kw)
+    n_eq = sum(a == b for a, b in zip(qon["streams"], off["streams"]))
+    routes = expert_switches(prompts, qon["streams"], off["streams"],
+                             logs["on"][0], logs["off"][0], logs["on"][1],
+                             logs["off"][1], cq.experts_per_token, "12e")
+    out["jamba 8-bit"] = (
+        f"kernel off == dense; kernel on == off in {n_eq} of {len(prompts)} "
+        f"streams (router log-probabilities within {routes['d_max']:.3g}, "
+        f"limit {ROUTE_MOVE_EPS}, {routes['rows']} rows; "
+        f"{len(routes['switches'])} expert switches"
+        + "".join(f"; {w}" for w in routes["switches"] + routes["partings"])
+        + ")")
+    out["jamba 8-bit routes"] = routes
+    del params
+    xcfg = get_config("xlstm-1.3b", smoke=True).replace(num_layers=16,
+                                                         quant=q8)
+    xp = tree_prepare_serving(M.init_params(
+        xcfg, torch.Generator(device="cuda").manual_seed(seed), "cuda"), q8)
+    for name, c, p in (("jamba", cq, qp), ("xlstm", xcfg, xp)):
+        first, second = prompts[5], prompts[3]
+        reuse = serve(c, p, [first, second], 12, num_slots=1, max_seq=96)
+        fresh = serve(c, p, [second], 12, num_slots=1, max_seq=96)
+        need(reuse["streams"][1] == fresh["streams"][0],
+             f"phase 12e {name}: the slot's second occupant streams "
+             f"{reuse['streams'][1]}, a fresh engine {fresh['streams'][0]}")
+        out[f"{name} slot reuse"] = "second occupant == fresh engine"
+    print("phase 12e recurrent streams (2 periods of the smoke widths, f32): "
+          + "; ".join(f"{k}: {v}" for k, v in out.items()
+                      if isinstance(v, str)))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2653,6 +3148,7 @@ def main() -> int:
     phase_serve(report)
     phase_minicpm(report)
     phase_moe(report)
+    phase_recurrent(report)
     phase_streams()
     print(f"timing: {len(HOST_BOUND)} readings in which an enqueue outlasted "
           f"the device spin" + (f": {HOST_BOUND}" if HOST_BOUND else ""))

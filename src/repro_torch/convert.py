@@ -1,10 +1,10 @@
 """Carry a parameter tree from the JAX package into the port.
 
-The caller hands over the JAX tree as nested dicts of numpy arrays
-(`jax.tree_util.tree_map(np.asarray, params)`), so this module needs no
-JAX.  bf16 leaves (ml_dtypes' numpy bfloat16) cross bit for bit through a
-uint16 view; a JAX `QuantizedTensor` (recognised by its fields) crosses
-field by field into the port's own `QuantizedTensor`.
+The caller hands over the JAX tree as nested dicts and tuples of numpy
+arrays (`jax.tree_util.tree_map(np.asarray, params)`), so this module
+needs no JAX.  bf16 leaves (ml_dtypes' numpy bfloat16) cross bit for bit
+through a uint16 view; a JAX `QuantizedTensor` (recognised by its fields)
+crosses field by field into the port's own `QuantizedTensor`.
 """
 from __future__ import annotations
 
@@ -28,10 +28,12 @@ def array_to_torch(a, device=None) -> torch.Tensor:
 
 
 def from_jax_tree(tree, device=None):
-    """Nested dicts of numpy arrays / JAX QuantizedTensors → the port's
-    tree on `device`."""
+    """Nested dicts and tuples of numpy arrays / JAX QuantizedTensors → the
+    port's tree on `device` (a recurrent state crosses as its tuple)."""
     if isinstance(tree, dict):
         return {k: from_jax_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(from_jax_tree(v, device) for v in tree)
     if all(hasattr(tree, f) for f in _QT_FIELDS):
         return QuantizedTensor(array_to_torch(tree.values, device),
                                array_to_torch(tree.scale, device),

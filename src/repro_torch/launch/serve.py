@@ -18,7 +18,9 @@
 Runs on the card by default (`--device cpu` runs the plain PyTorch
 versions of the kernels).  Weights are random (`init_params` from a seeded
 generator) and, with --quant-bits, quantized for serving one period at a
-time as they are drawn (so qwen3-moe-30b-a3b fits the card at 8 bits).  The flags
+time as they are drawn (so qwen3-moe-30b-a3b fits the card at 8 bits).
+Recurrent archs (xlstm-1.3b; jamba-1.5-large-398b, whose full depth does
+not fit one card, at --smoke) prefill one token at a time.  The flags
 are the reference launcher's minus the mesh (`--role both` serves
 disaggregated in this process; "prefill" / "decode" raise, as the
 reference's do; without a mesh `--dispatch per_source` is the dense
@@ -39,6 +41,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.bramac_linear import QuantConfig
 from repro_torch.models import model as M
+from repro_torch.models.transformer import is_recurrent
 from repro_torch.runtime.options import (DebugOptions, DisaggOptions,
                                          EngineOptions, PagingOptions,
                                          ParallelOptions, PrefixOptions,
@@ -77,7 +80,8 @@ def main(argv=None):
                     help="decode steps per engine tick: host syncs per "
                          "generated token scale as 1/decode_steps")
     ap.add_argument("--prefill-chunk", type=int, default=16,
-                    help="prompt chunk size for admission prefill")
+                    help="prompt chunk size for admission prefill "
+                         "(recurrent archs always use 1)")
     ap.add_argument("--seed", type=int, default=0,
                     help="engine base seed for request sampling streams")
     ap.add_argument("--kv-layout", default="paged",
@@ -215,6 +219,9 @@ def main(argv=None):
               f"{1e3 * float(np.mean(ttft)) if ttft else 0.0:.0f}ms; "
               f"finish reasons "
               f"{{{', '.join(f'{k}: {v}' for k, v in sorted(reasons.items()))}}}")
+        if is_recurrent(cfg):
+            print("  prefill: recurrent arch, prompts prefill one token at a "
+                  "time")
         st = eng.spec_stats()
         if args.draft_len:
             if st["enabled"]:

@@ -26,8 +26,8 @@ def he_init(gen: torch.Generator, shape, dtype, device, fan_in=None):
     reference's `he_init`)."""
     fan_in = fan_in or shape[0]
     x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-    denom = torch.sqrt(torch.full((), float(fan_in), device=device))
-    return (x / denom).to(dtype)
+    x.div_(torch.sqrt(torch.full((), float(fan_in), device=device)))
+    return x.to(dtype)
 
 
 def init_dense(gen, d_in, d_out, dtype, device):

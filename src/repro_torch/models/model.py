@@ -29,7 +29,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     quantized as soon as it is drawn: the result equals
     `tree_prepare_serving(init_params(cfg, generator, device), serving)`
     leaf for leaf, without ever holding the float stack (qwen3-moe-30b-a3b's
-    bf16 experts alone are ~58 GB)."""
+    bf16 experts alone are ~58 GB; one period of jamba-1.5-large-398b holds
+    four MoE blocks of 19.3 GB at bf16 each).  At most one block is float
+    at a time, and its expert stacks are drawn one expert at a time."""
     dt = cfg.compute_dtype
     prepare = None
     if serving is not None and serving.enabled:

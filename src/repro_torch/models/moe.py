@@ -35,12 +35,20 @@ def _expert_matmul(x, w):
 
 
 def init_moe(gen, cfg, device):
+    """The router and the three expert stacks, each stack drawn expert by
+    expert into its (E, a, b) leaf, so the f32 draw never exceeds one
+    expert's matrix (jamba's (16, 8192, 24576) stack would take 12.9 GB)."""
     d, ff, E = cfg.d_model, cfg.expert_d_ff, cfg.num_experts
     dt = cfg.compute_dtype
+
+    def stack(a, b):
+        w = torch.empty((E, a, b), dtype=dt, device=device)
+        for e in range(E):
+            w[e] = he_init(gen, (a, b), dt, device)
+        return w
     return {"router": he_init(gen, (d, E), torch.float32, device),
-            "w_gate": he_init(gen, (E, d, ff), dt, device, fan_in=d),
-            "w_up": he_init(gen, (E, d, ff), dt, device, fan_in=d),
-            "w_down": he_init(gen, (E, ff, d), dt, device, fan_in=ff)}
+            "w_gate": stack(d, ff), "w_up": stack(d, ff),
+            "w_down": stack(ff, d)}
 
 
 def moe_capacity(T: int, E: int, k: int, capacity_factor: float) -> int:

@@ -1,12 +1,14 @@
 """Layer stack: pattern-driven blocks over stacked per-period parameters.
 
-Port of `repro.models.transformer` for blocks of the `attn` (GQA) and `mla`
-(multi-head latent attention) mixers with the `dense` (SwiGLU) or `moe`
-(`models.moe`) feed-forward.  Parameters of pattern position i are stacked
-over `n_periods` as in the reference (`params["pos{i}"][leaf]` with a
-leading period axis); `stack_apply` walks the periods in a Python loop over
-period slices (views, no copies) and sums the MoE aux losses.  The other
-mixers (xattn, mamba, mlstm, slstm) and the `none` FF raise
+Port of `repro.models.transformer`: blocks of the `attn` (GQA), `mla`
+(multi-head latent attention), `mamba`, `mlstm` and `slstm` mixers with the
+`dense` (SwiGLU), `moe` (`models.moe`) or `none` feed-forward.  Parameters
+of pattern position i are stacked over `n_periods` as in the reference
+(`params["pos{i}"][leaf]` with a leading period axis); `stack_apply` walks
+the periods in a Python loop over period slices (views, no copies) and
+sums the MoE aux losses.  Attention caches are written in place; a
+recurrent mixer's state (a tuple, as in the reference) is copied into its
+cache slice after each call.  The cross-attention mixer (xattn) raises
 NotImplementedError.
 """
 from __future__ import annotations
@@ -18,13 +20,16 @@ import torch
 
 from repro_torch.core.quant import QuantizedTensor
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import init_mlp, init_rmsnorm, mlp, rmsnorm
 
 MIXERS = ("attn", "mla", "xattn", "mamba", "mlstm", "slstm")
 FFS = ("dense", "moe", "none")
-SERVED_MIXERS = ("attn", "mla")
-SERVED_FFS = ("dense", "moe")
+SERVED_MIXERS = ("attn", "mla", "mamba", "mlstm", "slstm")
+SERVED_FFS = ("dense", "moe", "none")
+RECURRENT = ("mamba", "mlstm", "slstm")
 
 
 def parse_spec(spec: str) -> tuple[str, str]:
@@ -42,16 +47,37 @@ def parse_spec(spec: str) -> tuple[str, str]:
     return mixer, ff
 
 
-def tree_map(fn, tree):
-    """Map `fn` over the tensors of a nested-dict tree (QuantizedTensor
-    leaves map their values and scale)."""
+def is_recurrent(cfg) -> bool:
+    """Whether any layer keeps a recurrent state (mamba/mlstm/slstm)."""
+    return any(m in spec for spec in cfg.layer_pattern for m in RECURRENT)
+
+
+def tree_map(fn, tree, *rest):
+    """Map `fn` over the tensors of a tree of dicts and tuples
+    (QuantizedTensor leaves map their values and scale).  `rest` are trees
+    of the same structure whose corresponding leaves (tensors or flags)
+    are passed after each tensor; non-tensor leaves of `tree` pass through."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(tree_map(fn, v, *(r[i] for r in rest))
+                     for i, v in enumerate(tree))
     if isinstance(tree, QuantizedTensor):
         return tree.map(fn)
     if isinstance(tree, torch.Tensor):
-        return fn(tree)
+        return fn(tree, *rest)
     return tree
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts and tuples: dict entries in key
+    order, tuple entries in place."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
 
 
 # ---------------------------------------------------------------------------
@@ -61,47 +87,85 @@ def tree_map(fn, tree):
 def init_block(gen, cfg, spec: str, device):
     mixer, ff = parse_spec(spec)
     dt = cfg.compute_dtype
-    init = attn.init_gqa if mixer == "attn" else attn.init_mla
-    p = {"norm1": init_rmsnorm(cfg.d_model, dt, device),
-         "mixer": init(gen, cfg, device),
-         "norm2": init_rmsnorm(cfg.d_model, dt, device)}
-    if ff == "moe":
-        p["moe"] = moe_mod.init_moe(gen, cfg, device)
-    else:
-        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dt, device)
+    init = {"attn": attn.init_gqa, "mla": attn.init_mla,
+            "mamba": mb.init_mamba, "mlstm": xl.init_mlstm,
+            "slstm": xl.init_slstm}[mixer]
+    p: dict[str, Any] = {"norm1": init_rmsnorm(cfg.d_model, dt, device),
+                         "mixer": init(gen, cfg, device)}
+    if ff != "none":
+        p["norm2"] = init_rmsnorm(cfg.d_model, dt, device)
+        if ff == "moe":
+            p["moe"] = moe_mod.init_moe(gen, cfg, device)
+        else:
+            p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dt, device)
     return p
 
 
 def init_block_cache(cfg, spec: str, batch: int, max_seq: int, dtype,
                      num_pages=None, device=None):
-    """Decode-time KV state for one block (paged pool when num_pages)."""
+    """Decode-time state for one block: attention KV (a paged pool when
+    num_pages), or a recurrent mixer's per-slot state tuple, which is the
+    same in both layouts (the "registers" of a slot, not token storage)."""
     mixer, _ = parse_spec(spec)
-    init = attn.init_gqa_cache if mixer == "attn" else attn.init_mla_cache
-    return init(cfg, batch, max_seq, dtype, num_pages, device)
+    if mixer == "attn":
+        return attn.init_gqa_cache(cfg, batch, max_seq, dtype, num_pages,
+                                   device)
+    if mixer == "mla":
+        return attn.init_mla_cache(cfg, batch, max_seq, dtype, num_pages,
+                                   device)
+    if mixer == "mamba":
+        return mb.init_mamba_state(cfg, batch, dtype, device)
+    if mixer == "mlstm":
+        return xl.init_mlstm_state(cfg, batch, device)
+    return xl.init_slstm_state(cfg, batch, device)
 
 
 # ---------------------------------------------------------------------------
 # per-block apply
 # ---------------------------------------------------------------------------
 
+_STEP = {"mamba": mb.mamba_step, "mlstm": xl.mlstm_step,
+         "slstm": xl.slstm_step}
+_SEQUENCE = {"mamba": mb.mamba_sequence, "mlstm": xl.mlstm_sequence,
+             "slstm": xl.slstm_sequence}
+
+
 def block_apply(p, x, cfg, spec, *, positions, cache=None, cache_pos=None,
                 paged=None):
     """Returns (x, aux_loss, cache).  `paged` (a PagedKV or DenseKV
     bundle) selects the cache discipline inside gqa/mla; its decode_kernel
     flag routes Sq=1 gqa reads through the paged-decode kernels, and mla
-    ignores it (it always reads through the gather)."""
+    ignores it (it always reads through the gather).  A recurrent mixer
+    takes its step with the cached state when S == 1 and a cache is given,
+    else runs the sequence from the init state (as the reference does);
+    the new state is written into `cache` in place, for the sequences the
+    bundle's write_mask allows (every sequence without a bundle)."""
     mixer, ff = parse_spec(spec)
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    mix = attn.gqa if mixer == "attn" else attn.mla
-    y, new_cache = mix(p["mixer"], h, cfg, positions, cache, cache_pos,
-                       paged)
+    if mixer in _STEP:
+        if cache is not None and x.shape[1] == 1:
+            y, state = _STEP[mixer](p["mixer"], h, cfg, cache)
+        else:
+            y, state = _SEQUENCE[mixer](p["mixer"], h, cfg)
+        if cache is not None:
+            for dst, src in zip(cache, state):
+                if paged is not None:
+                    keep = paged.write_mask.reshape((-1,) + (1,) * (
+                        dst.ndim - 1))
+                    src = torch.where(keep, src, dst)
+                dst.copy_(src)
+    else:
+        mix = attn.gqa if mixer == "attn" else attn.mla
+        y, _ = mix(p["mixer"], h, cfg, positions, cache, cache_pos, paged)
     x = x + y
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if ff == "none":
+        return x, aux, cache
     h = rmsnorm(p["norm2"], x, cfg.norm_eps)
     if ff == "moe":
         y, aux = moe_mod.moe(p["moe"], h, cfg)
-        return x + y, aux, new_cache
-    x = x + mlp(p["mlp"], h, cfg.quant)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device), new_cache
+        return x + y, aux, cache
+    return x + mlp(p["mlp"], h, cfg.quant), aux, cache
 
 
 # ---------------------------------------------------------------------------
@@ -166,13 +230,16 @@ def init_stack_cache(cfg, batch, max_seq, dtype, num_pages=None, device=None):
 
 def stack_cache_pool_flags(cfg):
     """A tree matching init_stack_cache's paged structure with True at
-    shared page-pool leaves: every leaf of an attn block (k, v and the int8
-    scales) and of an mla block (c_kv, k_rope)."""
+    shared page-pool leaves — every leaf of an attn block (k, v and the
+    int8 scales) and of an mla block (c_kv, k_rope) — and False at per-slot
+    leaves (recurrent state), which engines reset by slot.  The
+    dense layout has the same structure, True at its KV leaves."""
     flags = {}
     for i, spec in enumerate(cfg.layer_pattern):
+        is_pool = parse_spec(spec)[0] in ("attn", "mla")
         shapes = init_block_cache(cfg, spec, 1, cfg.page_size, torch.float32,
                                   num_pages=1, device="meta")
-        flags[f"pos{i}"] = tree_map(lambda _: True, shapes)
+        flags[f"pos{i}"] = tree_map(lambda _: is_pool, shapes)
     return flags
 
 

@@ -61,6 +61,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models.transformer import tree_map
 
 
 class PagePool(NamedTuple):
@@ -161,7 +162,7 @@ def cow_copy(caches, pool_flags, src, dst):
             leaf[:, tgt.clamp(0, P - 1).long()] = \
                 leaf[:, frm.clamp(0, P - 1).long()]
 
-    _walk(cp, caches, pool_flags)
+    tree_map(cp, caches, pool_flags)
     return caches
 
 
@@ -201,16 +202,8 @@ def rollback(caches, pool_flags, pv, positions):
         if is_pool:
             zero_rows(leaf, index, ok)
 
-    _walk(zero, caches, pool_flags)
+    tree_map(zero, caches, pool_flags)
     return caches
-
-
-def _walk(fn, tree, flags):
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            _walk(fn, v, flags[k])
-        else:
-            fn(v, flags[k])
 
 
 def release(pool: PagePool, dead) -> PagePool:
@@ -237,7 +230,7 @@ def export_pages(caches, pool_flags, src_ids):
             return leaf[:, :0]
         return leaf.index_select(1, idx.clamp(0, max(leaf.shape[1] - 1, 0)))
 
-    return _map(take, caches, pool_flags)
+    return tree_map(take, caches, pool_flags)
 
 
 def import_pages(caches, pool_flags, tiles, dst_ids, n: int):
@@ -253,7 +246,7 @@ def import_pages(caches, pool_flags, tiles, dst_ids, n: int):
         if is_pool and n:
             leaf.index_copy_(1, idx, tile[:, :n].to(leaf.dtype))
 
-    _walk2(put, caches, pool_flags, tiles)
+    tree_map(put, caches, pool_flags, tiles)
     return caches
 
 
@@ -274,19 +267,6 @@ def adopt(pool: PagePool, slot: int, page_ids, n: int) -> PagePool:
                                 pool.tables),
                     torch.where(row, n, pool.n_pages).to(torch.int32),
                     torch.where(take, True, pool.owned))
-
-
-def _map(fn, tree, flags):
-    return {k: _map(fn, v, flags[k]) if isinstance(v, dict)
-            else fn(v, flags[k]) for k, v in tree.items()}
-
-
-def _walk2(fn, tree, flags, other):
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            _walk2(fn, v, flags[k], other[k])
-        else:
-            fn(v, flags[k], other[k])
 
 
 class HostPool:

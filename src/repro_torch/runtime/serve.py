@@ -72,6 +72,13 @@ a multi-process transport and raise NotImplementedError.  The prefix
 cache and speculation switch off under disaggregation; the decode kernels
 stay on.
 
+Recurrent archs (a `mamba`, `mlstm` or `slstm` layer): the mixers' state
+is a per-slot tuple, not token storage, so prompts prefill one token per
+forward, a slot's first chunk restarts its state from the init values,
+and the prefix cache and speculation opt out silently (a cached prefix
+cannot stand in for the state, and a rejected draft cannot be rewound);
+disaggregation raises ValueError, since the state has no page to move.
+
 The engine runs on the card unless the caller asks for the CPU
 (`device="cpu"`); with no GPU and no explicit CPU request it raises.
 A mesh raises NotImplementedError at construction.
@@ -85,7 +92,8 @@ import torch
 
 from repro_torch.kernels import paged_attention as pk
 from repro_torch.models import model as M
-from repro_torch.models.transformer import tree_map
+from repro_torch.models.transformer import is_recurrent, tree_leaves, \
+    tree_map
 from repro_torch.runtime import pages as pg
 from repro_torch.runtime import speculate as spc
 from repro_torch.runtime.options import EngineOptions, RequestResult
@@ -105,13 +113,6 @@ def resolve_device(device=None) -> torch.device:
             "repro_torch serves on a CUDA device and none is available; "
             "pass device='cpu' to run the plain PyTorch versions on the CPU")
     return dev
-
-
-def _leaves(tree):
-    """The leaves of a nested-dict tree, in key order."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _leaves(tree[k])]
-    return [tree]
 
 
 def _unported(options: EngineOptions) -> str | None:
@@ -157,7 +158,7 @@ class Engine:
             if options.parallel.mesh is not None:
                 raise ValueError("disaggregation and mesh= are mutually "
                                  "exclusive (single-process transport)")
-            if not all(_leaves(M.cache_pool_flags(cfg))):
+            if not all(tree_leaves(M.cache_pool_flags(cfg))):
                 raise ValueError(
                     "disaggregation requires every cache leaf to live in "
                     "the shared page pool; recurrent/xattn per-slot state "
@@ -186,7 +187,11 @@ class Engine:
         self.check_invariants = options.debug.check_invariants
         self.n_invariant_checks = 0
         self.n_transfer_checks = 0      # transfer rounds checked for I7
-        self.prefill_chunk = max(1, min(sch.prefill_chunk, sch.max_seq - 1))
+        # recurrent mixers (mamba/mlstm/slstm) cannot skip padding in their
+        # state, so their prompts are fed token by token (chunk = 1)
+        recurrent = is_recurrent(cfg)
+        self.prefill_chunk = 1 if recurrent \
+            else max(1, min(sch.prefill_chunk, sch.max_seq - 1))
         self._stop_cap = max(4, len(self.stop_tokens))
         self.kv_layout = options.paging.kv_layout
         paged = self.kv_layout == "paged"
@@ -208,11 +213,12 @@ class Engine:
                               else self.prefill_slots * self.pages_per_slot) \
             if self.disagg else self.num_pages
         # speculation opts out silently where verify/decode parity breaks
-        # (MoE capacity drops depend on the rows of each call; cross-
-        # attention, which the port refuses at parse_spec), and under
-        # disaggregation (drafter state has no page representation)
+        # (recurrent state cannot rewind a rejected draft; MoE capacity
+        # drops depend on the rows of each call; cross-attention, which the
+        # port refuses at parse_spec), and under disaggregation (drafter
+        # state has no page representation)
         spec = options.speculation
-        spec_ok = not self.disagg and not any(
+        spec_ok = not recurrent and not self.disagg and not any(
             "xattn" in s or "moe" in s for s in cfg.layer_pattern)
         self.draft_len = min(spec.draft_len, max(0, self.max_seq - 2)) \
             if spec_ok else 0
@@ -234,17 +240,19 @@ class Engine:
         dk = options.paging.decode_kernel
         self.decode_kernel = paged and not self.draft_len and bool(
             dk if dk is not None else device.type == "cuda")
-        # the prefix cache shares pool pages, so it is paged-only; the
-        # model drafter opts out (a skipped prefill chunk would leave its
-        # draft-cache rows unwritten, breaking A6), and so does
-        # disaggregation (cached pages would pin the prefill pool while
-        # the decode reads happen in the other pool)
+        # the prefix cache shares pool pages, so it is paged-only; recurrent
+        # archs opt out (their state accumulates over every token, so a
+        # cached prefix cannot stand in for it); the model drafter opts out
+        # (a skipped prefill chunk would leave its draft-cache rows
+        # unwritten, breaking A6), and so does disaggregation (cached pages
+        # would pin the prefill pool while the decode reads happen in the
+        # other pool)
         self.prefix_chunk = int(options.prefix.chunk) \
             if options.prefix.chunk is not None else self.page_size
         prefix = pg.PrefixCache(self.prefix_chunk, self.page_size,
                                 max_chains=options.prefix.max_chains) \
-            if options.prefix.enabled and paged and not self.disagg \
-            and self.drafter_kind != "model" else None
+            if options.prefix.enabled and paged and not recurrent \
+            and not self.disagg and self.drafter_kind != "model" else None
         # the host-side scheduler; its admission side is the prefill side
         self.sched = Scheduler(
             num_slots=self.prefill_slots, max_seq=self.max_seq,
@@ -568,7 +576,7 @@ class Engine:
         """I7 content check: the imported pages, exported again from the
         decode pool, must equal the moved tiles bit for bit."""
         got = pg.export_pages(self.caches, self.decode.pool_flags, dst[:t.n])
-        for a, b in zip(_leaves(tiles), _leaves(got)):
+        for a, b in zip(tree_leaves(tiles), tree_leaves(got)):
             if not torch.equal(a[:, :t.n], b[:, :t.n]):
                 raise AssertionError(
                     f"I7 broken: transferred pages for request "

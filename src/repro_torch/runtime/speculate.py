@@ -263,15 +263,11 @@ class QuantDrafter:
         S = ds.n_stream.shape[0]
         init = M.init_cache(self.cfg, 1, 1, device="cpu")
 
-        def fill(tree, ini):
-            for k, v in tree.items():
-                if isinstance(v, dict):
-                    fill(v, ini[k])
-                else:
-                    m = mask.reshape((1, S) + (1,) * (v.ndim - 2))
-                    v.masked_fill_(m, ini[k].reshape(-1)[0].item())
+        def fill(v, ini):
+            m = mask.reshape((1, S) + (1,) * (v.ndim - 2))
+            v.masked_fill_(m, ini.reshape(-1)[0].item())
 
-        fill(ds.caches, init)
+        tree_map(fill, ds.caches, init)
         return ds._replace(n_stream=torch.where(mask, 0, ds.n_stream),
                            last=torch.where(mask, 0, ds.last))
 
@@ -324,16 +320,13 @@ class QuantDrafter:
 
 
 def _gather_rows(caches, index):
-    return {k: _gather_rows(v, index) if isinstance(v, dict)
-            else v[(slice(None),) + index] for k, v in caches.items()}
+    return tree_map(lambda v: v[(slice(None),) + index], caches)
 
 
 def _put_rows(caches, index, saved) -> None:
-    for k, v in caches.items():
-        if isinstance(v, dict):
-            _put_rows(v, index, saved[k])
-        else:
-            v[(slice(None),) + index] = saved[k]
+    def put(v, rows):
+        v[(slice(None),) + index] = rows
+    tree_map(put, caches, saved)
 
 
 def rollback_dense(caches, kv_flags, positions, write_mask, max_seq: int):
@@ -347,12 +340,9 @@ def rollback_dense(caches, kv_flags, positions, write_mask, max_seq: int):
     rows = torch.arange(S, device=positions.device)[:, None].expand(S, L)
     index = (rows.reshape(-1), positions.clamp(0, max_seq - 1).reshape(-1))
 
-    def walk(tree, flags):
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                walk(v, flags[k])
-            elif flags[k]:
-                zero_rows(v, index, ok)
+    def zero(v, is_kv):
+        if is_kv:
+            zero_rows(v, index, ok)
 
-    walk(caches, kv_flags)
+    tree_map(zero, caches, kv_flags)
     return caches

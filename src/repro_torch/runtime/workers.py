@@ -33,6 +33,7 @@ of a whole admission round are uploaded in one copy.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -40,6 +41,7 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import model as M
+from repro_torch.models.transformer import tree_leaves
 from repro_torch.runtime import pages as pg
 from repro_torch.runtime import sampling as smp
 from repro_torch.runtime import speculate as spc
@@ -87,6 +89,24 @@ def _bundle(pool: pg.PagePool, max_seq: int, page_size: int, write_mask,
                         write_mask=write_mask, max_seq=max_seq,
                         page_size=page_size, owned=pool.owned, bound=bound,
                         decode_kernel=kernel)
+
+
+@functools.lru_cache(maxsize=None)
+def _state_fills(cfg) -> tuple:
+    """The init value of each per-slot cache leaf (recurrent state), in
+    `tree_leaves` order.  Each such leaf is constant at init (zeros; -1e30
+    for the mLSTM/sLSTM stabilizer m), so it is read once from a one-period
+    batch-1 init cache on the CPU."""
+    one = cfg.replace(num_layers=len(cfg.layer_pattern))
+    ini = tree_leaves(M.init_cache(one, 1, 1, num_pages=1, device="cpu"))
+    pool = tree_leaves(M.cache_pool_flags(cfg))
+    return tuple(leaf.reshape(-1)[0].item()
+                 for leaf, is_pool in zip(ini, pool) if not is_pool)
+
+
+def _by_slot(mask, leaf):
+    """(S,) mask broadcast over a stacked (n_periods, S, ...) cache leaf."""
+    return mask.reshape((1, -1) + (1,) * (leaf.ndim - 2))
 
 
 def _upload(a: np.ndarray, device) -> torch.Tensor:
@@ -268,6 +288,10 @@ class PrefillWorker:
         self.pool_flags = M.cache_pool_flags(cfg) if paged else None
         self.draft_len = draft_len
         self.drafter = drafter
+        # per-slot cache leaves (recurrent state), in both layouts: the
+        # leaves the flags mark False, and their init values
+        self.per_slot = [not f for f in tree_leaves(M.cache_pool_flags(cfg))]
+        self.fills = _state_fills(cfg) if any(self.per_slot) else ()
 
     def admit_chunk(self, params, state: SlotState, caches, tokens, valid,
                     offsets, true_lens, budgets0, stops, gens, txn=None,
@@ -279,7 +303,13 @@ class PrefillWorker:
         evict_delta, register_delta): `admit_update`, then the
         copy-on-write split into table entry n_shared, both before any
         write of the forward.  `first` (S,) bool marks the slots whose
-        first chunk this is (speculation resets their drafter state)."""
+        first chunk this is: their per-slot cache leaves (recurrent state)
+        restart from the init values — the previous occupant's state must
+        not carry over, and warm-prefix slots do not start at offset 0, so
+        the mask is explicit — and speculation resets their drafter state.
+        The forward writes KV rows and recurrent state only for the `valid`
+        slots (the bundle's write_mask); the others, mid-decode or done
+        with their prompt, keep theirs."""
         ns, C = tokens.shape
         max_seq = self.max_seq
         if txn is not None:
@@ -296,6 +326,10 @@ class PrefillWorker:
             dst = torch.gather(pool.tables, 1,
                                n_shared.clamp(0, mp - 1).long()[:, None])[:, 0]
             pg.cow_copy(caches, self.pool_flags, cow_src, dst)
+        states = [leaf for leaf, own in zip(tree_leaves(caches),
+                                            self.per_slot) if own]
+        for leaf, fill in zip(states, self.fills):
+            leaf.masked_fill_(_by_slot(first, leaf), fill)
         # unembed only each slot's true last prompt row
         idx = (true_lens - 1 - offsets).clamp(0, C - 1)
         pv = _bundle(state.pages, max_seq, self.page_size, valid) \

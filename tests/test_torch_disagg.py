@@ -176,8 +176,7 @@ def test_abort_before_transfer_releases_prefill_pages():
 
 def test_disagg_validation_surface():
     """The reference's order and exception types: role, layout, mesh, page
-    representation.  The port refuses jamba's recurrent layers earlier,
-    at parse_spec, with NotImplementedError."""
+    representation (jamba's recurrent state has no page to move)."""
     _, tc, _, tp = _setup("gqa")
     kw = dict(num_slots=2, max_seq=64, device="cpu")
     with pytest.raises(ValueError, match="kv_layout"):
@@ -192,7 +191,7 @@ def test_disagg_validation_surface():
     with pytest.raises(NotImplementedError, match="mesh"):
         TEngine(tc, tp, kv_layout="paged", mesh="model=1", **kw)
     _, rcfg = smoke_pair("jamba-1.5-large-398b")
-    with pytest.raises(NotImplementedError, match="mamba"):
+    with pytest.raises(ValueError, match="page representation"):
         TEngine(rcfg, {}, kv_layout="paged", disagg=True, **kw)
 
 
