@@ -1,6 +1,10 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [phase ...]
+
+With no argument every phase runs and the result lines are printed; named
+phases (matmul paged mac2 serve minicpm moe recurrent train xattn streams)
+run alone, after the build, and print no result line.
 
 Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc`, holds
 each against its plain PyTorch version at its path's shapes, runs the paper
@@ -10,42 +14,54 @@ dummy-array MAC2 kernel) and times that kernel on every granite-8b linear
 as a GEMV, serves granite-8b at full size (36 layers, d=4096, bf16, 8-bit
 BRAMAC weights, random weights from a seed) through the port's Engine with
 fp and int8 KV caches, counts that each path went through its kernels, and
-checks that greedy streams are identical with the decode kernels on and
-off and under the dense layout, with the prefix cache on and off, and
-with speculation on and off (phase 6, f32).  Phase 8 serves the rest of
-the Engine at granite-8b full size: the prefix cache with copy-on-write
+checks that greedy streams are identical with the decode kernels on and off
+and under the dense layout, with the prefix cache on and off, and with
+speculation on and off (phase 6, f32). Phases 8-10 run granite-8b at full
+width cut to 12 of its 36 layers (views of phase 5's stacked weights).
+Phase 8 serves the rest of the Engine: the prefix cache with copy-on-write
 splits and invariant checks (bf16 and int8 KV, on vs off), abort of a
-running and a queued request, and per-request sampling streams that
-depend on the seed only.  Phase 9 serves speculative decoding at
-granite-8b full size: an integer-exact structured stream without
-speculation, with the n-gram drafter and with the 2-bit draft model (all
-36 layers), then phase 5's weights and prompts with both drafters, every
-`bramac_matmul` launch held to its derived count.  Phase 10 serves
-prefill/decode disaggregation at granite-8b full size (streams and launch
-counts equal to phase 5's colocated serves, invariants I1–I7 checked on
-both pools, decode-pool backpressure, the transfer rounds timed beside
-their byte bound) and minicpm3-4b (MLA) at full size, colocated and
-disaggregated.  Phase 11 serves the MoE feed-forward: the expert einsum
-(one `bramac_matmul` per expert) bit-exact and timed at
-qwen3-moe-30b-a3b's shapes, one MoE layer at full width against its
-dense reference, qwen3-moe-30b-a3b at full width (48 layers, 128
-experts, each layer quantized as it is drawn) with bf16 and int8 KV, and
-its stream identities at 2 layers.  Phase 12 serves the recurrent
-mixers: one full-width mLSTM, sLSTM and mamba block (sequence == steps at
-f32; bf16 8-bit vs plain f32), xlstm-1.3b at full width (48 layers,
-one-token prefill) and jamba-1.5-large-398b at full width cut to one
-period (8 of its 72 layers), and their stream identities and slot reuse
-at 2 periods of the smoke widths; phase 2 holds `bramac_matmul` at their
-mixers' shapes and phases 3-4 both decode kernels at jamba's 64/8 heads.
-Phase 2 also times the speculative
-shapes (the verify window at M=20; 2-bit at M=4 with the unpack of the
-packed weights), every minicpm3-4b linear and qwen3-moe-30b-a3b's
-attention linears and unembed; phases 3-4 also hold both decode kernels
-at qwen3-moe-30b-a3b's heads (32/4, hd 64); phase 6 also holds
-disaggregated == colocated and minicpm3-4b's identities, the exact one
-on integer-exact structured weights.  Imports torch, numpy and
-`repro_torch` only.  Exits non-zero, printing no result, when any phase fails or no
-CUDA device is present.
+running and a queued request, and per-request sampling streams that depend
+on the seed only. Phase 9 serves speculative decoding: an integer-exact
+structured stream without speculation, with the n-gram drafter and with the
+2-bit draft model (all 12 layers), then phase 5's weights and prompts with
+both drafters, every `bramac_matmul` launch held to its derived count.
+Phase 10 serves prefill/decode disaggregation (streams and launch counts
+equal to the cut's colocated serves, invariants I1–I7 checked on both
+pools, decode-pool backpressure, the transfer rounds timed beside their
+byte bound) and minicpm3-4b (MLA) at full size, colocated and
+disaggregated. Phase 11 serves the MoE feed-forward: the expert einsum (one
+`bramac_matmul` per expert) bit-exact and timed at qwen3-moe-30b-a3b's
+shapes, one MoE layer at full width against its dense reference,
+qwen3-moe-30b-a3b at full width cut to 16 of its 48 layers (128 experts,
+each layer quantized as it is drawn) with bf16 and int8 KV, and its stream
+identities at 2 layers. Phase 12 serves the recurrent mixers: one
+full-width mLSTM, sLSTM and mamba block (sequence == steps at f32; bf16
+8-bit vs plain f32), xlstm-1.3b at full width (48 layers, one-token
+prefill) and jamba-1.5-large-398b at full width cut to one period (8 of its
+72 layers), and their stream identities and slot reuse at 2 periods of the
+smoke widths; phase 2 holds `bramac_matmul` at their mixers' shapes and
+phases 3-4 both decode kernels at jamba's 64/8 heads. Phase 13 trains: the
+QAT `bramac_dense` bit-exact vs its plain version at granite-8b's training
+rows (M = 256) with its straight-through gradients equal to the plain
+products; granite-8b at full width (36 layers, bf16, QAT 8/8, int8 m / bf16
+v AdamW) taking 4 `Trainer.run_step`s, 253 `bramac_matmul` launches each,
+step 1's loss equal to the plain version's; failure recovery at the smoke
+widths equal to an uninterrupted run bit for bit, and the checkpoint round
+trip. Phase 14 runs cross-attention and the stub frontends:
+llama-3.2-vision-11b at full width (forward-level: prefill with vision
+embeddings, 16 decode steps, the xattn K/V caches unchanged, each token the
+full forward's argmax or a near-tie swap) and musicgen-large at full width
+through the Engine (bf16 and int8 KV; `frame_embeds` == tokens); phase 2
+holds `bramac_matmul` at their linears (the xattn K/V projection at M =
+1600 and 6400) and phases 3-4 both decode kernels at musicgen's 32/32
+heads. Phase 2 also times the speculative shapes (the verify window at
+M=20; 2-bit at M=4 with the unpack of the packed weights), every
+minicpm3-4b linear and qwen3-moe-30b-a3b's attention linears and unembed;
+phases 3-4 also hold both decode kernels at qwen3-moe-30b-a3b's heads
+(32/4, hd 64); phase 6 also holds disaggregated == colocated and
+minicpm3-4b's identities, the exact one on integer-exact structured
+weights. Imports torch, numpy and `repro_torch` only. Exits non-zero,
+printing no result, when any phase fails or no CUDA device is present.
 
 Output: one line per phase; then a JSON line listing every kernel with its
 check, times and bound; the card's name and power limit as nvidia-smi gives
@@ -53,6 +69,7 @@ them; and, last, {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import json
@@ -64,6 +81,9 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# deterministic cuBLAS for phase 13c's bit-for-bit recovery check; it must
+# be set before the first cuBLAS call
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -255,11 +275,7 @@ def phase_matmul(gen, report):
             ms = time_cold(lambda: bm.bramac_matmul(x, w, xs, ws, **kw))
             plain_ms = time_cold(
                 lambda: bm.bramac_matmul_plain(x, w, xs, ws, **kw), iters=5)
-            nbytes = M * K + K * N + 4 * (M + N) + 2 * M * N
-            ops = 2 * M * N * K * 4                  # 4 radix-4 digit passes
-            bound = max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3
-            by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / INT8_OPS_PER_S \
-                else "operations"
+            bound, by = _matmul_bound(M, K, N, K * N)
             if M > 16 and K % 8 == 0 and N % 8 == 0:
                 lib_name = "torch._int_mm"
                 lib_ms = time_cold(lambda: torch._int_mm(x, w))
@@ -293,7 +309,14 @@ def phase_matmul(gen, report):
     mc_rows, n_mc = phase_matmul_model(case, "minicpm3", MINICPM3_SHAPES)
     qw_rows, n_qw = phase_matmul_model(case, "qwen3-moe", QWEN3_SHAPES)
     rec_rows, n_rec = phase_matmul_recurrent(case)
-    n += n_mc + n_qw + n_rec
+    lv_rows, n_lv = phase_matmul_model(case, "llama-3.2-vision",
+                                       LLAMA_VISION_SHAPES)
+    mg_rows, n_mg = phase_matmul_model(case, "musicgen", MUSICGEN_SHAPES)
+    print(f"phase 14a bramac_matmul: {n_lv + n_mg} cases bit-exact vs plain "
+          f"(every llama-3.2-vision-11b linear at its prefill and decode "
+          f"rows, the xattn K/V projection at M = 1600 and 6400 vision rows, "
+          f"the 128256-column unembed; every musicgen-large linear)")
+    n += n_mc + n_qw + n_rec + n_lv + n_mg
     print(f"phase 2 bramac_matmul: {n} cases bit-exact vs plain, max abs "
           f"err {worst:.3g} (bits 2/4/8, signed+unsigned, 4-bit packed, "
           f"f32+bf16 out, scalar and per-channel scales, ragged M/K/N at the "
@@ -308,7 +331,8 @@ def phase_matmul(gen, report):
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
         bound_by=main["bound_by"], library_ms=main["library_ms"],
         shapes=rows, spec_shapes=spec_rows, minicpm3_shapes=mc_rows,
-        qwen3_moe_shapes=qw_rows, recurrent_shapes=rec_rows)
+        qwen3_moe_shapes=qw_rows, recurrent_shapes=rec_rows,
+        llama_vision_shapes=lv_rows, musicgen_shapes=mg_rows)
 
 
 # every minicpm3-4b linear at the rows its serve gives it: the seven MLA
@@ -329,6 +353,25 @@ QWEN3_SHAPES = {                    # name: (K, N, rows)
     "unembed": (2048, 151936, (4, 64))}
 
 
+# llama-3.2-vision-11b's linears at phase 14b's rows: 4 prompts of 64
+# tokens prefill (M = 256) and decode (M = 4); its xattn layers project
+# K/V over the 1600 vision tokens of each request (M = 1600, 6400 at 4);
+# the unembed runs on the last row of each prompt at prefill (M = 4)
+LLAMA_VISION_SHAPES = {             # name: (K, N, rows)
+    "wq/wo": (4096, 4096, (4, 256)), "wk/wv": (4096, 1024, (4, 256)),
+    "xattn wk/wv": (4096, 1024, (1600, 6400)),
+    "w_gate/w_up": (4096, 14336, (4, 256)), "w_down": (14336, 4096, (4, 256)),
+    "unembed": (4096, 128256, (4,))}
+
+# musicgen-large's linears at phase 14c's serve rows (4 slots, 16-token
+# chunks): MHA 2048 -> 32 x 64 for q, k, v and o, the 8192-wide FF, and
+# the 2048-token unembed
+MUSICGEN_SHAPES = {                 # name: (K, N, rows)
+    "wq/wk/wv/wo": (2048, 2048, (4, 64)),
+    "w_gate/w_up": (2048, 8192, (4, 64)), "w_down": (8192, 2048, (4, 64)),
+    "unembed": (2048, 2048, (4, 64))}
+
+
 def phase_matmul_model(case, label, shapes):
     """A model's linear shapes (`shapes`: name -> (K, N, rows)), 8-bit:
     bit-exact against the plain version, and timed beside their bound and
@@ -344,7 +387,7 @@ def phase_matmul_model(case, label, shapes):
             ms_ = time_cold(lambda: bm.bramac_matmul(x, w, xs, ws, **kw))
             plain_ms = time_cold(
                 lambda: bm.bramac_matmul_plain(x, w, xs, ws, **kw), iters=5)
-            bound, by = _matmul_bound(M, K, N, K * N, 4)
+            bound, by = _matmul_bound(M, K, N, K * N)
             xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
             lib_ms = time_cold(lambda: torch.matmul(xb, wb))
             rows.append(dict(shape=name, M=M, K=K, N=N, ms=ms_,
@@ -403,7 +446,7 @@ def phase_matmul_recurrent(case):
             ms = time_cold(lambda: bm.bramac_matmul(x, w, xs, ws, **kw))
             plain_ms = time_cold(
                 lambda: bm.bramac_matmul_plain(x, w, xs, ws, **kw), iters=5)
-            bound, by = _matmul_bound(M, K, N, K * N // 2, 2)
+            bound, by = _matmul_bound(M, K, N, K * N // 2)
             xb = x.to(torch.bfloat16)
             wb = torch.randn((K, N), device="cuda").to(torch.bfloat16)
             lib_ms = time_cold(lambda: torch.matmul(xb, wb))
@@ -422,12 +465,13 @@ def phase_matmul_recurrent(case):
     return rows, n
 
 
-def _matmul_bound(M, K, N, w_bytes, digits):
+def _matmul_bound(M, K, N, w_bytes):
     """-> (ms, by): the larger of the bytes (x, weights as stored, both
-    scales, the bf16 output, each once) over HBM and the digit passes'
-    int8 operations over the int8 peak."""
+    scales, the bf16 output, each once) over HBM and the 2·M·N·K
+    operations of one int8 product, which is exact at every supported
+    width, over the int8 peak."""
     nbytes = M * K + w_bytes + 4 * (M + N) + 2 * M * N
-    ops = 2 * M * N * K * digits
+    ops = 2 * M * N * K
     by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / INT8_OPS_PER_S \
         else "operations"
     return max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3, by
@@ -457,7 +501,7 @@ def phase_matmul_spec(case):
         ms = time_cold(lambda: bm.bramac_matmul(x, w, xs, ws, **kw))
         plain_ms = time_cold(
             lambda: bm.bramac_matmul_plain(x, w, xs, ws, **kw), iters=5)
-        bound, by = _matmul_bound(20, K, N, K * N, 4)
+        bound, by = _matmul_bound(20, K, N, K * N)
         lib_ms = yardstick(x, w)
         rows.append(dict(shape=name, M=20, K=K, N=N, bits=8, ms=ms,
                          plain_ms=plain_ms, bound_ms=bound, bound_by=by,
@@ -481,8 +525,8 @@ def phase_matmul_spec(case):
             x, quant.unpack_axis(packed, 2, -2), xs, ws, **kw))
         plain_ms = time_cold(
             lambda: bm.bramac_matmul_plain(x, w, xs, ws, **kw), iters=5)
-        bound, by = _matmul_bound(4, K, N, K * N, 1)
-        bound_p, by_p = _matmul_bound(4, K, N, K * N // 4, 1)
+        bound, by = _matmul_bound(4, K, N, K * N)
+        bound_p, by_p = _matmul_bound(4, K, N, K * N // 4)
         lib_ms = yardstick(x, w)
         rows.append(dict(shape=name, M=4, K=K, N=N, bits=2, ms=ms,
                          unpack_ms=unpack_ms[name], with_unpack_ms=both_ms,
@@ -637,7 +681,8 @@ CASES = {                          # (lengths, n_pages): below / at / across
 # buffer.  "qwen3" is qwen3-moe-30b-a3b's decode read in phase 11c (32/4
 # heads, hd 64) at its last step's lengths (prompts 105/83/70/45 + 7);
 # "jamba" is jamba-1.5-large-398b's attention layer in phase 12d (64/8
-# heads, hd 128) on the same traffic
+# heads, hd 128) on the same traffic; "musicgen" is musicgen-large's MHA
+# read in phase 14c (32/32 heads, hd 64, group size 1) on that traffic
 Q_CASES = {
     "long": ((4096, 3000, 1500, 4000), (256, 188, 94, 256), H, HKV, 256, HD),
     "long_g16": ((4096, 2500, 1, 3333), (256, 160, 1, 209), 32, 2, 256, HD),
@@ -646,6 +691,7 @@ Q_CASES = {
                     1024, HD),
     "qwen3": ((112, 90, 77, 52), (7, 6, 5, 4), 32, 4, MAXP, 64),
     "jamba": ((112, 90, 77, 52), (7, 6, 5, 4), 64, 8, MAXP, HD),
+    "musicgen": ((112, 90, 77, 52), (7, 6, 5, 4), 32, 32, MAXP, 64),
 }
 
 
@@ -659,7 +705,8 @@ Q_CASES = {
 # run holds the most shared memory of any plan)
 FP_CASES = {
     **{name: Q_CASES[name] + (PS,)
-       for name in ("long", "long_g16", "g1", "qwen3", "jamba")},
+       for name in ("long", "long_g16", "g1", "qwen3", "jamba",
+                    "musicgen")},
     "hd100_ps12": ((450, 13, 0, 200), (38, 2, 0, 40), 8, 2, 40, 100, 12),
     "hd256": CASES["serve"] + (H, HKV, MAXP, 256, PS),
     "hd256_g16": Q_CASES["scratch_g16"][:5] + (256, PS),
@@ -756,7 +803,7 @@ def phase_paged(gen, report):
         if 0 in n_pages:
             need(bool((got[list(n_pages).index(0)] == 0).all()),
                  "paged_decode: a slot without pages must emit zeros")
-        if cname in ("serve", "long", "qwen3", "jamba") and \
+        if cname in ("serve", "long", "qwen3", "jamba", "musicgen") and \
                 dt == torch.bfloat16:
             live, walked = _live_rows(lengths, n_pages, ps)
             nbytes = 2 * live * Hkv * hd * 2 + 2 * (2 * B * H * hd) \
@@ -804,7 +851,7 @@ def phase_paged(gen, report):
           f"16 and 1, 12-row pages, hd 100, and hd 256 (f32: 16-row ring "
           f"tiles) up to H/Hkv 16 at max_pages 1024; qwen3-moe-30b-a3b's "
           f"32/4 heads at hd 64; jamba-1.5-large-398b's 64/8 heads at hd "
-          f"128")
+          f"128; musicgen-large's 32/32 heads at hd 64")
 
     worst = 0.0
     timed, q_rows = [], []
@@ -846,7 +893,7 @@ def phase_paged(gen, report):
         worst = max(worst, diff.max().item())
         need(bool((diff <= tol).all()),
              f"paged_decode_q {cname} {dt}: max err {diff.max().item()}")
-        if cname in ("serve", "long", "qwen3", "jamba") and \
+        if cname in ("serve", "long", "qwen3", "jamba", "musicgen") and \
                 dt == torch.bfloat16:
             rows, walked = _live_rows(lengths, n_pages)
             nbytes = 2 * rows * Hkv * (hd + 4) + B * H * (hd + 4) \
@@ -891,7 +938,8 @@ def phase_paged(gen, report):
           f"pages and rows ignored; cluster split up to 8 blocks at "
           f"max_pages 256 and 1024 (scratch), H/Hkv 16 and 1; "
           f"qwen3-moe-30b-a3b's 32/4 heads at hd 64; "
-          f"jamba-1.5-large-398b's 64/8 heads at hd 128")
+          f"jamba-1.5-large-398b's 64/8 heads at hd 128; musicgen-large's "
+          f"32/32 heads at hd 64")
 
 
 # ---------------------------------------------------------------------------
@@ -1395,12 +1443,44 @@ def phase_serve(report):
     report["profile"] = profile_serve(cfg, params, prompts[:4])
     report["profile_int8_kv"] = profile_serve(cfg.replace(quant_kv=True),
                                               params, prompts[:4])
-    phase_engine(cfg, params, prompts, report)
-    phase_spec(cfg, params, prompts, streams5["bf16"], report)
-    phase_disagg(cfg, params, prompts, streams5, launches5, report)
-    del params
+    # phases 8-10 run at full width on the first 12 of the 36 layers (views
+    # of phase 5's stacked leaves), against colocated serves of that cut
+    cut, pcut = granite_cut(cfg, params, CUT_LAYERS)
+    streams_c, launches_c = {}, {}
+    for quant_kv in (False, True):
+        c = cut.replace(quant_kv=quant_kv)
+        kv = "int8" if quant_kv else "bf16"
+        _zero_counts()
+        run = serve(c, pcut, prompts, 16)
+        got = _read_counts()
+        need(run["done"] == 8 and got["bramac_matmul"] ==
+             (7 * CUT_LAYERS + 1) * run["forwards"],
+             f"granite-8b {CUT_LAYERS}-layer cut ({kv} KV): {run['done']}/8 "
+             f"done, launches {got}")
+        streams_c[kv], launches_c[kv] = run["streams"], got
+        for k, n in got.items():
+            report[k]["launches"] += n
+    print(f"  granite-8b cut to {CUT_LAYERS} of 36 layers for phases 8-10: "
+          f"colocated streams and launches taken as their reference "
+          f"(bramac_matmul {7 * CUT_LAYERS + 1} per forward)")
+    phase_engine(cut, pcut, prompts, report)
+    phase_spec(cut, pcut, prompts, streams_c["bf16"], report)
+    phase_disagg(cut, pcut, prompts, streams_c, launches_c, report)
+    del params, pcut
     gc.collect()
     torch.cuda.empty_cache()
+
+
+CUT_LAYERS = 12                    # granite-8b depth of phases 8-10
+
+
+def granite_cut(cfg, params, n_layers):
+    """granite-8b's config and serving tree cut to its first `n_layers`
+    layers at full width: views of the stacked per-period leaves."""
+    from repro_torch.tree import tree_map
+    layers = {k: tree_map(lambda a: a[:n_layers], v)
+              for k, v in params["layers"].items()}
+    return cfg.replace(num_layers=n_layers), dict(params, layers=layers)
 
 
 def profile_serve(cfg, params, prompts, new_tokens=8,
@@ -1447,7 +1527,8 @@ def profile_serve(cfg, params, prompts, new_tokens=8,
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the rest of the single-device Engine at granite-8b full size
+# phase 8: the rest of the single-device Engine at granite-8b full width,
+# 12 of its 36 layers
 # ---------------------------------------------------------------------------
 
 SYS_LEN = 104                      # 6.5 pages: 6 shared + 1 copy-on-write
@@ -1644,7 +1725,7 @@ def phase_engine(cfg, params, prompts5, report):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: speculative decoding at granite-8b full size
+# phase 9: speculative decoding at granite-8b full width, 12 of 36 layers
 # ---------------------------------------------------------------------------
 
 def structured_params(cfg, params, q8):
@@ -1654,7 +1735,7 @@ def structured_params(cfg, params, q8):
     final norm ones.  The greedy stream is t -> t+1 (mod d) at 8 and at 2
     bits alike: one-hot activations and {0, 1} weights quantize exactly."""
     from repro_torch.core.bramac_linear import prepare_serving
-    from repro_torch.models.transformer import tree_map
+    from repro_torch.tree import tree_map
     layers = tree_map(torch.zeros_like, params["layers"])
     D, V = cfg.d_model, cfg.vocab_size
     emb = torch.zeros((V, D), dtype=cfg.compute_dtype, device="cuda")
@@ -1669,9 +1750,10 @@ def structured_params(cfg, params, q8):
 
 
 def phase_spec(cfg, params, prompts, streams5, report):
-    """Phase 9: (a) the structured stream at full size, exact, served
+    """Phase 9: (a) the structured stream at full width, exact, served
     without speculation, with the n-gram drafter and with the 2-bit model
-    drafter (all 36 layers); (b) phase 5's random weights and prompts with
+    drafter (all of the cut's layers); (b) phase 5's random weights and
+    prompts (the cut's layers) with
     the n-gram drafter (prefix cache and invariant checks on) and the 2-bit
     model drafter cut to 4 layers."""
     from repro_torch.core.bramac_linear import QuantConfig
@@ -1813,7 +1895,8 @@ def phase_spec(cfg, params, prompts, streams5, report):
 
 
 # ---------------------------------------------------------------------------
-# phase 10: prefill/decode disaggregation at granite-8b full size, and
+# phase 10: prefill/decode disaggregation at granite-8b full width (12 of
+# its 36 layers), and
 # minicpm3-4b (MLA) at full size
 # ---------------------------------------------------------------------------
 
@@ -1861,10 +1944,10 @@ def timed_transfers(cfg, params, prompts, new_tokens=16):
 
 
 def phase_disagg(cfg, params, prompts, streams5, launches5, report):
-    """Phase 10 at granite-8b full size, phase 5's weights and prompts:
-    (a) disaggregated serves, bf16 and int8 KV, decode kernels and
-    invariant checks on — streams and launch counts equal to phase 5's
-    colocated serves, an I7 content check after every transfer round, both
+    """Phase 10 at granite-8b full width, phase 5's weights (the cut's
+    layers) and prompts: (a) disaggregated serves, bf16 and int8 KV, decode
+    kernels and invariant checks on — streams and launch counts equal to
+    the cut's colocated serves, an I7 content check after every transfer round, both
     pools drained; (b) a decode pool of 9 pages, too small for two of the
     larger requests: the transfer backpressures, streams stay equal and
     nothing leaks; (c) the transfer round of the first wave (4 requests,
@@ -1885,7 +1968,7 @@ def phase_disagg(cfg, params, prompts, streams5, launches5, report):
             totals[k] = totals.get(k, 0) + n
         dg = run["disagg"]
         need(run["streams"] == streams5[kv],
-             f"phase 10a ({kv} KV): disaggregated streams != phase 5's "
+             f"phase 10a ({kv} KV): disaggregated streams != the cut's "
              f"colocated streams")
         need(got == launches5[kv], f"phase 10a ({kv} KV): launches {got} "
              f"!= the colocated serve's {launches5[kv]}")
@@ -1898,8 +1981,8 @@ def phase_disagg(cfg, params, prompts, streams5, launches5, report):
         need(all(r == "budget" for r in run["reasons"]),
              f"phase 10a ({kv} KV): finish reasons {run['reasons']}")
         ttft = 1e3 * float(np.mean(run["ttft"]))
-        print(f"phase 10a disagg serve granite-8b {kv} KV: streams == phase "
-              f"5's colocated streams; {dg['pages_transferred']} pages in "
+        print(f"phase 10a disagg serve granite-8b ({cfg.num_layers} layers) "
+              f"{kv} KV: streams == colocated streams; {dg['pages_transferred']} pages in "
               f"{dg['transfer_rounds']} rounds "
               f"({dg['transfers_backpressured']} backpressured), decode "
               f"pool {dg['decode_pages_high_water']}/{dg['decode_pages']} "
@@ -1915,14 +1998,14 @@ def phase_disagg(cfg, params, prompts, streams5, launches5, report):
                   check_invariants=True, num_pages=9)
     dg = small["disagg"]
     need(small["streams"] == streams5["bf16"],
-         "phase 10b: streams under decode-pool pressure != phase 5's")
+         "phase 10b: streams under decode-pool pressure != colocated")
     need(dg["transfers_backpressured"] > 0 and
          dg["decode_pages_high_water"] <= 9, f"phase 10b: {dg}")
     need(small["drained"] and small["transfer_checks"] ==
          dg["transfer_rounds"], "phase 10b: a pool leaked or a round went "
          "unchecked")
-    print(f"phase 10b decode pool of 9 pages (bf16 KV): streams == phase "
-          f"5's; {dg['transfers_backpressured']} transfers backpressured, "
+    print(f"phase 10b decode pool of 9 pages (bf16 KV): streams == "
+          f"colocated; {dg['transfers_backpressured']} transfers backpressured, "
           f"decode high-water {dg['decode_pages_high_water']}/9, "
           f"{dg['transfer_rounds']} rounds, {small['ticks']} ticks, both "
           f"pools drained")
@@ -2048,6 +2131,9 @@ def _qwen3_cfg(**over):
     return cfg, q8
 
 
+MOE_CUT_LAYERS = 16                # qwen3-moe-30b-a3b depth of phase 11c
+
+
 def _moe_matmul_launches(cfg) -> int:
     """bramac_matmul launches of one forward: wq wk wv wo and the three
     expert einsums of E calls each per layer, and the unembed."""
@@ -2115,10 +2201,11 @@ def phase_moe_einsum(gen, cfg):
         wall_ms = (time.perf_counter() - t0) * 1e3 / 5
         wb = qw.dequantize().to(torch.bfloat16)
         lib_ms = time_cold(lambda: torch.bmm(x, wb))
-        # x in, weights as stored, both scales, the bf16 out; 4 digit passes
+        # x in, weights as stored, both scales, the bf16 out; one int8
+        # product per expert
         nbytes = E * (2 * C * K + K * N * bits // 8 + 4 * (C + N)
                       + 2 * C * N)
-        ops = 2 * E * C * K * N * 4
+        ops = 2 * E * C * K * N
         bound = max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3
         by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / INT8_OPS_PER_S \
             else "operations"
@@ -2186,15 +2273,18 @@ MOE_LAYER_RTOL = 0.08
 
 
 def phase_moe_serve(cfg, q8, report):
-    """11c: qwen3-moe-30b-a3b at full width (48 layers, 128 experts top-8,
-    bf16, 8-bit weights, random from a seed) through the Engine: phase 5's
-    traffic cut to 4 requests x 8 new tokens, bf16 and int8 KV.
-    bramac_matmul launches (4 + 3 x 128) x 48 + 1 per forward, the decode
-    kernel 48 per decode step, the pools drained; then a device-only
-    profile of one short request."""
+    """11c: qwen3-moe-30b-a3b at full width (128 experts top-8, bf16, 8-bit
+    weights, random from a seed), cut to 16 of its 48 layers, through the
+    Engine: phase 5's traffic cut to 4 requests x 8 new tokens, bf16 and
+    int8 KV.  bramac_matmul launches (4 + 3 x 128) x 16 + 1 per forward,
+    the decode kernel 16 per decode step, the pools drained; then a
+    device-only profile of one short request."""
     from repro_torch.core.quant import QuantizedTensor
     from repro_torch.models import model as M
     t0 = time.perf_counter()
+    # the first 16 of the 48 layers at full width (the same draws as the
+    # full model's first 16 periods)
+    cfg = cfg.replace(num_layers=MOE_CUT_LAYERS)
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                            "cuda", serving=q8)
     torch.cuda.synchronize()
@@ -2213,7 +2303,7 @@ def phase_moe_serve(cfg, q8, report):
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     prompts = _phase5_prompts(cfg.vocab_size)[:4]
     per_fwd = _moe_matmul_launches(cfg)
-    need(per_fwd == 18625, f"qwen3 launches per forward {per_fwd}")
+    need(per_fwd == 6209, f"qwen3 launches per forward {per_fwd}")
     serve(cfg, params, [prompts[0][:5]], 2)                 # warm-up
     runs = {}
     for quant_kv in (False, True):
@@ -2244,7 +2334,8 @@ def phase_moe_serve(cfg, q8, report):
                         forwards=run["forwards"], steps=run["steps"],
                         launches=got,
                         s_per_forward=run["wall"] / run["forwards"])
-        print(f"phase 11c serve qwen3-moe-30b-a3b {kv} KV: {run['done']}/4 "
+        print(f"phase 11c serve qwen3-moe-30b-a3b ({cfg.num_layers} of 48 "
+              f"layers) {kv} KV: {run['done']}/4 "
               f"requests, {run['tokens']} tokens in {run['wall']:.2f} s "
               f"({run['tokens'] / run['wall']:.2f} tok/s), mean TTFT "
               f"{ttft:.1f} ms, peak memory {peak:.2f} GB, "
@@ -2442,7 +2533,7 @@ def block_check(name, cfg, seed=12, S=32, chunk=8):
     from repro_torch.core.bramac_linear import FP32, QuantConfig, \
         tree_prepare_serving
     from repro_torch.core.quant import QuantizedTensor
-    from repro_torch.models.transformer import tree_leaves, tree_map
+    from repro_torch.tree import tree_leaves, tree_map
     _, init, seq, step, state0, n_lin = _mixers()[name]
     q8 = QuantConfig(enabled=True, bits_w=8, bits_a=8)
     f32 = cfg.replace(dtype="float32", quant=FP32, chunk_size=chunk)
@@ -2554,7 +2645,7 @@ def phase_xlstm_serve(report):
     from repro_torch.core.bramac_linear import QuantConfig
     from repro_torch.core.quant import QuantizedTensor
     from repro_torch.models import model as M
-    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.tree import tree_leaves
     t0 = time.perf_counter()
     q8 = QuantConfig(enabled=True, bits_w=8, bits_a=8)
     cfg = get_config("xlstm-1.3b").replace(quant=q8)
@@ -3111,6 +3202,499 @@ def staggered(cfg, params, prompts, **kw):
                     launches=_read_counts())
 
 
+# ---------------------------------------------------------------------------
+# phase 13: training on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S = 4, 64           # the training launcher's defaults
+
+
+@contextlib.contextmanager
+def plain_matmul():
+    """Every quantized matmul of the model through `bramac_matmul_plain` on
+    the card (the kernel's launch count does not move)."""
+    from repro_torch.kernels import bramac_matmul as bm
+    from repro_torch.kernels import ops
+    ops.bramac_matmul = bm.bramac_matmul_plain
+    try:
+        yield
+    finally:
+        ops.bramac_matmul = bm.bramac_matmul
+
+
+def _add_launches(report, got):
+    for k, n in got.items():
+        report.setdefault(k, {}).setdefault("launches", 0)
+        report[k]["launches"] += n
+
+
+def phase_train(report):
+    """Phase 13: (a) the QAT `bramac_dense` at granite-8b's training rows,
+    (b) granite-8b trained at full width, (c) failure recovery and the
+    checkpoint round trip at the smoke widths."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    report["train_dense"] = phase_train_dense(gen)
+    report["train"] = phase_train_granite(report)
+    report["train_recovery"] = phase_train_recovery(report)
+    spent = time.perf_counter() - t_phase
+    report["phase13_s"] = spent
+    print(f"phase 13 took {spent:.1f} s")
+
+
+def phase_train_dense(gen):
+    """13a: `ops.bramac_dense` at every granite-8b linear at M = B x S =
+    256 rows, 8/8 bits, bf16: the forward equal bit for bit on the kernel
+    and on the plain digit-pass version, the straight-through gradients
+    equal to the plain products g @ w^T and x^T @ g; the forward timed
+    beside its bound (bf16 x and w read once, bf16 y written once; the
+    2·M·N·K operations of one int8 product) and bf16 `torch.matmul`."""
+    from repro_torch.kernels import ops
+    M = TRAIN_B * TRAIN_S
+    rows = []
+    for name, (K, N) in GRANITE_SHAPES.items():
+        x = torch.randn((M, K), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        w = (torch.randn((K, N), generator=gen, device="cuda")
+             / K ** 0.5).to(torch.bfloat16)
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = ops.bramac_dense(xg, wg, 8, 8)
+        with plain_matmul(), torch.no_grad():
+            want = ops.bramac_dense(x, w, 8, 8)
+        need(torch.equal(y.detach(), want),
+             f"13a bramac_dense {name}: kernel forward != plain")
+        g = torch.randn((M, N), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        y.backward(g)
+        need(torch.equal(xg.grad, g @ w.T) and torch.equal(wg.grad, x.T @ g),
+             f"13a bramac_dense {name}: STE grads != g @ w^T, x^T @ g")
+        with torch.no_grad():
+            ms = time_cold(lambda: ops.bramac_dense(x, w, 8, 8))
+            with plain_matmul():
+                plain_ms = time_cold(lambda: ops.bramac_dense(x, w, 8, 8),
+                                     iters=5)
+            lib_ms = time_cold(lambda: torch.matmul(x, w))
+        # bf16 x, w and y each once; one int8 product
+        nbytes = 2 * (M * K + K * N + M * N)
+        flops = 2 * M * N * K
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / INT8_OPS_PER_S) * 1e3
+        by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / INT8_OPS_PER_S \
+            else "operations"
+        rows.append(dict(shape=name, M=M, K=K, N=N, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=by,
+                         library="bf16 torch.matmul", library_ms=lib_ms))
+        print(f"  bramac_dense {name} M={M} K={K} N={N}: forward {ms:.4f} ms "
+              f"(bound {bound:.4f} ms by {by}, plain {plain_ms:.4f} ms, bf16 "
+              f"torch.matmul {lib_ms:.4f} ms)")
+    print(f"phase 13a bramac_dense: {len(rows)} granite-8b shapes at M={M}, "
+          f"forward bit-exact vs plain, STE grads == the plain products")
+    return rows
+
+
+def phase_train_granite(report):
+    """13b: granite-8b at full width (36 layers, d=4096, bf16 params, QAT
+    8/8 bits, int8 m / bf16 v) takes 4 `Trainer.run_step`s on SyntheticLM
+    batches of the launcher's B=4, S=64.  Every loss and grad norm finite,
+    bramac_matmul 7 x 36 + 1 = 253 launches per step (the forward; the
+    backward's products are plain), and step 1's loss equal bit for bit to
+    the same forward through the plain version.  `train` is not called: it
+    ends with a checkpoint of the whole state (~40 GB)."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.core.bramac_linear import QuantConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    q8 = QuantConfig(enabled=True, bits_w=8, bits_a=8)
+    cfg = get_config("granite-8b").replace(quant=q8)
+    need((cfg.num_layers, cfg.d_model, cfg.vocab_size, cfg.dtype) ==
+         (36, 4096, 49152, "bfloat16"), "granite-8b config")
+    per_step = 7 * cfg.num_layers + 1
+    need(per_step == 253, f"granite launches per step {per_step}")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    print(f"  granite-8b float params drawn in {time.perf_counter() - t0:.1f} "
+          f"s ({n_params / 1e9:.2f} B, {2 * n_params / 1e9:.2f} GB bf16)")
+    pipe = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B))
+    with torch.no_grad(), plain_matmul():
+        plain_loss = float(M.loss_fn(params, pipe.batch(0, "cuda"), cfg)[0])
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as d:
+        trainer = Trainer(cfg, TrainerConfig(
+            ckpt_dir=d, opt=adamw.AdamWConfig(lr=1e-3)), params)
+        state_gb = torch.cuda.memory_allocated() / 1e9
+        hist, times, launches = [], [], []
+        for step in range(4):
+            batch = pipe.batch(step, "cuda")
+            _zero_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            hist.append(trainer.run_step(batch))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            launches.append(_read_counts())
+        parts = train_step_parts(trainer, pipe.batch(4, "cuda"))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for h in hist:
+        need(all(np.isfinite(h[k]) for k in ("loss", "ce", "grad_norm")),
+             f"13b: a non-finite metric {h}")
+    for got in launches:
+        need(got["bramac_matmul"] == per_step and got["paged_decode"] == 0
+             == got["paged_decode_q"], f"13b: launches {got} per step")
+        _add_launches(report, got)
+    need(hist[0]["loss"] == plain_loss,
+         f"13b: step 1's loss {hist[0]['loss']!r} on the kernel != "
+         f"{plain_loss!r} on the plain version")
+    step_ms = 1e3 * float(np.mean(times[1:]))
+    tok_s = TRAIN_B * TRAIN_S / (step_ms / 1e3)
+    print(f"phase 13b train granite-8b full width (36 layers, QAT 8/8, int8 m "
+          f"/ bf16 v, B={TRAIN_B} S={TRAIN_S}): losses "
+          f"{[round(h['loss'], 4) for h in hist]}, grad norms "
+          f"{[round(h['grad_norm'], 3) for h in hist]}; step 1's loss == the "
+          f"plain version's ({plain_loss!r}); {step_ms:.1f} ms per step "
+          f"(steps 2-4; step 1 {1e3 * times[0]:.1f} ms), {tok_s:.1f} training "
+          f"tokens/s; params + grads-free optimizer state {state_gb:.2f} GB, "
+          f"peak memory {peak:.2f} GB; bramac_matmul {per_step} launches per "
+          f"step; a fifth step split: {parts}")
+    del trainer, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=[h["loss"] for h in hist],
+                grad_norms=[h["grad_norm"] for h in hist], step_ms=step_ms,
+                first_step_ms=1e3 * times[0], tok_s=tok_s, peak_gb=peak,
+                state_gb=state_gb, launches_per_step=per_step,
+                parts_ms=parts)
+
+
+def train_step_parts(trainer, batch) -> dict:
+    """Where a training step's time goes: one more step through the
+    Trainer's own parts (the loss forward, autograd's backward, the AdamW
+    update with the gradients' release), each ended by a device sync;
+    host ms of each."""
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import grads, release_grads
+    marks = [time.perf_counter()]
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    loss, _ = M.loss_fn(trainer.params, batch, trainer.cfg)
+    mark()
+    loss.backward()
+    mark()
+    adamw.apply(trainer.params, trainer.opt_state, grads(trainer.params),
+                trainer.tcfg.opt)
+    release_grads(trainer.params)
+    mark()
+    ms = [round(1e3 * (b - a), 1) for a, b in zip(marks, marks[1:])]
+    return dict(zip(("forward_ms", "backward_ms", "adamw_ms"), ms))
+
+
+def phase_train_recovery(report):
+    """13c: granite-8b at the smoke widths, QAT 8/8 on the card, deterministic
+    algorithms on: `train` for 8 steps (checkpoints every 2, async, keep 3)
+    with a failure injected at step 5 rolls back to step 4 and replays; the
+    recovered history and final state equal an uninterrupted run's bit for
+    bit.  Then an async save, prune and restore of the final state equal
+    the saved tree bit for bit."""
+    import tempfile
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.core.bramac_linear import QuantConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    q8 = QuantConfig(enabled=True, bits_w=8, bits_a=8)
+    cfg = get_config("granite-8b", smoke=True).replace(quant=q8)
+    pipe = SyntheticLM(DataConfig(cfg.vocab_size, 16, 2))
+
+    def run(d, hook):
+        params = M.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        tr = Trainer(cfg, TrainerConfig(ckpt_dir=d, ckpt_every=2,
+                                        opt=adamw.AdamWConfig(lr=1e-3)),
+                     params)
+        return tr, tr.train(pipe, 8, failure_hook=hook)
+
+    crashed = []
+
+    def hook(step):
+        if step == 5 and not crashed:
+            crashed.append(step)
+            raise RuntimeError("injected node failure")
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as d0, \
+                tempfile.TemporaryDirectory() as d1:
+            _zero_counts()
+            tr0, h0 = run(d0, None)
+            tr1, h1 = run(d1, hook)
+            got = _read_counts()
+            need(crashed == [5] and tr1.step == 8 and len(h1) == 9,
+                 f"13c: crashed {crashed}, step {tr1.step}, {len(h1)} steps")
+            need(h1[:5] == h0[:5] and h1[5:] == h0[4:],
+                 f"13c: recovered history != uninterrupted:\n{h0}\n{h1}")
+            need(_trees_equal(tr0.state_tree(), tr1.state_tree()),
+                 "13c: final state after recovery != uninterrupted")
+            need(ckpt.latest_step(d1) == 8 and len(os.listdir(d1)) == 3,
+                 f"13c: checkpoints {sorted(os.listdir(d1))}")
+            back = ckpt.restore(d1, 8, tr1.state_tree())
+            need(_trees_equal(tr1.state_tree(), back),
+                 "13c: restore of the final checkpoint != the state")
+            for s in (9, 10, 11):
+                ckpt.save(d1, s, tr1.state_tree(), blocking=False).join()
+            ckpt.prune(d1, keep=2)
+            need(sorted(os.listdir(d1)) == ["step_00000010",
+                                             "step_00000011"],
+                 f"13c: after prune {sorted(os.listdir(d1))}")
+            back = ckpt.restore(d1, 11, tr1.state_tree())
+            need(_trees_equal(tr1.state_tree(), back),
+                 "13c: async save + restore != the saved tree")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    _add_launches(report, got)
+    print(f"phase 13c recovery (granite-8b smoke widths, QAT 8/8, "
+          f"deterministic algorithms): failure at step 5 rolled back to the "
+          f"step-4 checkpoint and replayed; history ({len(h1)} steps) and "
+          f"final state == the uninterrupted run bit for bit; losses "
+          f"{[round(h['loss'], 4) for h in h0]}; async save, prune (keep 2) "
+          f"and restore bit-exact; launches {got}")
+    return dict(losses=[h["loss"] for h in h0], launches=got)
+
+
+def _trees_equal(a, b) -> bool:
+    """Whether two trees hold the same tensors at the same paths, bit for
+    bit."""
+    from repro_torch.tree import tree_items
+    ia, ib = tree_items(a), tree_items(b)
+    return [k for k, _ in ia] == [k for k, _ in ib] and all(
+        torch.equal(x, y) for (_, x), (_, y) in zip(ia, ib))
+
+
+# ---------------------------------------------------------------------------
+# phase 14: cross-attention and the stub frontends
+# ---------------------------------------------------------------------------
+
+def phase_xattn(report):
+    """Phase 14: (b) llama-3.2-vision-11b at full width, forward-level, and
+    (c) musicgen-large at full width through the Engine (14a is in phases
+    2-4)."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["vision"] = phase_vision(report)
+    report["musicgen"] = phase_musicgen(report)
+    spent = time.perf_counter() - t_phase
+    report["phase14_s"] = spent
+    print(f"phase 14 took {spent:.1f} s")
+
+
+def _top2(logits):
+    top = torch.topk(logits.float(), 2, dim=-1)
+    return top.indices.tolist(), (top.values[..., 0]
+                                  - top.values[..., 1]).tolist()
+
+
+def phase_vision(report):
+    """14b: llama-3.2-vision-11b at full width (40 layers, 8 of them xattn,
+    d=4096, 32/8 heads, vocab 128256, 1600 vision tokens), 8-bit weights
+    quantized as drawn: `model.prefill` of 4 prompts of 64 tokens with
+    vision embeddings drawn from a seed, then 16 greedy `decode_step`s on
+    dense caches.  The xattn K/V caches stay the same bit for bit across
+    the decode steps; each decoded token equals the argmax of one full
+    forward over the same prefix, or the two runs swap a near tie of the
+    top two.  bramac_matmul: 7 per layer + 1 at prefill (xattn projects
+    its K/V there), 7 per attn layer, 5 per xattn layer (wq, wo, FF) + 1
+    per decode step.  The Engine is not used: it feeds no vision inputs
+    (as in the reference)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.bramac_linear import QuantConfig
+    from repro_torch.models import model as M
+    q8 = QuantConfig(enabled=True, bits_w=8, bits_a=8)
+    cfg = get_config("llama-3.2-vision-11b").replace(quant=q8)
+    need((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+          cfg.d_ff, cfg.vocab_size, cfg.vision_tokens, cfg.layer_pattern[0],
+          cfg.dtype) == (40, 4096, 32, 8, 14336, 128256, 1600, "xattn+dense",
+                         "bfloat16"), "llama-3.2-vision-11b config")
+    n_x = cfg.n_periods                          # one xattn layer a period
+    prefill_launches = 7 * cfg.num_layers + 1
+    step_launches = 7 * (cfg.num_layers - n_x) + 5 * n_x + 1
+    need((n_x, prefill_launches, step_launches) == (8, 281, 265),
+         "llama-3.2-vision launch derivation")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = M.init_params(cfg, gen, "cuda", serving=q8)
+    torch.cuda.synchronize()
+    print(f"  llama-3.2-vision-11b params built and quantized one period at "
+          f"a time in {time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    B, S, new = 4, 64, 16
+    rng = np.random.default_rng(14)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(
+        np.int32)).cuda()
+    ve = torch.randn((B, cfg.vision_tokens, cfg.d_model), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        caches = M.init_cache(cfg, B, S + new, device="cuda")
+        _zero_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, caches = M.prefill(params, {"tokens": toks,
+                                            "vision_embeds": ve}, cfg, caches)
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t)
+        got_p = _read_counts()
+        need(got_p["bramac_matmul"] == prefill_launches,
+             f"14b: prefill launches {got_p}")
+        xkv = {k: caches["pos0"][k].clone() for k in ("k", "v")}
+        need(all(bool(xkv[k].abs().amax() > 0) for k in xkv),
+             "14b: prefill left the xattn caches empty")
+        out, top_dec = [logits.argmax(-1)], [_top2(logits)]
+        step_ms = []
+        _zero_counts()
+        for i in range(new):
+            pos = torch.full((B,), S + i, dtype=torch.int32, device="cuda")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, caches = M.decode_step(params, out[-1][:, None].to(
+                torch.int32), cfg, caches, pos)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t))
+            out.append(logits.argmax(-1))
+            top_dec.append(_top2(logits))
+        got_d = _read_counts()
+        need(got_d["bramac_matmul"] == step_launches * new,
+             f"14b: decode launches {got_d} != {step_launches} x {new}")
+        need(all(torch.equal(caches["pos0"][k], xkv[k]) for k in xkv),
+             "14b: the xattn K/V caches moved during decode")
+        stream = torch.stack(out, 1)                     # (B, new + 1)
+        full = torch.cat([toks, stream[:, :-1].to(torch.int32)], 1)
+        flog, _, _ = M.forward(params, {"tokens": full, "vision_embeds": ve},
+                               cfg)
+        flog = flog[:, S - 1:]                           # (B, new + 1, V)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # the streams must agree, except that a request may leave the full
+    # forward's argmax where both rank the same two tokens first and differ
+    # only in their order (a near tie resolved otherwise by the cached
+    # decode); after such a swap the contexts differ and nothing more is
+    # compared
+    a, b = stream.tolist(), flog.argmax(-1).tolist()
+    swaps = []
+    for r in range(B):
+        j = next((j for j in range(new + 1) if a[r][j] != b[r][j]), None)
+        if j is None:
+            continue
+        (da, gap_a), (fa, gap_b) = top_dec[j], _top2(flog[:, j])
+        need(da[r] == [a[r][j], b[r][j]] and fa[r] == [b[r][j], a[r][j]],
+             f"14b: request {r} token {j}: decoded {a[r][j]} vs full "
+             f"forward {b[r][j]}, beyond a swap of the top two "
+             f"({da[r]} vs {fa[r]})")
+        swaps.append(f"request {r} token {j}: top two swapped, gaps "
+                     f"{gap_a[r]:.4g} / {gap_b[r]:.4g}")
+    dec_ms = float(np.mean(step_ms[1:]))
+    print(f"phase 14b llama-3.2-vision-11b full width (40 layers, 8 xattn, "
+          f"1600 vision tokens, 8-bit): prefill 4 x {S} tokens "
+          f"{prefill_ms:.1f} ms ({prefill_launches} bramac_matmul launches), "
+          f"{new} decode steps {dec_ms:.2f} ms each ({step_launches} "
+          f"launches per step), peak memory {peak:.2f} GB; xattn K/V caches "
+          f"unchanged across decode; decoded tokens == full-forward argmax"
+          + (f" except near-tie swaps: {swaps}" if swaps else ""))
+    _add_launches(report, got_p)
+    _add_launches(report, got_d)
+    del params, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(prefill_ms=prefill_ms, decode_ms=dec_ms, peak_gb=peak,
+                prefill_launches=prefill_launches,
+                step_launches=step_launches, swaps=swaps)
+
+
+def phase_musicgen(report):
+    """14c: musicgen-large at full width (48 layers, d=2048, MHA 32/32,
+    8-bit weights quantized as drawn) through the Engine on phase 11c's
+    traffic (4 requests x 8 tokens), bf16 and int8 KV: bramac_matmul 7 x 48
+    + 1 launches per forward, the decode kernel 48 per step.  Then one
+    full-width forward from `frame_embeds` = the embedding of 64 tokens
+    equals the token forward bit for bit (the audio stub frontend)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.bramac_linear import QuantConfig
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import embed
+    q8 = QuantConfig(enabled=True, bits_w=8, bits_a=8)
+    cfg = get_config("musicgen-large").replace(quant=q8)
+    need((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+          cfg.d_ff, cfg.vocab_size, cfg.audio_frontend, cfg.dtype) ==
+         (48, 2048, 32, 32, 8192, 2048, True, "bfloat16"),
+         "musicgen-large config")
+    per_fwd = 7 * cfg.num_layers + 1
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda", serving=q8)
+    torch.cuda.synchronize()
+    print(f"  musicgen-large params built and quantized in "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    prompts = _phase5_prompts(cfg.vocab_size)[:4]
+    serve(cfg, params, [prompts[0][:5]], 2)                 # warm-up
+    runs = {}
+    for quant_kv in (False, True):
+        c = cfg.replace(quant_kv=quant_kv)
+        kv = "int8" if quant_kv else "bf16"
+        attn = "paged_decode_q" if quant_kv else "paged_decode"
+        other = "paged_decode" if quant_kv else "paged_decode_q"
+        _zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        run = serve(c, params, prompts, 8)
+        got = _read_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        need(run["done"] == 4 and all(
+            len(s) == 8 and all(0 <= t < cfg.vocab_size for t in s)
+            for s in run["streams"]), f"14c ({kv} KV): streams")
+        need(got["bramac_matmul"] == per_fwd * run["forwards"],
+             f"14c ({kv} KV): bramac_matmul launches {got['bramac_matmul']} "
+             f"!= {per_fwd} x {run['forwards']}")
+        need(got[attn] == cfg.num_layers * run["steps"] > 0
+             and got[other] == 0, f"14c ({kv} KV): decode kernel launches "
+             f"{got} for {run['steps']} steps")
+        need(run["drained"], f"14c ({kv} KV): a pool kept pages")
+        _add_launches(report, got)
+        ttft = 1e3 * float(np.mean(run["ttft"]))
+        runs[kv] = dict(tok_s=run["tokens"] / run["wall"], ttft_ms=ttft,
+                        peak_gb=peak, forwards=run["forwards"],
+                        steps=run["steps"], launches=got)
+        print(f"phase 14c serve musicgen-large {kv} KV: {run['done']}/4 "
+              f"requests, {run['tokens']} tokens in {run['wall']:.2f} s "
+              f"({run['tokens'] / run['wall']:.2f} tok/s), mean TTFT "
+              f"{ttft:.1f} ms, peak memory {peak:.2f} GB, {run['forwards']} "
+              f"forwards, launches {got} (= {per_fwd} x forwards and "
+              f"{cfg.num_layers} x {run['steps']} steps)")
+    with torch.no_grad():
+        toks = torch.from_numpy(prompts[0][:64].astype(np.int32))[None].cuda()
+        by_tok = M.forward(params, {"tokens": toks}, cfg)[0]
+        frames = embed(params["embed"], toks)
+        by_frame = M.forward(params, {"frame_embeds": frames}, cfg)[0]
+    need(torch.equal(by_tok, by_frame),
+         "14c: the frame_embeds forward != the token forward")
+    print("phase 14c musicgen-large full width: forward from frame_embeds "
+          "(64 frames) == the token forward bit for bit")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3149,6 +3733,8 @@ def main() -> int:
     phase_minicpm(report)
     phase_moe(report)
     phase_recurrent(report)
+    phase_train(report)
+    phase_xattn(report)
     phase_streams()
     print(f"timing: {len(HOST_BOUND)} readings in which an enqueue outlasted "
           f"the device spin" + (f": {HOST_BOUND}" if HOST_BOUND else ""))

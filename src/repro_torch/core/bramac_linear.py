@@ -1,12 +1,14 @@
 """BRAMAC quantized linear — the paper's technique as a composable module.
 
-Port of the serving half of `repro.core.bramac_linear`: weights are
-quantized **once** offline (`prepare_serving`) into int8/packed storage —
-the "main BRAM" resident layout — and every call quantizes activations on
-the fly and runs the integer kernel (`serve_dense`, and per expert
-`serve_einsum_edf`).  The QAT path
-(`ops.bramac_dense`, straight-through gradients) belongs to the training
-slice of the port, which is not written yet.
+Port of `repro.core.bramac_linear`, in its two execution styles:
+
+  * **training / QAT**: a float weight under an enabled config runs the
+    fake-quant forward through the BRAMAC integer dataflow with
+    straight-through gradients (`ops.bramac_dense`).
+  * **serving**: weights are quantized **once** offline (`prepare_serving`)
+    into int8/packed storage — the "main BRAM" resident layout — and every
+    call quantizes activations on the fly and runs the integer kernel
+    (`serve_dense`, and per expert `serve_einsum_edf`).
 
 `QuantConfig.bits ∈ {2,4,8}` selects the MAC precision exactly as BRAMAC's
 `prec` instruction field does.
@@ -45,15 +47,13 @@ FP32 = QuantConfig(enabled=False)
 
 def dense(x: torch.Tensor, w, cfg: QuantConfig | None) -> torch.Tensor:
     """Linear y = x @ w through the configured path: a float weight runs a
-    plain matmul; a pre-quantized `QuantizedTensor` runs the serving path."""
+    plain matmul (fp) or the QAT fake-quant (`ops.bramac_dense`, enabled
+    config); a pre-quantized `QuantizedTensor` runs the serving path."""
     if isinstance(w, quant.QuantizedTensor):
         return serve_dense(x, w, cfg)
     if cfg is None or not cfg.enabled:
         return x @ w
-    raise NotImplementedError(
-        "quantized training (bramac_dense with straight-through gradients) "
-        "is not ported yet; quantize the weights "
-        "for serving with tree_prepare_serving")
+    return ops.bramac_dense(x, w, cfg.bits_w, cfg.bits_a)
 
 
 def prepare_serving(w: torch.Tensor, cfg: QuantConfig) -> quant.QuantizedTensor:

@@ -61,6 +61,15 @@ class QuantizedTensor:
                                    scale=fn(self.scale))
 
 
+@dataclasses.dataclass
+class Q8:
+    """Block-wise absmax int8 tensor (AdamW's first moment): q (n_blocks,
+    BLOCK) int8, scale (n_blocks, 1) f32, and the logical shape."""
+    q: torch.Tensor
+    scale: torch.Tensor
+    shape: tuple[int, ...]
+
+
 def _check_bits(bits: int) -> None:
     if bits not in SUPPORTED_BITS:
         raise ValueError(f"BRAMAC supports bits in {SUPPORTED_BITS}, got {bits}")

@@ -21,7 +21,9 @@ MiniCPM3/DeepSeek style) caches only the normed latent `c_kv` and the
 roped `k_rope`, in the compute dtype (`quant_kv` does not apply), and
 always reads through the gather: its up-projections run over the whole
 gathered view, and the decode kernels, which read GQA pools, are never
-its path.  Cross-attention comes with a later slice.
+its path.  Cross-attention (xattn: text queries over precomputed image
+patch embeddings) projects its position-free K/V once, at prefill, into a
+per-slot cache that decode steps read.
 """
 from __future__ import annotations
 
@@ -428,3 +430,43 @@ def init_mla_cache(cfg, batch, max_seq, dtype, num_pages=None, device=None):
                                 device=device),
             "k_rope": torch.zeros(lead + (cfg.qk_rope_dim,), dtype=dtype,
                                   device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (VLM: text queries attend to image patch embeddings)
+# ---------------------------------------------------------------------------
+
+def init_xattn(gen, cfg, device):
+    return init_gqa(gen, cfg, device) | {
+        "kv_norm": init_rmsnorm(cfg.d_model, cfg.compute_dtype, device)}
+
+
+def xattn(p, x, cfg, vision_embeds, cache=None, cache_pos=None):
+    """vision_embeds: (B, T_v, D) precomputed patch embeddings (the stub
+    frontend).  K/V are position-free: a decode step (S == 1 with a cache)
+    reads them from the cache, anything else projects them from
+    `vision_embeds` and, given a cache, writes them there in place.
+    Returns (out, cache)."""
+    B, S, _ = x.shape
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    q = dense(x, p["wq"], cfg.quant).reshape(B, S, H, hd)
+    if cache is not None and S == 1:
+        k, v = cache["k"], cache["v"]              # projected during prefill
+    else:
+        ve = rmsnorm(p["kv_norm"], vision_embeds, cfg.norm_eps)
+        Tv = ve.shape[1]
+        k = dense(ve, p["wk"], cfg.quant).reshape(B, Tv, Hkv, hd)
+        v = dense(ve, p["wv"], cfg.quant).reshape(B, Tv, Hkv, hd)
+        if cache is not None:
+            cache["k"].copy_(k)
+            cache["v"].copy_(v)
+    mask = torch.ones((S, k.shape[1]), dtype=torch.bool, device=x.device)
+    out = _attend(q, k, v, mask)
+    return dense(out.reshape(B, S, H * hd), p["wo"], cfg.quant), cache
+
+
+def init_xattn_cache(cfg, batch, dtype, device=None):
+    """Per-slot projected vision K/V, (batch, vision_tokens, Hkv, hd)."""
+    shape = (batch, cfg.vision_tokens, cfg.num_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

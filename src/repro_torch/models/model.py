@@ -1,5 +1,10 @@
-"""Top-level model API: init / forward / prefill / decode (port of
-`repro.models.model` for token LMs).
+"""Top-level model API: init / train forward / loss / prefill / decode
+(port of `repro.models.model`).
+
+Batch dict conventions, as the reference's:
+  LM / code / dense / moe : {"tokens": (B,S) i32, "labels": (B,S) i32}
+  vlm   : + {"vision_embeds": (B, T_v, D)}   (stub frontend)
+  audio : {"frame_embeds": (B,S,D), "labels": (B,S)}  (stub EnCodec)
 
 Serving:
   prefill(params, batch, cfg, caches)          — writes the cache, returns
@@ -16,8 +21,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.bramac_linear import QuantConfig, tree_prepare_serving
 from repro_torch.models import transformer as tf
-from repro_torch.models.layers import embed, init_embed, init_rmsnorm, \
-    rmsnorm, unembed
+from repro_torch.models.layers import cross_entropy, embed, init_embed, \
+    init_rmsnorm, rmsnorm, unembed
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -44,6 +49,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             "layers": tf.init_stack(generator, cfg, device, prepare)}
 
 
+def _inputs_to_hidden(params, batch, cfg):
+    if "frame_embeds" in batch:                      # audio stub frontend
+        return batch["frame_embeds"].to(cfg.compute_dtype)
+    return embed(params["embed"], batch["tokens"])
+
+
 def forward(params, batch, cfg: ModelConfig, caches=None, cache_pos=None,
             last_only: bool = False, gather_pos=None, paged=None):
     """Returns (logits, aux_loss, caches).
@@ -54,19 +65,20 @@ def forward(params, batch, cfg: ModelConfig, caches=None, cache_pos=None,
     paged: an attention.PagedKV bundle — caches hold shared page pools and
     attention reads/writes KV rows through its block tables; with
     decode_kernel set, S=1 reads go through the paged-decode kernels."""
-    if "tokens" not in batch:
-        raise NotImplementedError("only token inputs are ported so far "
-                                  "(not the vision and audio frontend stubs)")
-    x = embed(params["embed"], batch["tokens"])
+    x = _inputs_to_hidden(params, batch, cfg)
     B, S = x.shape[:2]
     ar = torch.arange(S, dtype=torch.int32, device=x.device)[None]
     if cache_pos is not None:
         positions = cache_pos.to(torch.int32)[:, None] + ar
     else:
         positions = ar.expand(B, S)
+    ve = batch.get("vision_embeds")
+    if ve is not None:
+        ve = ve.to(cfg.compute_dtype)
     x, aux, caches = tf.stack_apply(params["layers"], x, cfg,
-                                    positions=positions, caches=caches,
-                                    cache_pos=cache_pos, paged=paged)
+                                    positions=positions, vision_embeds=ve,
+                                    caches=caches, cache_pos=cache_pos,
+                                    paged=paged)
     if last_only:
         x = x[:, -1:]
     elif gather_pos is not None:
@@ -74,6 +86,14 @@ def forward(params, batch, cfg: ModelConfig, caches=None, cache_pos=None,
         x = torch.gather(x, 1, idx)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params["embed"], x, cfg.quant), aux, caches
+
+
+def loss_fn(params, batch, cfg: ModelConfig, aux_weight: float = 0.01):
+    """Mean token cross-entropy plus `aux_weight` x the MoE aux loss.
+    Returns (loss, {"ce", "aux"})."""
+    logits, aux, _ = forward(params, batch, cfg)
+    loss = cross_entropy(logits, batch["labels"])
+    return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, num_pages=None,
@@ -86,16 +106,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, num_pages=None,
 
 def cache_pool_flags(cfg: ModelConfig):
     """Tree matching init_cache(num_pages=...) with True at shared-pool
-    leaves."""
+    leaves, False at per-slot leaves (recurrent state, xattn KV)."""
     return tf.stack_cache_pool_flags(cfg)
 
 
 def prefill(params, batch, cfg: ModelConfig, caches):
     """Run the prompt through the model, filling the cache from row 0.
     Returns (last_token_logits (B,V), caches)."""
-    B = batch["tokens"].shape[0]
-    cache_pos = torch.zeros((B,), dtype=torch.int32,
-                            device=batch["tokens"].device)
+    x = batch["frame_embeds"] if "frame_embeds" in batch else batch["tokens"]
+    cache_pos = torch.zeros((x.shape[0],), dtype=torch.int32,
+                            device=x.device)
     logits, _, caches = forward(params, batch, cfg, caches, cache_pos,
                                 last_only=True)
     return logits[:, -1], caches

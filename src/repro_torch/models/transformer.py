@@ -1,15 +1,16 @@
 """Layer stack: pattern-driven blocks over stacked per-period parameters.
 
 Port of `repro.models.transformer`: blocks of the `attn` (GQA), `mla`
-(multi-head latent attention), `mamba`, `mlstm` and `slstm` mixers with the
-`dense` (SwiGLU), `moe` (`models.moe`) or `none` feed-forward.  Parameters
-of pattern position i are stacked over `n_periods` as in the reference
+(multi-head latent attention), `xattn` (cross-attention over vision
+embeddings), `mamba`, `mlstm` and `slstm` mixers with the `dense`
+(SwiGLU), `moe` (`models.moe`) or `none` feed-forward.  Parameters of
+pattern position i are stacked over `n_periods` as in the reference
 (`params["pos{i}"][leaf]` with a leading period axis); `stack_apply` walks
-the periods in a Python loop over period slices (views, no copies) and
-sums the MoE aux losses.  Attention caches are written in place; a
-recurrent mixer's state (a tuple, as in the reference) is copied into its
-cache slice after each call.  The cross-attention mixer (xattn) raises
-NotImplementedError.
+the periods in a Python loop over period views, each stacked leaf unbound
+once (so autograd gathers one stacked gradient per leaf, not one
+full-size gradient per period), and sums the MoE aux losses.  Attention
+caches are written in place; a recurrent mixer's state (a tuple, as in
+the reference) is copied into its cache slice after each call.
 """
 from __future__ import annotations
 
@@ -24,11 +25,10 @@ from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import init_mlp, init_rmsnorm, mlp, rmsnorm
+from repro_torch.tree import tree_map
 
 MIXERS = ("attn", "mla", "xattn", "mamba", "mlstm", "slstm")
 FFS = ("dense", "moe", "none")
-SERVED_MIXERS = ("attn", "mla", "mamba", "mlstm", "slstm")
-SERVED_FFS = ("dense", "moe", "none")
 RECURRENT = ("mamba", "mlstm", "slstm")
 
 
@@ -36,48 +36,12 @@ def parse_spec(spec: str) -> tuple[str, str]:
     mixer, ff = spec.split("+")
     if mixer not in MIXERS or ff not in FFS:
         raise ValueError(f"bad layer spec {spec!r}")
-    if mixer not in SERVED_MIXERS:
-        raise NotImplementedError(
-            f"layer {spec!r}: the {mixer} mixer is not ported yet (the "
-            f"port serves {', '.join(SERVED_MIXERS)})")
-    if ff not in SERVED_FFS:
-        raise NotImplementedError(
-            f"layer {spec!r}: the {ff!r} feed-forward is not ported yet "
-            f"(the port serves {', '.join(SERVED_FFS)})")
     return mixer, ff
 
 
 def is_recurrent(cfg) -> bool:
     """Whether any layer keeps a recurrent state (mamba/mlstm/slstm)."""
     return any(m in spec for spec in cfg.layer_pattern for m in RECURRENT)
-
-
-def tree_map(fn, tree, *rest):
-    """Map `fn` over the tensors of a tree of dicts and tuples
-    (QuantizedTensor leaves map their values and scale).  `rest` are trees
-    of the same structure whose corresponding leaves (tensors or flags)
-    are passed after each tensor; non-tensor leaves of `tree` pass through."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        return tuple(tree_map(fn, v, *(r[i] for r in rest))
-                     for i, v in enumerate(tree))
-    if isinstance(tree, QuantizedTensor):
-        return tree.map(fn)
-    if isinstance(tree, torch.Tensor):
-        return fn(tree, *rest)
-    return tree
-
-
-def tree_leaves(tree) -> list:
-    """The leaves of a tree of dicts and tuples: dict entries in key
-    order, tuple entries in place."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
-    if isinstance(tree, tuple):
-        return [x for v in tree for x in tree_leaves(v)]
-    return [tree]
 
 
 # ---------------------------------------------------------------------------
@@ -88,8 +52,8 @@ def init_block(gen, cfg, spec: str, device):
     mixer, ff = parse_spec(spec)
     dt = cfg.compute_dtype
     init = {"attn": attn.init_gqa, "mla": attn.init_mla,
-            "mamba": mb.init_mamba, "mlstm": xl.init_mlstm,
-            "slstm": xl.init_slstm}[mixer]
+            "xattn": attn.init_xattn, "mamba": mb.init_mamba,
+            "mlstm": xl.init_mlstm, "slstm": xl.init_slstm}[mixer]
     p: dict[str, Any] = {"norm1": init_rmsnorm(cfg.d_model, dt, device),
                          "mixer": init(gen, cfg, device)}
     if ff != "none":
@@ -104,8 +68,9 @@ def init_block(gen, cfg, spec: str, device):
 def init_block_cache(cfg, spec: str, batch: int, max_seq: int, dtype,
                      num_pages=None, device=None):
     """Decode-time state for one block: attention KV (a paged pool when
-    num_pages), or a recurrent mixer's per-slot state tuple, which is the
-    same in both layouts (the "registers" of a slot, not token storage)."""
+    num_pages), or a recurrent mixer's per-slot state tuple or the
+    cross-attention's projected vision K/V, which are the same in both
+    layouts (the "registers" of a slot, not token storage)."""
     mixer, _ = parse_spec(spec)
     if mixer == "attn":
         return attn.init_gqa_cache(cfg, batch, max_seq, dtype, num_pages,
@@ -113,6 +78,8 @@ def init_block_cache(cfg, spec: str, batch: int, max_seq: int, dtype,
     if mixer == "mla":
         return attn.init_mla_cache(cfg, batch, max_seq, dtype, num_pages,
                                    device)
+    if mixer == "xattn":
+        return attn.init_xattn_cache(cfg, batch, dtype, device)
     if mixer == "mamba":
         return mb.init_mamba_state(cfg, batch, dtype, device)
     if mixer == "mlstm":
@@ -130,8 +97,8 @@ _SEQUENCE = {"mamba": mb.mamba_sequence, "mlstm": xl.mlstm_sequence,
              "slstm": xl.slstm_sequence}
 
 
-def block_apply(p, x, cfg, spec, *, positions, cache=None, cache_pos=None,
-                paged=None):
+def block_apply(p, x, cfg, spec, *, positions, vision_embeds=None,
+                cache=None, cache_pos=None, paged=None):
     """Returns (x, aux_loss, cache).  `paged` (a PagedKV or DenseKV
     bundle) selects the cache discipline inside gqa/mla; its decode_kernel
     flag routes Sq=1 gqa reads through the paged-decode kernels, and mla
@@ -154,6 +121,9 @@ def block_apply(p, x, cfg, spec, *, positions, cache=None, cache_pos=None,
                         dst.ndim - 1))
                     src = torch.where(keep, src, dst)
                 dst.copy_(src)
+    elif mixer == "xattn":
+        y, _ = attn.xattn(p["mixer"], h, cfg, vision_embeds, cache,
+                          cache_pos)
     else:
         mix = attn.gqa if mixer == "attn" else attn.mla
         y, _ = mix(p["mixer"], h, cfg, positions, cache, cache_pos, paged)
@@ -232,7 +202,7 @@ def stack_cache_pool_flags(cfg):
     """A tree matching init_stack_cache's paged structure with True at
     shared page-pool leaves — every leaf of an attn block (k, v and the
     int8 scales) and of an mla block (c_kv, k_rope) — and False at per-slot
-    leaves (recurrent state), which engines reset by slot.  The
+    leaves (recurrent state, xattn KV), which engines reset by slot.  The
     dense layout has the same structure, True at its KV leaves."""
     flags = {}
     for i, spec in enumerate(cfg.layer_pattern):
@@ -243,17 +213,40 @@ def stack_cache_pool_flags(cfg):
     return flags
 
 
-def stack_apply(params, x, cfg, *, positions, caches=None, cache_pos=None,
-                paged=None):
+def unstack(tree, n: int) -> list:
+    """The n period views of a stacked tree.  Each tensor leaf is unbound
+    once: autograd then stacks the periods' gradients into one tensor,
+    where indexing per period would give each period's gradient the full
+    stacked size.  QuantizedTensor leaves (never differentiated) are
+    sliced."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    if isinstance(tree, tuple):
+        parts = [unstack(v, n) for v in tree]
+        return [tuple(v[i] for v in parts) for i in range(n)]
+    if isinstance(tree, QuantizedTensor):
+        return [tree.map(lambda a, i=i: a[i]) for i in range(n)]
+    if isinstance(tree, torch.Tensor):
+        return list(torch.unbind(tree, 0))
+    return [tree] * n
+
+
+def stack_apply(params, x, cfg, *, positions, vision_embeds=None,
+                caches=None, cache_pos=None, paged=None):
     """Walk the periods in order.  Returns (x, aux_total, caches); caches
     are updated in place through per-period views."""
+    n = cfg.n_periods
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for period in range(cfg.n_periods):
+    p_views = [unstack(params[f"pos{i}"], n)
+               for i in range(len(cfg.layer_pattern))]
+    for period in range(n):
         for i, spec in enumerate(cfg.layer_pattern):
-            p_i = tree_map(lambda a: a[period], params[f"pos{i}"])
             cache_i = None if caches is None else \
                 tree_map(lambda a: a[period], caches[f"pos{i}"])
-            x, aux, _ = block_apply(p_i, x, cfg, spec, positions=positions,
+            x, aux, _ = block_apply(p_views[i][period], x, cfg, spec,
+                                    positions=positions,
+                                    vision_embeds=vision_embeds,
                                     cache=cache_i, cache_pos=cache_pos,
                                     paged=paged)
             aux_total = aux_total + aux

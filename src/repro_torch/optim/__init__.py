@@ -1,0 +1,1 @@
+"""optim of the PyTorch port (see the package docstring)."""

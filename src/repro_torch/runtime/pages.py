@@ -61,7 +61,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models.transformer import tree_map
+from repro_torch.tree import tree_map
 
 
 class PagePool(NamedTuple):

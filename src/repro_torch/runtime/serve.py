@@ -81,7 +81,11 @@ disaggregation raises ValueError, since the state has no page to move.
 
 The engine runs on the card unless the caller asks for the CPU
 (`device="cpu"`); with no GPU and no explicit CPU request it raises.
-A mesh raises NotImplementedError at construction.
+A mesh raises NotImplementedError at construction, and so does a
+cross-attention (xattn) arch: the Engine feeds no `vision_embeds`, so
+llama-3.2-vision runs forward-level only (`model.prefill` /
+`decode_step`), as in the reference, whose Engine fails at the first
+admission of such an arch.
 """
 from __future__ import annotations
 
@@ -92,8 +96,7 @@ import torch
 
 from repro_torch.kernels import paged_attention as pk
 from repro_torch.models import model as M
-from repro_torch.models.transformer import is_recurrent, tree_leaves, \
-    tree_map
+from repro_torch.models.transformer import is_recurrent
 from repro_torch.runtime import pages as pg
 from repro_torch.runtime import speculate as spc
 from repro_torch.runtime.options import EngineOptions, RequestResult
@@ -101,6 +104,7 @@ from repro_torch.runtime.scheduler import Request, Scheduler
 from repro_torch.runtime.workers import (DecodeWorker, PrefillWorker,
                                          SlotState, _upload,
                                          init_slot_state)
+from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["Engine", "Request", "SlotState", "RequestResult", "resolve_device"]
 
@@ -168,6 +172,13 @@ class Engine:
         if missing is not None:
             raise NotImplementedError(f"{missing} is not ported to "
                                       f"repro_torch yet")
+        if any(s.startswith("xattn+") for s in cfg.layer_pattern):
+            raise NotImplementedError(
+                f"{cfg.name} has cross-attention (xattn) layers, and the "
+                f"Engine feeds no vision inputs (vision_embeds): such an "
+                f"arch runs forward-level only, through model.prefill / "
+                f"model.decode_step with vision_embeds, as in the "
+                f"reference")
         self.options = options
         self.device = device
         sch, par = options.schedule, options.parallel
@@ -175,7 +186,7 @@ class Engine:
             cfg = cfg.replace(ep_dispatch=par.dispatch)
         if par.capacity_factor is not None:
             cfg = cfg.replace(moe_capacity_factor=float(par.capacity_factor))
-        M.cache_pool_flags(cfg)         # rejects layer kinds not ported yet
+        M.cache_pool_flags(cfg)         # rejects malformed layer specs
         self.cfg = cfg
         self.params = tree_map(lambda a: a.to(device), params)
         self.num_slots, self.max_seq = sch.num_slots, sch.max_seq
@@ -215,7 +226,7 @@ class Engine:
         # speculation opts out silently where verify/decode parity breaks
         # (recurrent state cannot rewind a rejected draft; MoE capacity
         # drops depend on the rows of each call; cross-attention, which the
-        # port refuses at parse_spec), and under disaggregation (drafter
+        # engine refuses above), and under disaggregation (drafter
         # state has no page representation)
         spec = options.speculation
         spec_ok = not recurrent and not self.disagg and not any(

@@ -60,7 +60,7 @@ import torch
 from repro_torch.core import bramac_linear as bl
 from repro_torch.models import attention as attn
 from repro_torch.models import model as M
-from repro_torch.models.transformer import tree_map
+from repro_torch.tree import tree_map
 from repro_torch.runtime.pages import zero_rows
 
 # FNV-1a over (token + 1) in wrapping uint32; +1 keeps the -1 history

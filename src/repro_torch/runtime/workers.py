@@ -41,7 +41,7 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import model as M
-from repro_torch.models.transformer import tree_leaves
+from repro_torch.tree import tree_leaves
 from repro_torch.runtime import pages as pg
 from repro_torch.runtime import sampling as smp
 from repro_torch.runtime import speculate as spc

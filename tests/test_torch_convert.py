@@ -145,7 +145,8 @@ def test_import_leaves_jax_out():
     """The port imports neither jax nor the reference package."""
     code = ("import sys, repro_torch, repro_torch.convert, "
             "repro_torch.runtime.serve, repro_torch.launch.serve, "
-            "repro_torch.kernels.build\n"
+            "repro_torch.kernels.build, repro_torch.runtime.trainer, "
+            "repro_torch.launch.train\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')]\n"
             "assert not bad, bad\nprint('CLEAN')")

@@ -28,6 +28,7 @@ from repro_torch.models import attention as TA
 from repro_torch.models import model as TM
 from repro_torch.models import transformer as TT
 from repro_torch.runtime.serve import Engine as TEngine
+from repro_torch.tree import tree_map
 from test_torch_convert import leaves, np_, smoke_pair, to_torch
 from test_torch_model import ATOL_FP, ATOL_Q, B, _jax_run, _torch_run
 
@@ -71,7 +72,7 @@ def test_mla_block_matches_jax(params, mode):
     jp, tp = params
     jc, tc = smoke_pair(ARCH)
     pj = jax.tree_util.tree_map(lambda a: a[0], jp["layers"]["pos0"]["mixer"])
-    pt = TT.tree_map(lambda a: a[0], tp["layers"]["pos0"]["mixer"])
+    pt = tree_map(lambda a: a[0], tp["layers"]["pos0"]["mixer"])
     if mode == "none":
         _, x, pos = _block_inputs(1, tc, 7, (0, 0))
         a, ca = JA.mla(pj, jnp.asarray(x), jc, jnp.asarray(pos))

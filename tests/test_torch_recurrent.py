@@ -37,6 +37,7 @@ from repro_torch.models import transformer as TT
 from repro_torch.models import xlstm as TX
 from repro_torch.runtime import pages as pg
 from repro_torch.runtime.serve import Engine as TEngine
+from repro_torch.tree import tree_leaves, tree_map
 from test_torch_convert import leaves, np_, smoke_pair, to_torch
 from test_torch_model import ATOL_Q
 
@@ -73,7 +74,7 @@ def _jmixer(tree, pos):
 
 
 def _close(got, want):
-    for a, b in zip(TT.tree_leaves(got), jax.tree_util.tree_leaves(want)):
+    for a, b in zip(tree_leaves(got), jax.tree_util.tree_leaves(want)):
         np.testing.assert_allclose(np_(a), np.asarray(b), **TOL)
 
 
@@ -85,17 +86,17 @@ def test_tree_map_and_walkers_take_tuples():
     order; the pool walkers leave per-slot leaves alone."""
     tree = {"b": (torch.ones(2), torch.zeros(3)), "a": {"c": torch.ones(1)}}
     flags = {"b": (False, True), "a": {"c": True}}
-    out = TT.tree_map(lambda t, f: t + (10 if f else 20), tree, flags)
+    out = tree_map(lambda t, f: t + (10 if f else 20), tree, flags)
     assert isinstance(out["b"], tuple)
     assert out["b"][0].tolist() == [21.0, 21.0]
     assert out["b"][1].tolist() == [10.0] * 3 and out["a"]["c"].item() == 11
-    assert [t.numel() for t in TT.tree_leaves(tree)] == [1, 2, 3]
+    assert [t.numel() for t in tree_leaves(tree)] == [1, 2, 3]
     _, tc = smoke_pair(JB)
     caches = TM.init_cache(tc, 2, 32, num_pages=4)
     flags = TM.cache_pool_flags(tc)
     assert isinstance(caches["pos0"], tuple) and flags["pos0"] == (False,
                                                                    False)
-    assert all(TT.tree_leaves(flags["pos4"]))
+    assert all(tree_leaves(flags["pos4"]))
     h = caches["pos0"][0]
     h.fill_(3.0)
     pg.cow_copy(caches, flags, torch.tensor([1, -1]), torch.tensor([2, 3]))
@@ -114,11 +115,11 @@ def test_cache_trees_carried_across(arch_params):
         got = to_torch(JM.init_cache(jc, 2, 32, num_pages=pages))
         own = TM.init_cache(tc, 2, 32, num_pages=pages)
         assert jax.tree_util.tree_structure(
-            TT.tree_map(lambda t: 0, got)) == jax.tree_util.tree_structure(
-            TT.tree_map(lambda t: 0, own))
-        for a, b in zip(TT.tree_leaves(got), TT.tree_leaves(own)):
+            tree_map(lambda t: 0, got)) == jax.tree_util.tree_structure(
+            tree_map(lambda t: 0, own))
+        for a, b in zip(tree_leaves(got), tree_leaves(own)):
             assert a.dtype == b.dtype and torch.equal(a, b)
-    assert TT.tree_map(lambda t, f: f, own, TM.cache_pool_flags(tc)) == \
+    assert tree_map(lambda t, f: f, own, TM.cache_pool_flags(tc)) == \
         TM.cache_pool_flags(tc)
 
 
@@ -295,7 +296,7 @@ def test_prefill_decode_logits_match_jax(arch_params):
     b, cb = _decode_run(TM, tc, tp, toks, 3, "paged", torch.from_numpy)
     np.testing.assert_allclose(b, a, rtol=RTOL_STACK,
                                atol=RTOL_STACK * np.abs(a).max())
-    for x, y in zip(TT.tree_leaves(cb), jax.tree_util.tree_leaves(ca)):
+    for x, y in zip(tree_leaves(cb), jax.tree_util.tree_leaves(ca)):
         y = np.asarray(y)
         np.testing.assert_allclose(np_(x), y, rtol=RTOL_STACK,
                                    atol=RTOL_STACK * np.abs(y).max())
@@ -306,7 +307,8 @@ def test_prefill_decode_logits_match_jax(arch_params):
 def test_none_ff_block_has_no_norm2_and_no_aux():
     """An `slstm+none` block holds norm1 and the mixer only and adds no
     aux loss (an xlstm forward's aux is 0; jamba's, from its MoE layers,
-    is not); parse_spec admits every mixer but `xattn`."""
+    is not); parse_spec admits every mixer, `xattn` included, and rejects
+    an unknown one."""
     _, tc = smoke_pair(XL)
     p = TT.init_block(torch.Generator().manual_seed(0), tc, "slstm+none",
                       "cpu")
@@ -317,8 +319,9 @@ def test_none_ff_block_has_no_norm2_and_no_aux():
         _, aux, _ = TM.forward(_params(arch)[1], {"tokens": toks}, tc)
         assert (float(aux) > 0) == (arch == JB)
     assert TT.parse_spec("mamba+none") == ("mamba", "none")
-    with pytest.raises(NotImplementedError, match="xattn"):
-        TT.parse_spec("xattn+dense")
+    assert TT.parse_spec("xattn+dense") == ("xattn", "dense")
+    with pytest.raises(ValueError, match="bad layer spec"):
+        TT.parse_spec("conv+dense")
 
 
 # --- serving trees --------------------------------------------------------------
