@@ -1,10 +1,8 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [phase ...]
+    python3 chip_smoke.py
 
-With no argument every phase runs and the result lines are printed; named
-phases (matmul paged mac2 serve minicpm moe recurrent train xattn streams)
-run alone, after the build, and print no result line.
+Every phase runs, and the result lines are printed.
 
 Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc`, holds
 each against its plain PyTorch version at its path's shapes, runs the paper
@@ -54,7 +52,18 @@ full forward's argmax or a near-tie swap) and musicgen-large at full width
 through the Engine (bf16 and int8 KV; `frame_embeds` == tokens); phase 2
 holds `bramac_matmul` at their linears (the xattn K/V projection at M =
 1600 and 6400) and phases 3-4 both decode kernels at musicgen's 32/32
-heads. Phase 2 also times the speculative shapes (the verify window at
+heads. Phase 15 runs the parallel family on 2 ranks (processes) that
+share the card, collecting over gloo with host staging: (a) the matmul's
+int32 output mode bit-exact vs plain at granite-8b's TP-2 row shards and
+at |acc| > 2^24, timed; (b) `tp_quant_matmul`, `ep_quant_einsum_edf`,
+`ep_moe` and `make_dp_train_step` against their single-rank versions,
+bit for bit; (c) granite-8b at full width and depth (36 layers) and (d)
+qwen3-moe-30b-a3b at full width, 16 of 48 layers, through
+`Engine(mesh="model=2")` with the decode kernels on each rank's KV heads,
+streams equal to phases 5's and 11c's meshless serves, matmul and decode
+kernel launches and collectives per forward equal to their derivation;
+(e) `launch/serve.py --shard 2` and `launch/train.py
+--data 2`. Phase 2 also times the speculative shapes (the verify window at
 M=20; 2-bit at M=4 with the unpack of the packed weights), every
 minicpm3-4b linear and qwen3-moe-30b-a3b's attention linears and unembed;
 phases 3-4 also hold both decode kernels at qwen3-moe-30b-a3b's heads
@@ -1440,6 +1449,7 @@ def phase_serve(report):
     for k, n in totals.items():
         need(n > 0, f"{k} was never launched on the main path")
         report[k]["launches"] = n
+    report["granite_streams"] = streams5     # phase 15c's mesh Engine's
     report["profile"] = profile_serve(cfg, params, prompts[:4])
     report["profile_int8_kv"] = profile_serve(cfg.replace(quant_kv=True),
                                               params, prompts[:4])
@@ -2326,6 +2336,8 @@ def phase_moe_serve(cfg, q8, report):
              and got[other] == 0, f"phase 11c ({kv} KV): decode kernel "
              f"launches {got} for {run['steps']} steps")
         need(run["drained"], f"phase 11c ({kv} KV): a pool kept pages")
+        if not quant_kv:
+            streams = run["streams"]
         for k, n in got.items():
             report[k]["launches"] += n
         ttft = 1e3 * float(np.mean(run["ttft"]))
@@ -2342,6 +2354,7 @@ def phase_moe_serve(cfg, q8, report):
               f"{run['forwards']} forwards ({run['wall'] / run['forwards']:.3f}"
               f" s each), launches {got} (= {per_fwd} x forwards and "
               f"{cfg.num_layers} x {run['steps']} steps)")
+    report["qwen3_streams"] = streams       # phase 15d's mesh Engine's
     prof = profile_serve(cfg, params, [prompts[0][:16]], new_tokens=2,
                          label="phase 11c profile qwen3-moe-30b-a3b",
                          host_ops=False)
@@ -3695,6 +3708,360 @@ def phase_musicgen(report):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the parallel family, on ranks that share the card
+# ---------------------------------------------------------------------------
+
+PAR_RANKS = 2                      # mesh "model=2": both ranks on cuda:0
+# granite-8b's row-parallel shards at TP-2: K/2 rows of wo and w_down
+ROW_SHARDS = {"wo": (2048, 4096), "w_down": (7168, 4096)}
+
+
+def _int32_bound(M, K, N):
+    """-> (ms, by): x and w (int8) read once, the int32 output written
+    once, two unit scales; the 2·M·N·K operations of one int8 product."""
+    nbytes = M * K + K * N + 4 * M * N + 8
+    ops = 2 * M * N * K
+    by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / INT8_OPS_PER_S \
+        else "operations"
+    return max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3, by
+
+
+def phase_int32(gen):
+    """15a: `bramac_matmul(..., out_dtype=torch.int32)` with unit scales
+    (the row-parallel mode) bit-exact vs plain at granite's TP-2 row
+    shards, M = 4 and 64, and where |acc| > 2^24 (8-bit values all +-127
+    at K = 2048, odd sums that round in the f32 round trip, as the TPU
+    kernel's int32 output does); timed beside its bound and one
+    `torch._int_mm` at 32 rows (the same weights, read once)."""
+    from repro_torch.kernels import bramac_matmul as bm
+    from repro_torch.kernels import ref
+    one = torch.ones((1, 1), device="cuda")
+    kw = dict(bits_a=8, bits_w=8, out_dtype=torch.int32)
+    rows = []
+    for name, (K, N) in ROW_SHARDS.items():
+        for M in (4, 64):
+            x, w = rand_q(gen, 8, (M, K)), rand_q(gen, 8, (K, N))
+            got = bm.bramac_matmul(x, w, one, one, **kw)
+            want = bm.bramac_matmul_plain(x, w, one, one, **kw)
+            torch.cuda.synchronize()
+            need(got.dtype == torch.int32 and torch.equal(got, want),
+                 f"15a int32 mode != plain at {name} M={M}")
+            ms = time_cold(lambda: bm.bramac_matmul(x, w, one, one, **kw))
+            plain_ms = time_cold(
+                lambda: bm.bramac_matmul_plain(x, w, one, one, **kw),
+                iters=5)
+            bound, by = _int32_bound(M, K, N)
+            xr = x.repeat(-(-32 // M), 1)[:32].contiguous()
+            lib_ms = time_cold(lambda: torch._int_mm(xr, w))
+            rows.append(dict(shape=name, M=M, K=K, N=N, ms=ms,
+                             plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                             library="torch._int_mm (32 rows)",
+                             library_ms=lib_ms))
+            print(f"  bramac_matmul int32 {name} TP-2 shard M={M} K={K} "
+                  f"N={N}: {ms:.4f} ms (bound {bound:.4f} ms by {by}, "
+                  f"plain {plain_ms:.4f} ms, torch._int_mm at 32 rows "
+                  f"{lib_ms:.4f} ms)")
+    x = torch.full((4, 2048), 127, dtype=torch.int8)
+    x[1, :9] = -127
+    x[:, 5] = 126
+    w = torch.full((2048, 128), 127, dtype=torch.int8)
+    for c in range(128):
+        w[:c % 17, c] = -127
+    x, w = x.cuda(), w.cuda()
+    got = bm.bramac_matmul(x, w, one, one, **kw)
+    want = bm.bramac_matmul_plain(x, w, one, one, **kw)
+    raw = ref.int_dot(x, w)
+    torch.cuda.synchronize()
+    need(torch.equal(got, want), "15a int32 mode != plain at |acc| > 2^24")
+    need(int(raw.abs().max()) > 2 ** 24 and bool((raw != got).any()),
+         "15a: the |acc| > 2^24 case does not round")
+    print(f"phase 15a bramac_matmul int32 mode: {len(rows) + 1} cases "
+          f"bit-exact vs plain (granite wo / w_down TP-2 shards at M = 4 "
+          f"and 64; |acc| up to {int(raw.abs().max())} > 2^24, "
+          f"{int((raw != got).sum())} of {raw.numel()} outputs rounded in "
+          f"the f32 round trip, as the TPU kernel's)")
+    return rows
+
+
+def _rank_primitives(mesh):
+    """15b on one rank (every rank draws the same inputs): the sharded
+    functions against their single-rank counterparts, bit for bit."""
+    from repro_torch.core.bramac_linear import prepare_serving, \
+        serve_einsum_edf, tree_prepare_serving
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.parallel import ep, tp
+    from repro_torch.runtime import dp_trainer as dp
+    gen = torch.Generator(device="cuda").manual_seed(151)
+    for name in ("wq/wo", "w_gate/w_up"):
+        K, N = GRANITE_SHAPES[name]
+        x, w = rand_q(gen, 8, (4, K)), rand_q(gen, 8, (K, N))
+        xs = torch.rand((4, 1), generator=gen, device="cuda") + 0.5
+        ws = torch.rand((1, N), generator=gen, device="cuda") + 0.5
+        want = ops.quant_matmul(x, w, xs, ws, bits_a=8, bits_w=8,
+                                out_dtype=torch.bfloat16)
+        for part in ("k", "n"):
+            got = tp.tp_quant_matmul(x, w, xs, ws, mesh=mesh, bits_a=8,
+                                     bits_w=8, partition=part,
+                                     out_dtype=torch.bfloat16)
+            need(torch.equal(got, want),
+                 f"15b tp_quant_matmul {part} at granite {name} != "
+                 f"quant_matmul")
+    cfg, q8 = _qwen3_cfg()
+    E, d, f = cfg.num_experts, cfg.d_model, cfg.expert_d_ff
+    w = (torch.randn((E, d, f), generator=gen, device="cuda")
+         / d ** 0.5).to(torch.bfloat16)
+    qw = prepare_serving(w, q8)
+    x = torch.randn((E, 5, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    want = serve_einsum_edf(x, qw, False)
+    for part in ("e", "d"):
+        got = ep.ep_quant_einsum_edf(x, qw, mesh=mesh, partition=part)
+        need(torch.equal(got, want),
+             f"15b ep_quant_einsum_edf {part} at qwen3's (128, 5, 2048) x "
+             f"(128, 2048, 768) != serve_einsum_edf")
+    del w, qw
+    qp = tree_prepare_serving(moe_mod.init_moe(gen, cfg, "cuda"), q8)
+    x = torch.randn((2, 32, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    want, aux_want = moe_mod.moe(qp, x, cfg)
+    got, aux = ep.ep_moe(qp, x, cfg, mesh=mesh)
+    need(torch.equal(got, want) and abs(float(aux) - float(aux_want))
+         <= 1e-5 * abs(float(aux_want)), "15b ep_moe global != moe()")
+    got, aux, keep = ep.ep_moe(qp, x, cfg, mesh=mesh, dispatch="per_source",
+                               return_drops=True)
+    want, aux_want, keep_want = ep.per_source_reference(
+        qp, x, cfg, ep_size=mesh.shape["model"])
+    need(torch.equal(got, want) and torch.equal(keep, keep_want)
+         and abs(float(aux) - float(aux_want))
+         <= 1e-5 * abs(float(aux_want)),
+         "15b ep_moe per_source != per_source_reference")
+    del qp
+    # the DP step on a (16, 4) regression, a batch of 64 over model=2 used
+    # as the data axis: compress on and off == the single-rank composition
+    # of the same per-shard gradients (two terms: the mean is exact)
+    params = {"w": torch.randn((16, 4), generator=gen, device="cuda")}
+    target = torch.randn((16, 4), generator=gen, device="cuda")
+    batch = torch.randn((64, 16), generator=gen, device="cuda")
+
+    def loss_fn(p, b):
+        return torch.mean((b @ p["w"] - b @ target) ** 2)
+    n = mesh.shape["model"]
+    grads = []
+    for s in range(n):
+        wl = params["w"].clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(loss_fn({"w": wl}, batch.chunk(n)[s]), wl)
+        grads.append(g)
+    err = dp.init_error_feedback(params, mesh)
+    for compress in (True, False):
+        step = dp.make_dp_train_step(loss_fn, mesh, axis="model",
+                                     compress=compress)
+        got, _, _ = step(params, err, batch)
+        parts = [dp.compress_decompress(g, torch.zeros_like(g))[0]
+                 if compress else g for g in grads]
+        need(torch.equal(got["w"], sum(parts) / n),
+             f"15b make_dp_train_step (compress={compress}) != the "
+             f"single-rank composition")
+    return "ok"
+
+
+def _rank_serve(cfg, params, prompts, new_tokens, mesh):
+    """One mesh serve on this rank (after a short warm-up), with its
+    launches, collectives and peak memory."""
+    from repro_torch.parallel import comm
+    serve(cfg, params, prompts[:2], 2, mesh=mesh)
+    _zero_counts()
+    comm.stats.reset()
+    torch.cuda.reset_peak_memory_stats()
+    run = serve(cfg, params, prompts, new_tokens, mesh=mesh)
+    run["launches"] = _read_counts()
+    run["comm"] = comm.stats.snapshot()
+    run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return run
+
+
+def parallel_rank(rank, world, device):
+    """Phases 15b-d on one rank of the mesh "model=2"."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.bramac_linear import QuantConfig
+    from repro_torch.kernels import build
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding
+    for name in build.SOURCES:
+        build.library(name)
+    mesh = sharding.build_mesh("model=2")
+    out = {"15b": _rank_primitives(mesh)}
+    t0 = time.perf_counter()
+    q8 = QuantConfig(enabled=True, bits_w=8, bits_a=8)
+    cfg = get_config("granite-8b").replace(quant=q8)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda", serving=q8)
+    torch.cuda.synchronize()
+    prompts = _phase5_prompts(cfg.vocab_size)
+    out["granite_draw_s"] = time.perf_counter() - t0
+    out["granite_layers"] = cfg.num_layers
+    for quant_kv in (False, True):
+        out["granite_" + ("int8" if quant_kv else "bf16")] = _rank_serve(
+            cfg.replace(quant_kv=quant_kv), params, prompts, 16, mesh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg, q8 = _qwen3_cfg(num_layers=MOE_CUT_LAYERS)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda", serving=q8)
+    torch.cuda.synchronize()
+    out["qwen3_draw_s"] = time.perf_counter() - t0
+    out["qwen3_layers"], out["qwen3_experts"] = cfg.num_layers, \
+        cfg.num_experts
+    out["qwen3"] = _rank_serve(cfg, params,
+                               _phase5_prompts(cfg.vocab_size)[:4], 8, mesh)
+    return out
+
+
+def _check_mesh_serve(label, runs, want, layers, kv, per_fwd, calls_per_fwd,
+                      report):
+    """The ranks' serves of one configuration: every rank's streams the
+    meshless Engine's (`want`), bramac_matmul launches, the `kv` KV's
+    decode kernel once per layer and decode step (the other never) and
+    collectives their derived counts."""
+    r0 = runs[0]
+    attn = "paged_decode_q" if kv == "int8" else "paged_decode"
+    other = "paged_decode" if kv == "int8" else "paged_decode_q"
+    for r, run in enumerate(runs):
+        got = run["launches"]
+        parted = [i for i, (a, b) in enumerate(zip(run["streams"], want))
+                  if a != b]
+        need(run["done"] == len(want) and not parted,
+             f"{label}: rank {r} streams != the meshless Engine's: requests "
+             f"{parted} part (first: {run['streams'][parted[0]] if parted else None}"
+             f" vs {want[parted[0]] if parted else None})")
+        need(got["bramac_matmul"] == per_fwd * run["forwards"],
+             f"{label}: rank {r} bramac_matmul launches "
+             f"{got['bramac_matmul']} != {per_fwd} x {run['forwards']} "
+             f"forwards")
+        need(got[attn] == layers * run["steps"] > 0 and got[other] == 0,
+             f"{label}: rank {r} decode kernel launches {got} for "
+             f"{run['steps']} steps x {layers} layers")
+        need(run["comm"]["calls"] == calls_per_fwd * run["forwards"],
+             f"{label}: rank {r} {run['comm']['calls']} collectives != "
+             f"{calls_per_fwd} x {run['forwards']} forwards")
+        for k in ("bramac_matmul", attn):
+            report[k]["launches"] += got[k]
+    c = r0["comm"]
+    row = dict(tok_s=r0["tokens"] / r0["wall"],
+               ttft_ms=1e3 * float(np.mean(r0["ttft"])),
+               wall_s=r0["wall"], forwards=r0["forwards"],
+               peak_gb=[run["peak_gb"] for run in runs],
+               launches_per_rank=[run["launches"]["bramac_matmul"]
+                                  for run in runs],
+               decode_launches_per_rank=[run["launches"][attn]
+                                         for run in runs],
+               collectives_per_forward=calls_per_fwd,
+               staged_mb_per_forward=c["staged_bytes"] / r0["forwards"] / 1e6,
+               comm_ms=1e3 * c["seconds"],
+               comm_ms_per_forward=1e3 * c["seconds"] / r0["forwards"])
+    print(f"{label}: {r0['done']} requests, {r0['tokens']} tokens in "
+          f"{r0['wall']:.2f} s ({row['tok_s']:.2f} tok/s), mean TTFT "
+          f"{row['ttft_ms']:.1f} ms, peak memory per rank "
+          f"{', '.join(f'{g:.2f}' for g in row['peak_gb'])} GB, "
+          f"{r0['forwards']} forwards; per rank and forward {per_fwd} "
+          f"bramac_matmul launches and {calls_per_fwd} collectives, {attn} "
+          f"{layers} x {r0['steps']} decode steps (as derived), "
+          f"{row['staged_mb_per_forward']:.3f} MB staged through "
+          f"the host, {row['comm_ms_per_forward']:.2f} ms in collectives "
+          f"({row['comm_ms']:.1f} ms of the serve); streams == the meshless "
+          f"Engine's on every rank")
+    return row
+
+
+def phase_parallel_launchers():
+    """15e: `launch/serve.py --shard 2` and `launch/train.py --data 2` on
+    the card, each in a subprocess that spawns its 2 ranks."""
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = {}
+    with tempfile.TemporaryDirectory() as ckpt:
+        for name, args, want in (
+                ("serve", ["repro_torch.launch.serve", "--arch",
+                           "granite-8b", "--smoke", "--shard", "2"],
+                 r"^8/8 requests done, .*mesh=\{'data': 1, 'model': 2\}\)$"),
+                ("train", ["repro_torch.launch.train", "--arch",
+                           "granite-8b", "--smoke", "--steps", "4", "--data",
+                           "2", "--ckpt-dir", ckpt],
+                 r"^loss \d+\.\d{4} -> \d+\.\d{4} over 4 steps; straggler "
+                 r"events: \d+$")):
+            t0 = time.perf_counter()
+            run = subprocess.run([sys.executable, "-m", *args], env=env,
+                                 cwd=ROOT, capture_output=True, text=True,
+                                 timeout=300)
+            wall = time.perf_counter() - t0
+            lines = run.stdout.strip().splitlines()
+            line = lines[0 if name == "serve" else -1] if lines else ""
+            need(run.returncode == 0 and re.match(want, line),
+                 f"15e launcher {name}: rc {run.returncode}, "
+                 f"{line!r}\n{run.stderr[-2000:]}")
+            out[name] = dict(wall_s=wall, line=line)
+            print(f"  15e python -m {' '.join(args)}: exit 0 in "
+                  f"{wall:.1f} s: {line}")
+    return out
+
+
+def phase_parallel(report):
+    """Phase 15: (a) kernel 1's int32 mode; on 2 ranks sharing cuda:0
+    (gloo, host staging): (b) the sharded primitives against their
+    single-rank versions, (c) granite-8b at full width and depth and (d)
+    qwen3-moe-30b-a3b at full width, 16 of 48 layers, through
+    `Engine(mesh="model=2")`, the decode kernels on each rank's KV heads,
+    against the meshless streams of phases 5 and 11c; (e) both launchers'
+    mesh flags."""
+    from repro_torch.parallel import comm
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    report["int32_mode"] = phase_int32(gen)
+    t0 = time.perf_counter()
+    outs = comm.spawn(parallel_rank, PAR_RANKS)
+    draws = {k: ", ".join("%.1f" % o[k] for o in outs)
+             for k in ("granite_draw_s", "qwen3_draw_s")}
+    print(f"  phase 15b-d: {PAR_RANKS} ranks on "
+          f"{torch.cuda.get_device_name(0)} in {time.perf_counter() - t0:.1f}"
+          f" s (granite-8b drawn in {draws['granite_draw_s']} s, qwen3-moe "
+          f"in {draws['qwen3_draw_s']} s per rank)")
+    need(all(o["15b"] == "ok" for o in outs), "15b failed on a rank")
+    print("phase 15b on 2 ranks: tp_quant_matmul k and n at granite wq/wo "
+          "and w_gate (M=4) == quant_matmul; ep_quant_einsum_edf e and d at "
+          "qwen3's 128 x 2048 x 768 == serve_einsum_edf; ep_moe global == "
+          "moe() (values, aux), per_source == per_source_reference (values, "
+          "aux, keep) on one full-width MoE layer; make_dp_train_step with "
+          "compress on and off == the single-rank composition; bit for bit")
+    # per rank and forward: each of the 7 linears of a layer on its shard
+    # and the unembed; a max and a sum for each row-parallel wo and w_down,
+    # one gather of the logits
+    L = outs[0]["granite_layers"]
+    par = {}
+    for kv in ("bf16", "int8"):
+        par["granite_" + kv] = _check_mesh_serve(
+            f"phase 15c granite-8b ({L} layers) model=2, {kv} KV",
+            [o["granite_" + kv] for o in outs], report["granite_streams"][kv],
+            L, kv, 7 * L + 1, L * 2 * 2 + 1, report)
+    # qwen3: wq wk wv wo and E/2 local experts of each expert einsum a
+    # layer, the unembed; wo's max and sum, a gather per expert einsum,
+    # the logits' gather
+    L, E = outs[0]["qwen3_layers"], outs[0]["qwen3_experts"]
+    par["qwen3"] = _check_mesh_serve(
+        f"phase 15d qwen3-moe-30b-a3b ({L} of 48 layers) model=2, bf16 KV",
+        [o["qwen3"] for o in outs], report["qwen3_streams"], L, "bf16",
+        (4 + 3 * E // PAR_RANKS) * L + 1, L * (2 + 3) + 1, report)
+    par["launchers"] = phase_parallel_launchers()
+    report["parallel"] = par
+    spent = time.perf_counter() - t_phase
+    report["phase15_s"] = spent
+    print(f"phase 15 took {spent:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3736,6 +4103,7 @@ def main() -> int:
     phase_train(report)
     phase_xattn(report)
     phase_streams()
+    phase_parallel(report)
     print(f"timing: {len(HOST_BOUND)} readings in which an enqueue outlasted "
           f"the device spin" + (f": {HOST_BOUND}" if HOST_BOUND else ""))
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")

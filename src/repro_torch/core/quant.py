@@ -76,18 +76,20 @@ def _check_bits(bits: int) -> None:
 
 
 def quantize(x: torch.Tensor, bits: int, axis: int | None = -1,
-             pack: bool = False, pack_axis: int = -1) -> QuantizedTensor:
+             pack: bool = False, pack_axis: int = -1,
+             amax: torch.Tensor | None = None) -> QuantizedTensor:
     """Symmetric quantization of x to n-bit 2's complement.
 
     axis: channel axis for per-channel scales (None = per-tensor).
     pack: bit-pack sub-byte values along `pack_axis`.
+    amax: the absmax to scale by, when the caller reduced it over more
+          than `x` (a row-parallel linear's K-slices); default x's own.
     """
     _check_bits(bits)
     lo, hi = qrange(bits)
-    if axis is None:
-        amax = x.abs().amax()
-    else:
-        amax = x.abs().amax(dim=axis, keepdim=True)
+    if amax is None:
+        amax = x.abs().amax() if axis is None \
+            else x.abs().amax(dim=axis, keepdim=True)
     scale = torch.clamp(amax, min=1e-8) / hi          # in x's dtype
     q = torch.clamp(torch.round(x / scale), lo, hi).to(torch.int8)
     if pack and bits < 8:

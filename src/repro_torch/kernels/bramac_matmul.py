@@ -21,7 +21,9 @@ import torch
 from repro_torch.core import quant
 from repro_torch.kernels import build, ref
 
-_OUT_DTYPES = (torch.float32, torch.bfloat16)
+# out_dtype -> the launch's out_kind; int32 is the row-parallel matmul's
+# unit-scale mode (`parallel.tp`): the f32 epilogue value converted to int32
+_OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 BN, BK = 128, 128         # the kernel's block columns and K step (bytes)
 
 
@@ -80,7 +82,7 @@ def _check(x_q, w_q, x_scale, w_scale, bits_a, bits_w, out_dtype, w_packed,
         raise ValueError(f"w_scale must be (1,N) or (1,1), got "
                          f"{tuple(w_scale.shape)}")
     if out_dtype not in _OUT_DTYPES:
-        raise TypeError(f"out_dtype must be one of {_OUT_DTYPES}")
+        raise TypeError(f"out_dtype must be one of {tuple(_OUT_DTYPES)}")
     if out is not None and (tuple(out.shape) != (M, N) or
                             out.dtype != out_dtype or
                             out.device != x_q.device or
@@ -129,7 +131,7 @@ def bramac_matmul(x_q, w_q, x_scale, w_scale, *, bits_a: int, bits_w: int,
     err = lib.bramac_matmul_launch(
         x_q.data_ptr(), w_q.data_ptr(), xs.data_ptr(), ws.data_ptr(),
         acc.data_ptr(), out.data_ptr(), M, K, N, bits_a, int(signed),
-        int(w_packed), int(out_dtype == torch.bfloat16), bm, k_per_split,
+        int(w_packed), _OUT_DTYPES[out_dtype], bm, k_per_split,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "bramac_matmul")
     bramac_matmul.launches += 1

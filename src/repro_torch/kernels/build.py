@@ -30,6 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # C signatures: "p" = pointer / stream (c_void_p), "i" = int, "f" = float
 _SIGNATURES = {
+    # bramac_matmul_launch(x, w, xs, ws, acc, out, M, K, N, bits_a, signed,
+    #                      w_packed, out_kind, bm, k_per_split, stream)
     "bramac_matmul": {"bramac_matmul_launch": "ppppppiiiiiiiiip",
                       "bramac_matmul_info": "iiiip"},
     "paged_attention": {"paged_decode_launch": "pppppppiiiiiiiiiiifp",

@@ -3,7 +3,9 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/bramac_matmul.py::_kernel
 // (pallas_call at bramac_matmul.py:126), entered through ops.quant_matmul.
 //
-//   out[m, n] = (float(acc[m, n]) * x_scale[m]) * w_scale[n]
+//   out[m, n] = (float(acc[m, n]) * x_scale[m]) * w_scale[n]   (f32, bf16 or
+//               int32; int32 is the f32 value converted toward zero, as the
+//               TPU kernel's out_dtype=int32 casts it)
 //   acc[m, n] = sum_j 4^j * sum_k d_j(x[m, k]) * w[k, n]        (int32, exact)
 //
 // where d_j are the radix-4 digits of the activation read as bits_a unsigned
@@ -277,7 +279,10 @@ bramac_accumulate(const Args a) {
   }
 }
 
-template <bool BF16>
+// Output kinds of the epilogue (the wrapper's out_kind argument).
+constexpr int kOutF32 = 0, kOutBF16 = 1, kOutI32 = 2;
+
+template <int KIND>
 __global__ void bramac_epilogue(const int* __restrict__ acc,
                                 const float* __restrict__ xs,
                                 const float* __restrict__ ws, void* out,
@@ -286,8 +291,13 @@ __global__ void bramac_epilogue(const int* __restrict__ acc,
   if (i >= (size_t)M * N) return;
   const int m = (int)(i / N), n = (int)(i % N);
   const float r = ((float)acc[i] * xs[m]) * ws[n];   // the TPU kernel's order
-  if (BF16)
+  if (KIND == kOutBF16)
     static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(r);
+  else if (KIND == kOutI32)
+    // the TPU kernel's f32 result converted to int32 (toward zero): the
+    // row-parallel matmul's unit-scale mode.  It is not the raw int32
+    // accumulator: the f32 round trip rounds once |acc| > 2^24
+    static_cast<int*>(out)[i] = __float2int_rz(r);
   else
     static_cast<float*>(out)[i] = r;
 }
@@ -363,7 +373,8 @@ struct Info {
 }  // namespace
 
 // x (M,K) int8; w (K,N) int8 or (K/2,N) pair-packed int8; xs (M,) f32;
-// ws (N,) f32; acc (M,N) int32 scratch; out (M,N) f32 or bf16.  bm is the
+// ws (N,) f32; acc (M,N) int32 scratch; out (M,N) f32, bf16 or int32 as
+// out_kind says (0 f32, 1 bf16, 2 int32: the f32 result converted).  bm is the
 // block's rows (16 or 64); K splits into ceil(K / k_per_split) ranges of
 // k_per_split (a multiple of the 128-byte K step) each, the last one
 // shorter.
@@ -371,10 +382,11 @@ struct Info {
 extern "C" int bramac_matmul_launch(const void* x, const void* w,
                                     const void* xs, const void* ws, void* acc,
                                     void* out, int M, int K, int N, int bits_a,
-                                    int is_signed, int w_packed, int out_bf16,
+                                    int is_signed, int w_packed, int out_kind,
                                     int bm, int k_per_split, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (k_per_split <= 0 || k_per_split % kBK) return (int)cudaErrorInvalidValue;
+  if (out_kind < kOutF32 || out_kind > kOutI32) return (int)cudaErrorInvalidValue;
   const int splits = K > 0 ? (K + k_per_split - 1) / k_per_split : 1;
   cudaError_t err;
   if (splits > 1) {
@@ -392,12 +404,21 @@ extern "C" int bramac_matmul_launch(const void* x, const void* w,
   const int threads = 256;
   const unsigned blocks = (unsigned)((total + threads - 1) / threads);
   const auto* ap = static_cast<const int*>(acc);
-  if (out_bf16)
-    bramac_epilogue<true><<<blocks, threads, 0, st>>>(
-        ap, static_cast<const float*>(xs), static_cast<const float*>(ws), out, M, N);
-  else
-    bramac_epilogue<false><<<blocks, threads, 0, st>>>(
-        ap, static_cast<const float*>(xs), static_cast<const float*>(ws), out, M, N);
+  const auto* xp = static_cast<const float*>(xs);
+  const auto* wp = static_cast<const float*>(ws);
+  switch (out_kind) {
+    case kOutF32:
+      bramac_epilogue<kOutF32><<<blocks, threads, 0, st>>>(ap, xp, wp, out, M, N);
+      break;
+    case kOutBF16:
+      bramac_epilogue<kOutBF16><<<blocks, threads, 0, st>>>(ap, xp, wp, out, M, N);
+      break;
+    case kOutI32:
+      bramac_epilogue<kOutI32><<<blocks, threads, 0, st>>>(ap, xp, wp, out, M, N);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

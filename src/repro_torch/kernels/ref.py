@@ -24,7 +24,8 @@ def int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         torch.int64)
 
 
-def _epilogue(acc, x_scale, w_scale, out_dtype):
+def epilogue(acc, x_scale, w_scale, out_dtype):
+    """The one dequant epilogue: (acc_f32 * x_scale) * w_scale, cast."""
     return (acc.to(torch.float32) * x_scale.to(torch.float32)
             * w_scale.to(torch.float32)).to(out_dtype)
 
@@ -32,7 +33,7 @@ def _epilogue(acc, x_scale, w_scale, out_dtype):
 def quant_matmul_exact(x_q, w_q, x_scale, w_scale,
                        out_dtype=torch.float32) -> torch.Tensor:
     """(M,K) int ⋅ (K,N) int → dequantized (M,N)."""
-    return _epilogue(int_dot(x_q, w_q), x_scale, w_scale, out_dtype)
+    return epilogue(int_dot(x_q, w_q), x_scale, w_scale, out_dtype)
 
 
 def quant_matmul_digit_ref(x_q, w_q, x_scale, w_scale, bits_a: int,
@@ -50,7 +51,7 @@ def quant_matmul_digit_ref(x_q, w_q, x_scale, w_scale, bits_a: int,
         if signed and j == nd - 1:
             d = torch.where(d >= 2, d - 4, d)
         acc = acc + int_dot(d, w_q) * (4 ** j)
-    return _epilogue(acc.to(torch.int32), x_scale, w_scale, out_dtype)
+    return epilogue(acc.to(torch.int32), x_scale, w_scale, out_dtype)
 
 
 def mac2_mvm_ref(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

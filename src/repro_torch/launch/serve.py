@@ -13,7 +13,7 @@
         [--draft-len 0] [--spec-ngram 2] [--spec-table 512] \
         [--drafter ngram|model] [--draft-bits 2] [--draft-layers 0] \
         [--role prefill|decode|both --prefill-slots 4 --prefill-pages 16] \
-        [--check-invariants] [--device cuda|cpu]
+        [--check-invariants] [--shard SPEC] [--device cuda|cpu]
 
 Runs on the card by default (`--device cpu` runs the plain PyTorch
 versions of the kernels).  Weights are random (`init_params` from a seeded
@@ -21,10 +21,15 @@ generator) and, with --quant-bits, quantized for serving one period at a
 time as they are drawn (so qwen3-moe-30b-a3b fits the card at 8 bits).
 Recurrent archs (xlstm-1.3b; jamba-1.5-large-398b, whose full depth does
 not fit one card, at --smoke) prefill one token at a time.  The flags
-are the reference launcher's minus the mesh (`--role both` serves
-disaggregated in this process; "prefill" / "decode" raise, as the
-reference's do; without a mesh `--dispatch per_source` is the dense
-dispatch, as in the reference), and the report lines keep its wording: requests done and
+are the reference launcher's (`--role both` serves disaggregated in this
+process; "prefill" / "decode" raise, as the reference's do; without a mesh
+`--dispatch per_source` is the dense dispatch, as in the reference).
+`--shard SPEC` (an int for model-parallel ways, or a `build_mesh` spec
+such as `data=2,model=2`) spawns one rank per mesh cell
+(`parallel.comm.spawn`: gloo, every rank on the card, all on cuda:0 on one
+H100, with host staging); each rank draws the same weights, keeps its
+shard and serves the same requests, and rank 0 prints the report.  The
+report lines keep the reference's wording: requests done and
 tok/s, syncs and finish reasons, speculation's acceptance and tokens per
 tick, the kv pool, the page transfer of disaggregation, the prefix
 cache's hit rate and refcount histogram, or the dense reservation.
@@ -42,6 +47,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.bramac_linear import QuantConfig
 from repro_torch.models import model as M
 from repro_torch.models.transformer import is_recurrent
+from repro_torch.parallel import comm, sharding
 from repro_torch.runtime.options import (DebugOptions, DisaggOptions,
                                          EngineOptions, PagingOptions,
                                          ParallelOptions, PrefixOptions,
@@ -148,11 +154,31 @@ def main(argv=None):
     ap.add_argument("--check-invariants", action="store_true",
                     help="cross-check the host page-pool mirror against "
                          "the device allocator after every sync")
+    ap.add_argument("--shard", default="",
+                    help="mesh of ranks: an int for model-parallel ways or a "
+                         "composed spec such as data=2,model=2 (one rank "
+                         "per cell; empty or 0 = one process, no mesh)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.shard and args.shard != "0":
+        try:
+            world = sharding.spec_ranks(args.shard)
+        except ValueError as e:
+            raise SystemExit(f"--shard {args.shard!r}: {e}")
+        comm.spawn(_serve_rank, world, args, device=args.device)
+        return
+    _serve(args, resolve_device(args.device))
 
-    device = resolve_device(args.device)
+
+def _serve_rank(rank, world, device, args):
+    """One rank of `--shard`: the mesh over every rank, then the serve;
+    rank 0 reports."""
+    _serve(args, device, mesh=sharding.build_mesh(args.shard),
+           report=rank == 0)
+
+
+def _serve(args, device, mesh=None, report=True):
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.page_size:
         cfg = cfg.replace(page_size=args.page_size)
@@ -184,7 +210,8 @@ def main(argv=None):
                                        draft_bits=args.draft_bits,
                                        draft_layers=args.draft_layers
                                        or None),
-        parallel=ParallelOptions(capacity_factor=args.capacity_factor
+        parallel=ParallelOptions(mesh=mesh,
+                                 capacity_factor=args.capacity_factor
                                  or None,
                                  dispatch=args.dispatch or None),
         disagg=DisaggOptions(enabled=bool(args.role),
@@ -205,6 +232,8 @@ def main(argv=None):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         dt = time.perf_counter() - t0
+        if not report:
+            return
         done = sum(r.done for r in reqs)
         toks = sum(len(r.tokens) for r in results)
         ttft = [r.ttft for r in results if r.ttft is not None]
@@ -212,7 +241,8 @@ def main(argv=None):
         print(f"{done}/{len(reqs)} requests done, {toks} tokens in {dt:.1f}s "
               f"({toks / dt:.1f} tok/s, quant="
               f"{'int%d' % args.quant_bits if args.quant_bits else 'off'}, "
-              f"sampling={args.sampling}, device={device})")
+              f"sampling={args.sampling}, device={device}"
+              f"{'' if mesh is None else f', mesh={mesh.shape}'})")
         print(f"  {eng.n_syncs} host syncs for {eng.n_generated} tokens "
               f"({eng.n_syncs / max(eng.n_generated, 1):.2f} syncs/tok at "
               f"decode_steps={args.decode_steps}); mean ttft "

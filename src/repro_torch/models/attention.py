@@ -33,8 +33,8 @@ import math
 import torch
 
 from repro_torch.kernels import paged_attention as pk
-from repro_torch.models.layers import (apply_rope, dense, init_dense,
-                                       init_rmsnorm, rmsnorm)
+from repro_torch.models.layers import (apply_rope, dense, dense_row,
+                                       init_dense, init_rmsnorm, rmsnorm)
 
 Q_CHUNK = 1024
 
@@ -215,7 +215,10 @@ def init_gqa(gen, cfg, device):
 def gqa(p, x, cfg, positions, cache=None, cache_pos=None, paged=None):
     """cache: {"k","v"} (B, S_max, Hkv, hd), or (P, page_size, Hkv, hd)
     pools when a `PagedKV` bundle is passed, or None (train/prefill);
-    int8 caches carry "ks"/"vs" row scales.  Returns (out, cache)."""
+    int8 caches carry "ks"/"vs" row scales.  Returns (out, cache).  Under
+    a tp-splitting mesh `cfg` is the rank's view (`sharding.local_config`:
+    its H/n query and Hkv/n KV heads, whose `wo` rows it holds) and `wo`
+    is row-parallel (`layers.dense_row`)."""
     B, S, _ = x.shape
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     q = dense(x, p["wq"], cfg.quant).reshape(B, S, H, hd)
@@ -261,7 +264,7 @@ def gqa(p, x, cfg, positions, cache=None, cache_pos=None, paged=None):
         _update_cache(cache["k"], k, cache_pos)
         _update_cache(cache["v"], v, cache_pos)
         out = chunk_attention(q, cache["k"], cache["v"], positions)
-    return dense(out.reshape(B, S, H * hd), p["wo"], cfg.quant), cache
+    return dense_row(out.reshape(B, S, H * hd), p["wo"], cfg.quant), cache
 
 
 def _update_cache(cache, new, pos):

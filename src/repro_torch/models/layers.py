@@ -3,6 +3,12 @@
 Port of `repro.models.layers`: `init_*` returns a parameter dict, the
 apply functions consume it.  Every matmul flows through `dense()`, so the
 BRAMAC quantized path is one switch across the model.
+
+Under an active sharding ctx whose `tp` axis splits the model (the mesh
+Engine), the Megatron split that the reference's `_PARAM_RULES` name is
+written out here: column-parallel linears (`wq`/`wk`/`wv`/`w_gate`/`w_up`)
+run on their local columns as they are, the row-parallel ones (`wo`,
+`w_down`) go through `dense_row`, and `unembed` gathers its vocab columns.
 """
 from __future__ import annotations
 
@@ -10,11 +16,24 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import bramac_linear as bl
+from repro_torch.parallel import comm, sharding, tp
 
 
 def dense(x: torch.Tensor, w, quant: bl.QuantConfig | None) -> torch.Tensor:
     """All model matmuls route here → BRAMAC integration point."""
     return bl.dense(x, w, quant)
+
+
+def dense_row(x: torch.Tensor, w, quant: bl.QuantConfig | None
+              ) -> torch.Tensor:
+    """A row-parallel linear (`wo`, `w_down`): `dense`, or under a
+    tp-splitting ctx `tp.row_parallel_dense` on this rank's input slice
+    and weight rows (one max and one sum collective)."""
+    ax = sharding.tp_axis()
+    if ax is None:
+        return dense(x, w, quant)
+    return tp.row_parallel_dense(x, w, quant, mesh=sharding.active().mesh,
+                                 axis=ax)
 
 
 # ---------------------------------------------------------------------------
@@ -62,7 +81,7 @@ def init_mlp(gen, d_model, d_ff, dtype, device):
 def mlp(p, x, quant=None):
     g = dense(x, p["w_gate"], quant)
     u = dense(x, p["w_up"], quant)
-    return dense(F.silu(g) * u, p["w_down"], quant)
+    return dense_row(F.silu(g) * u, p["w_down"], quant)
 
 
 # ---------------------------------------------------------------------------
@@ -104,7 +123,15 @@ def embed(p, tokens):
 
 
 def unembed(p, x, quant=None):
-    return dense(x, p["unembed"], quant)
+    """Logits over the whole vocab: under a tp-splitting ctx the unembed
+    holds this rank's vocab columns (the embedding stays whole), and the
+    logits are all-gathered along the vocab."""
+    logits = dense(x, p["unembed"], quant)
+    ax = sharding.tp_axis()
+    if ax is not None and logits.shape[-1] != p["embedding"].shape[0]:
+        logits = comm.all_gather(logits, sharding.active().mesh.group(ax),
+                                 dim=-1)
+    return logits
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,10 @@
-"""Mixture-of-Experts FFN: top-k routing, capacity-based dispatch.
+"""Mixture-of-Experts FFN: top-k routing, capacity-based dispatch, EP.
 
-Port of `repro.models.moe` without its expert-parallel branches (they need
-a mesh, which the port does not serve yet).  Tokens are scattered into a
+Port of `repro.models.moe`, with its two expert-parallel routes: under an
+active sharding ctx (`parallel.sharding.activate`, the mesh Engine) the
+quantized expert einsum goes through `parallel.ep.ep_quant_einsum_edf`,
+and `dispatch="per_source"` hands the whole layer to `parallel.ep.ep_moe`.
+Both are bit-exact against the meshless path.  Tokens are scattered into a
 per-expert capacity buffer (E, C, d) — the Switch-Transformer dispatch —
 so expert compute is E·C·(3·d·ff), about the *active* FLOPs.  Serving
 weights run each expert einsum as one `bramac_matmul` per expert
@@ -23,13 +26,25 @@ import torch.nn.functional as F
 from repro_torch.core import bramac_linear as bl
 from repro_torch.core.quant import QuantizedTensor
 from repro_torch.models.layers import he_init
+from repro_torch.models.routing import (_one_hot, _rank_in_expert_cumsum,
+                                        _rank_in_expert_sort, _top_k,
+                                        dispatch_buffer, moe_capacity,
+                                        router_top_k)
+from repro_torch.parallel import ep, sharding
 
 
 def _expert_matmul(x, w):
     """(E,C,a)·(E,a,b)→(E,C,b) for float or serving-quantized weights.  The
     reference calls the quantized einsum with its default 8-bit
-    activations whatever `cfg.quant.bits_a` is; so does the port."""
+    activations whatever `cfg.quant.bits_a` is; so does the port.
+
+    Quantized weights route through the expert-parallel einsum whenever a
+    sharding ctx is active and its `expert` axis divides E — bit-exact vs
+    the single-rank path, so activation is a placement decision."""
     if isinstance(w, QuantizedTensor):
+        ctx = sharding.active()
+        if ctx is not None and ep.shardable(x, ctx):
+            return ep.ep_quant_einsum_edf(x, w, mesh=ctx.mesh)
         return bl.serve_einsum_edf(x, w, transpose_out=False)
     return torch.einsum("ecd,edf->ecf", x, w)
 
@@ -51,24 +66,6 @@ def init_moe(gen, cfg, device):
             "w_down": stack(ff, d)}
 
 
-def moe_capacity(T: int, E: int, k: int, capacity_factor: float) -> int:
-    """Per-expert buffer rows C — the one formula every dispatch path
-    derives from."""
-    return int(max(1, round(T * k / E * capacity_factor)))
-
-
-def _one_hot(i: torch.Tensor, E: int, dtype) -> torch.Tensor:
-    """one_hot by comparison (F.one_hot validates its input on the host)."""
-    return (i[..., None] == torch.arange(E, device=i.device)).to(dtype)
-
-
-def _top_k(probs: torch.Tensor, k: int):
-    """`jax.lax.top_k`: descending, ties to the lower index (a stable sort;
-    `torch.topk` promises no order among ties)."""
-    v, i = torch.sort(probs, dim=-1, descending=True, stable=True)
-    return v[..., :k], i[..., :k]
-
-
 class Routing(NamedTuple):
     probs: torch.Tensor      # (T, E) f32 router softmax
     top_p: torch.Tensor      # (T, k) f32, renormalised
@@ -83,10 +80,7 @@ def route(p, xf: torch.Tensor, cfg, capacity_factor: float) -> Routing:
     """The f32 router, top-k and the capacity dispatch of (T, d) rows."""
     T = xf.shape[0]
     E, k = cfg.num_experts, cfg.experts_per_token
-    logits = xf.to(torch.float32) @ p["router"]              # (T, E)
-    probs = torch.softmax(logits, dim=-1)
-    top_p, top_i = _top_k(probs, k)
-    top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
+    probs, top_p, top_i = router_top_k(xf, p["router"], k)
     C = moe_capacity(T, E, k, capacity_factor)
     a = top_i.reshape(T * k)
     rank = _rank_in_expert_sort if cfg.moe_dispatch == "sort" \
@@ -102,8 +96,11 @@ def moe(p, x, cfg, capacity_factor: float | None = None,
     """x: (B, S, d) → (out, aux_loss).
 
     `capacity_factor` / `dispatch` default to `cfg.moe_capacity_factor` /
-    `cfg.ep_dispatch`.  Without a mesh "per_source" is the dense path
-    below, as in the reference (per-source semantics at one shard)."""
+    `cfg.ep_dispatch`.  dispatch="per_source" hands the whole layer to
+    `ep.ep_moe` when a sharding ctx is active and can token+expert-shard
+    it, forwarding the caller's `capacity_factor`; without one it is the
+    dense path below, as in the reference (per-source semantics at one
+    shard)."""
     if capacity_factor is None:
         capacity_factor = cfg.moe_capacity_factor
     if dispatch is None:
@@ -111,6 +108,12 @@ def moe(p, x, cfg, capacity_factor: float | None = None,
     if dispatch not in ("global", "per_source"):
         raise ValueError(f"ep_dispatch must be 'global' or 'per_source', "
                          f"got {dispatch!r}")
+    if dispatch == "per_source":
+        ctx = sharding.active()
+        if ctx is not None and ep.layer_shardable(x, cfg, ctx):
+            return ep.ep_moe(p, x, cfg, mesh=ctx.mesh,
+                             capacity_factor=capacity_factor,
+                             dispatch="per_source")
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     T = B * S
@@ -119,9 +122,7 @@ def moe(p, x, cfg, capacity_factor: float | None = None,
 
     # ---- capacity dispatch: dropped rows add zeros at (a, C-1) ----
     xk = torch.repeat_interleave(xf, k, dim=0)               # (T*k, d)
-    buf = torch.zeros((E, r.C, d), dtype=x.dtype, device=x.device)
-    buf.index_put_((r.a, r.pos_c), torch.where(r.keep[:, None], xk, 0),
-                   accumulate=True)
+    buf = dispatch_buffer(E, r.C, r.a, r.pos_c, r.keep, xk)
 
     # ---- expert compute ----
     g = _expert_matmul(buf, p["w_gate"])
@@ -138,28 +139,6 @@ def moe(p, x, cfg, capacity_factor: float | None = None,
     frac_probs = torch.mean(r.probs, dim=0)
     aux = E * torch.sum(frac_tokens * frac_probs)
     return out, aux
-
-
-def _rank_in_expert_cumsum(a: torch.Tensor, E: int) -> torch.Tensor:
-    """The one-hot running-count rank (moe_dispatch="cumsum")."""
-    onehot = _one_hot(a, E, torch.int32)                     # (T*k, E)
-    pos_in_e = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
-    return torch.gather(pos_in_e, 1, a.long()[:, None])[:, 0]
-
-
-def _rank_in_expert_sort(a: torch.Tensor, E: int) -> torch.Tensor:
-    """pos[i] = #{j : a[j] == a[i], j before i}: stable-sort the
-    assignments, rank each within its expert's run (index − the run's
-    start, found by a search of the sorted ids: `bincount` would size its
-    output on the host), scatter the ranks back."""
-    n = a.shape[0]
-    order = torch.argsort(a, stable=True)                    # expert-major
-    sorted_a = a[order].contiguous()
-    starts = torch.searchsorted(sorted_a, sorted_a)
-    rank_sorted = torch.arange(n, device=a.device) - starts
-    pos = torch.zeros((n,), dtype=torch.int32, device=a.device)
-    pos[order] = rank_sorted.to(torch.int32)
-    return pos
 
 
 def moe_reference(p, x, cfg):

@@ -1,7 +1,7 @@
 """Engine configuration and result surface (port of `repro.runtime.options`;
 every section and validation message is the reference's, so options
-compare equal across the two packages — the port's Engine serves every
-section but a mesh, for which it raises NotImplementedError).
+compare equal across the two packages; the port's Engine serves every
+section).
 
 This module groups the engine's knobs into one frozen `EngineOptions`
 dataclass of themed sections
@@ -68,16 +68,15 @@ class PagingOptions:
     None means capacity-equal to dense (num_slots * ceil(max_seq /
     page_size)).
 
-    decode_kernel routes the Sq=1 decode read through the pallas
-    paged-attention kernel (kernels/paged_attention.py): per-step KV
+    decode_kernel routes the Sq=1 decode read through the hand-written
+    paged-decode kernels (kernels/paged_attention.py): per-step KV
     traffic walks the block table page by page instead of gathering
-    max_seq rows.  None (default) resolves at engine construction to
-    "on for a real TPU backend, off elsewhere" — interpret-mode pallas
-    inside the fused tick is correct but slow, so CPU runs opt in
-    explicitly (as the parity suite and bench_paged do).  gqa layers use
-    the kernel; mla and the speculative verify window fall back to the
-    gather oracle.  Ignored under kv_layout="dense" and under a mesh
-    (the kernel is not partition-annotated)."""
+    max_seq rows.  None (default) resolves at engine construction to on
+    for an engine on CUDA, off elsewhere (on the CPU the wrappers run
+    their plain versions).  gqa layers use the kernel; mla and the
+    speculative verify window read through the gather oracle.  Ignored
+    under kv_layout="dense"; under a mesh each rank runs it over its own
+    KV heads."""
     kv_layout: str = "paged"
     num_pages: int | None = None
     decode_kernel: bool | None = None
@@ -155,9 +154,10 @@ class SpeculationOptions:
 
 @dataclasses.dataclass(frozen=True)
 class ParallelOptions:
-    """mesh may be a jax Mesh or a build_mesh spec ("model=4", "2x4", 4);
-    capacity_factor / dispatch override the MoE routing knobs on cfg for
-    this engine (the jit'd functions close over cfg)."""
+    """mesh may be a `parallel.sharding.Mesh` of torch.distributed ranks or
+    a `build_mesh` spec ("model=4", "2x4", 4) over the ranks of the
+    default process group; capacity_factor / dispatch override the MoE
+    routing knobs on cfg for this engine."""
     mesh: Any = None
     capacity_factor: float | None = None
     dispatch: str | None = None

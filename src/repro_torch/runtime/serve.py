@@ -79,13 +79,34 @@ and the prefix cache and speculation opt out silently (a cached prefix
 cannot stand in for the state, and a rejected draft cannot be rewound);
 disaggregation raises ValueError, since the state has no page to move.
 
+Tensor- and expert-parallel serving (`mesh=`, a `parallel.sharding.Mesh`
+or a `build_mesh` spec over the ranks of the default process group): every
+rank builds the Engine with the same weights and submissions.
+Construction activates the `serve_rules` sharding ctx (released by
+`close()`, also when construction fails) and keeps this rank's block of
+every weight (`sharding.shard_params`; the embedding stays whole).  Each
+rank runs H/n query heads and Hkv/n KV heads (its page pool holds its KV
+heads) and d_ff/n of the dense FF (`sharding.local_config`; `self.cfg` is
+that per-rank view): the column-parallel linears need no collective, the
+row-parallel `wo` / `w_down` take one max and one sum over the `model`
+axis, the unembed one gather, and MoE experts go through the EP route.
+Greedy tokens come from the gathered logits, so the deterministic
+scheduler makes the same decisions on every rank.  A `data` axis
+replicates the slots across its ranks (the reference splits the batch over
+it; the tokens are the same).  The decode kernels run under a mesh as
+without one, each rank's over its own KV heads and pool: the reference
+turns its kernel off there because the kernel carries no partition
+annotations, and a rank here is a process with an ordinary local pool.
+As in the reference disaggregation with a mesh is a ValueError; layer
+kinds other than `attn` with a `dense`, `moe` or no FF, and the model
+drafter of speculation, raise NotImplementedError under a mesh.
+
 The engine runs on the card unless the caller asks for the CPU
 (`device="cpu"`); with no GPU and no explicit CPU request it raises.
-A mesh raises NotImplementedError at construction, and so does a
-cross-attention (xattn) arch: the Engine feeds no `vision_embeds`, so
-llama-3.2-vision runs forward-level only (`model.prefill` /
-`decode_step`), as in the reference, whose Engine fails at the first
-admission of such an arch.
+A cross-attention (xattn) arch raises NotImplementedError at
+construction: the Engine feeds no `vision_embeds`, so llama-3.2-vision
+runs forward-level only (`model.prefill` / `decode_step`), as in the
+reference, whose Engine fails at the first admission of such an arch.
 """
 from __future__ import annotations
 
@@ -97,6 +118,7 @@ import torch
 from repro_torch.kernels import paged_attention as pk
 from repro_torch.models import model as M
 from repro_torch.models.transformer import is_recurrent
+from repro_torch.parallel import sharding as shd
 from repro_torch.runtime import pages as pg
 from repro_torch.runtime import speculate as spc
 from repro_torch.runtime.options import EngineOptions, RequestResult
@@ -119,13 +141,6 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _unported(options: EngineOptions) -> str | None:
-    """The first option the port cannot serve, described, or None."""
-    if options.parallel.mesh is not None:
-        return "a device mesh (tensor and expert parallel serving)"
-    return None
-
-
 class Engine:
     """Continuous-batching engine.  Construction mirrors the reference:
     `Engine(cfg, params, options=EngineOptions(...))`, with the legacy flat
@@ -142,7 +157,16 @@ class Engine:
             legacy["max_seq"] = max_seq
         options = EngineOptions.build(base=options, **legacy)
         self._closed = False
-        self._build(cfg, params, options, resolve_device(device))
+        # close() must be callable on a partially constructed engine: the
+        # sharding ctx is process-global, so a construction that raises
+        # after activate() would otherwise leave it held
+        self._ctx = None
+        self.mesh = None
+        try:
+            self._build(cfg, params, options, resolve_device(device))
+        except BaseException:
+            self.close()
+            raise
 
     def _build(self, cfg, params, options: EngineOptions, device) -> None:
         dis = options.disagg
@@ -168,10 +192,6 @@ class Engine:
                     "the shared page pool; recurrent/xattn per-slot state "
                     f"has no page representation to transfer "
                     f"(layer_pattern={cfg.layer_pattern})")
-        missing = _unported(options)
-        if missing is not None:
-            raise NotImplementedError(f"{missing} is not ported to "
-                                      f"repro_torch yet")
         if any(s.startswith("xattn+") for s in cfg.layer_pattern):
             raise NotImplementedError(
                 f"{cfg.name} has cross-attention (xattn) layers, and the "
@@ -187,6 +207,9 @@ class Engine:
         if par.capacity_factor is not None:
             cfg = cfg.replace(moe_capacity_factor=float(par.capacity_factor))
         M.cache_pool_flags(cfg)         # rejects malformed layer specs
+        mesh = par.mesh
+        if mesh is not None:
+            cfg, params = self._shard(cfg, params, options, mesh)
         self.cfg = cfg
         self.params = tree_map(lambda a: a.to(device), params)
         self.num_slots, self.max_seq = sch.num_slots, sch.max_seq
@@ -319,6 +342,36 @@ class Engine:
         self.kv_bytes_read = 0
         self.kv_read_steps = 0
         self._kv_row_bytes = pk.kv_row_bytes(cfg)
+
+    def _shard(self, cfg, params, options: EngineOptions, mesh):
+        """Under a mesh: refuse what the mesh path does not serve, activate
+        the serve rules, and return this rank's config and weights."""
+        for layer in cfg.layer_pattern:
+            mixer, ff = layer.split("+")
+            if mixer != "attn" or ff not in ("dense", "moe", "none"):
+                raise NotImplementedError(
+                    f"{cfg.name}: a {layer!r} layer under a mesh is not "
+                    f"ported to repro_torch yet (tensor-parallel serving "
+                    f"takes attn layers with a dense, moe or no FF)")
+        spec = options.speculation
+        if spec.draft_len and spec.drafter == "model":
+            raise NotImplementedError(
+                "speculation's model drafter under a mesh is not ported to "
+                "repro_torch yet (its requantized weights would take "
+                "row-parallel scales from one rank's rows)")
+        if not isinstance(mesh, shd.Mesh):
+            mesh = shd.build_mesh(mesh)
+        if mesh.coords is None:
+            raise ValueError(f"this rank is outside the mesh {mesh.shape}")
+        self.mesh = mesh
+        self._ctx = shd.activate(mesh,
+                                 shd.serve_rules("pod" in mesh.axis_names))
+        local = shd.local_config(cfg, mesh,
+                                 self._ctx.phys_axis("tp") or "model")
+        # the embedding stays whole: a row gather on a vocab-split table
+        # would cost a collective per forward
+        return local, shd.shard_params(params, self._ctx,
+                                       whole=(r"embedding$",))
 
     # ------------------------------------------------------------------
     @property
@@ -713,7 +766,14 @@ class Engine:
         raise AssertionError(f"request {req.uid} is in no engine structure")
 
     def close(self) -> None:
-        """Drop the engine's device state (idempotent)."""
+        """Release the engine's sharding ctx (process-global: a later
+        meshless Engine or trainer in the same process would otherwise run
+        under this engine's rules) and drop its device state.  Idempotent,
+        and safe on a partially constructed engine — __init__ calls it
+        before re-raising."""
+        if self._ctx is not None and shd.active() is self._ctx:
+            shd.deactivate()
+        self._ctx = None
         if not self._closed:
             self._closed = True
             self.caches = None

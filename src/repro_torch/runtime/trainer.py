@@ -12,7 +12,12 @@ Responsibilities:
     `straggler_factor ×` the EWMA are logged with the step index.
 
 The parameters train on whatever device they live on; batches are moved
-there.
+there.  With a mesh whose `data` axis has n > 1 ranks (every rank holding
+the same parameters and drawing the same global batch), each rank takes
+its B/n rows and the gradients are averaged in full precision through
+`dp_trainer.make_dp_train_step(compress=False)` before AdamW, as the
+reference's GSPMD step reduces them; the first rank of the axis writes the
+checkpoints, and every rank waits for them before a restore.
 """
 from __future__ import annotations
 
@@ -25,6 +30,8 @@ import torch
 from repro_torch.checkpoint import ckpt
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
+from repro_torch.parallel import comm
+from repro_torch.runtime import dp_trainer
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -52,7 +59,8 @@ def release_grads(params) -> None:
 
 
 class Trainer:
-    def __init__(self, cfg, tcfg: TrainerConfig, params, opt_state=None):
+    def __init__(self, cfg, tcfg: TrainerConfig, params, opt_state=None,
+                 mesh=None):
         self.cfg, self.tcfg = cfg, tcfg
         self._set_params(params)
         self.opt_state = opt_state or adamw.init(params, tcfg.opt)
@@ -60,6 +68,12 @@ class Trainer:
         self.straggler_events: list[tuple[int, float]] = []
         self._ewma = None
         self._pending_ckpt = None
+        self._dp, self._dp_group, self._writer = None, None, True
+        if mesh is not None and mesh.shape.get("data", 1) > 1:
+            self._dp = dp_trainer.make_dp_train_step(
+                lambda p, b: M.loss_fn(p, b, cfg)[0], mesh, compress=False)
+            self._dp_group = mesh.group("data")
+            self._writer = mesh.index("data") == 0
 
     def _set_params(self, params):
         leaves = tree_leaves(params)
@@ -70,6 +84,11 @@ class Trainer:
 
     def _train_step(self, batch) -> dict:
         batch = {k: v.to(self.device) for k, v in batch.items()}
+        if self._dp is not None:
+            g, _, loss = self._dp(self.params, None, batch)
+            _, _, om = adamw.apply(self.params, self.opt_state, g,
+                                   self.tcfg.opt)
+            return {"loss": loss, **om}
         loss, parts = M.loss_fn(self.params, batch, self.cfg)
         loss.backward()
         _, _, om = adamw.apply(self.params, self.opt_state,
@@ -96,15 +115,31 @@ class Trainer:
         return {"params": self.params, "opt": self.opt_state}
 
     def maybe_checkpoint(self, force=False):
+        if not self._writer:
+            return
         if force or (self.step and self.step % self.tcfg.ckpt_every == 0):
-            if self._pending_ckpt is not None:
-                self._pending_ckpt.join()
+            self._join_ckpt()
             self._pending_ckpt = ckpt.save(
                 self.tcfg.ckpt_dir, self.step, self.state_tree(),
                 blocking=not self.tcfg.async_ckpt)
+            if self._pending_ckpt is None:
+                ckpt.prune(self.tcfg.ckpt_dir, self.tcfg.keep)
+
+    def _join_ckpt(self):
+        """Wait for the pending async save, then prune.  Pruning only once
+        a save has completed keeps it from racing the writer, which
+        replaces an existing step's directory (remove, then rename) and
+        would hide it from a prune that lists the directory meanwhile."""
+        if self._pending_ckpt is not None:
+            self._pending_ckpt.join()
+            self._pending_ckpt = None
             ckpt.prune(self.tcfg.ckpt_dir, self.tcfg.keep)
 
     def restore_latest(self) -> int:
+        if self._dp is not None:
+            # every rank restores what the writer has finished writing
+            self._join_ckpt()
+            comm.barrier(self._dp_group)
         step = ckpt.latest_step(self.tcfg.ckpt_dir)
         if step is None:
             return 0
@@ -135,12 +170,8 @@ class Trainer:
                 if restarts > max_restarts:
                     raise
                 # roll back to the last durable state and replay
-                if self._pending_ckpt is not None:
-                    self._pending_ckpt.join()
-                    self._pending_ckpt = None
+                self._join_ckpt()
                 self.restore_latest()
         self.maybe_checkpoint(force=True)
-        if self._pending_ckpt is not None:
-            self._pending_ckpt.join()
-            self._pending_ckpt = None
+        self._join_ckpt()
         return history

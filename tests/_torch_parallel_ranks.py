@@ -1,0 +1,230 @@
+"""Rank-side bodies of the port's parallel tests (`tests/test_torch_parallel_
+*.py`, `tests/test_torch_dp_trainer.py`).
+
+Each test file spawns its ranks once (`repro_torch.parallel.comm.spawn`,
+gloo on the CPU) with one of the functions below, which runs every case's
+rank side and returns its results; the parametrised tests then hold them
+against the JAX package's single-device functions in the test process.
+This module imports torch and the port only, so a rank never loads JAX.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.parallel import sharding as shd
+from repro_torch.tree import tree_items
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def _errors(fn) -> str:
+    """The ValueError message `fn()` raises ('' if none)."""
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+def _meshes():
+    """model=4 (4-way) and data=2,model=2 (2-way model inside 2 replicas)
+    over 4 ranks; every rank builds both, in the same order."""
+    return {4: shd.build_mesh("model=4"), 2: shd.build_mesh("data=2,model=2")}
+
+
+# ---------------------------------------------------------------------------
+# tensor parallel
+# ---------------------------------------------------------------------------
+
+def tp_rank(rank, world, device, cases, dense_cases):
+    """`tp_quant_matmul` on every (n, bits_a, bits_w, partition) case, the
+    active-rule case, the divisibility errors and `row_parallel_dense`."""
+    from repro_torch.models import layers
+    from repro_torch.parallel import tp
+
+    meshes = _meshes()
+    out = {"matmul": {}, "dense": {}}
+    for key, (xq, wq, xs, ws) in cases.items():
+        bits_a, bits_w = key
+        for n, mesh in meshes.items():
+            for part in ("k", "n"):
+                y = tp.tp_quant_matmul(xq, wq, xs, ws, mesh=mesh,
+                                       bits_a=bits_a, bits_w=bits_w,
+                                       partition=part)
+                out["matmul"][(n, bits_a, bits_w, part)] = (str(y.dtype),
+                                                            _np(y))
+    # with a ctx active, tp resolves the axis from the `tp` rule
+    xq, wq, _, _ = cases[(8, 8)]
+    one = torch.ones((1, 1))
+    shd.activate(meshes[2])
+    try:
+        out["rule"] = _np(tp.tp_quant_matmul(xq, wq, one, one,
+                                             mesh=meshes[2], bits_a=8,
+                                             bits_w=8))
+    finally:
+        shd.deactivate()
+    x, w = torch.zeros((4, 10), dtype=torch.int8), \
+        torch.zeros((10, 8), dtype=torch.int8)
+    out["div_k"] = _errors(lambda: tp.tp_quant_matmul(
+        x, w, one, one, mesh=meshes[4], bits_a=8, bits_w=8))
+    out["div_n"] = _errors(lambda: tp.tp_quant_matmul(
+        x, w[:, :6], one, one, mesh=meshes[4], bits_a=8, bits_w=8,
+        partition="n"))
+    # the model's row-parallel linear on this rank's K-slice and rows
+    for key, (x, qw, qcfg) in dense_cases.items():
+        for n, mesh in meshes.items():
+            ctx = shd.activate(mesh, shd.serve_rules(False))
+            try:
+                w = shd.shard_params({"mlp": {"w_down": qw}}, ctx)
+                i = mesh.index("model")
+                xs = x[:, i * x.shape[1] // n:(i + 1) * x.shape[1] // n]
+                y = layers.dense_row(xs, w["mlp"]["w_down"], qcfg)
+            finally:
+                shd.deactivate()
+            out["dense"][(key, n)] = _np(y)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# expert parallel
+# ---------------------------------------------------------------------------
+
+def ep_rank(rank, world, device, einsum_cases, moe_cases, cfg):
+    """The expert einsum (e, d, with a dp axis), `ep_moe` in both
+    dispatches, moe() routed through EP under a ctx."""
+    from repro_torch.models import moe as tmoe
+    from repro_torch.parallel import ep
+
+    meshes = _meshes()
+    out = {"einsum": {}, "moe": {}}
+    for bits, (x, qw) in einsum_cases.items():
+        for n, mesh in meshes.items():
+            for part in ("e", "d"):
+                y = ep.ep_quant_einsum_edf(x, qw, mesh=mesh, partition=part)
+                out["einsum"][(bits, n, part, None)] = _np(y)
+        for part in ("e", "d"):
+            y = ep.ep_quant_einsum_edf(x, qw, mesh=meshes[2], partition=part,
+                                       dp_axis="data")
+            out["einsum"][(bits, 2, part, "data")] = _np(y)
+    x, qw = einsum_cases[8]
+    out["div"] = _errors(lambda: ep.ep_quant_einsum_edf(
+        x[:6], qw.map(lambda a: a[:6]), mesh=meshes[4], partition="e"))
+    x = moe_cases["x"]
+    for name, p in moe_cases["params"].items():
+        for n, mesh in meshes.items():
+            for cf in (cfg.num_experts / cfg.experts_per_token, 1.0):
+                for disp in ("global", "per_source"):
+                    y, aux, keep = ep.ep_moe(p, x, cfg, mesh=mesh,
+                                             capacity_factor=cf,
+                                             dispatch=disp,
+                                             return_drops=True)
+                    out["moe"][(name, n, cf, disp)] = (
+                        _np(y), float(aux), _np(keep))
+    # with a ctx active, moe()'s quantized expert compute routes through EP
+    shd.activate(meshes[2])
+    try:
+        p = moe_cases["params"][8]
+        out["route"] = _np(tmoe.moe(p, x, cfg)[0])
+        out["route_ps"] = _np(tmoe.moe(p, x, cfg, capacity_factor=1.0,
+                                       dispatch="per_source")[0])
+    finally:
+        shd.deactivate()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the mesh Engine
+# ---------------------------------------------------------------------------
+
+def serve_streams(cfg, params, waves, device, **kw):
+    """Greedy streams of `waves` (lists of (prompt, new tokens)) through a
+    fresh Engine; each wave submitted together, the next after it drains."""
+    from repro_torch.runtime.serve import Engine
+    kw.setdefault("num_slots", 2)
+    kw.setdefault("max_seq", 32)
+    outs = []
+    with Engine(cfg, params, device=device, **kw) as eng:
+        for wave in waves:
+            reqs = [eng.submit(p, n) for p, n in wave]
+            eng.run()
+            outs += [list(r.out_tokens) for r in reqs]
+    return outs
+
+
+def engine_rank(rank, world, device, runs):
+    """Each run (cfg, params, waves, Engine kwargs) under its mesh; and the
+    refusals that need a mesh of more than one rank: ctx released after a
+    construction that raises, non-dividing heads."""
+    from repro_torch.runtime.serve import Engine
+
+    out = {}
+    for name, (cfg, params, waves, kw) in runs.items():
+        out[name] = serve_streams(cfg, params, waves, device, **kw)
+        out[name + "_ctx_after"] = shd.active() is not None
+    cfg, params, _, _ = runs["granite"]
+    eng = Engine(cfg, params, num_slots=1, max_seq=16, mesh="model=2",
+                 decode_kernel=True, device=device)
+    out["ctx_open"] = shd.active() is not None
+    out["heads"] = (eng.cfg.num_heads, eng.cfg.num_kv_heads, eng.cfg.d_ff)
+    out["decode_kernel"] = eng.decode_kernel
+    eng.close()
+    eng.close()
+    out["ctx_closed"] = shd.active() is None
+    # smoke granite has 2 KV heads: a 4-way model axis cannot split them
+    out["heads_error"] = _errors(lambda: Engine(
+        cfg, params, num_slots=1, max_seq=16, mesh="model=4", device=device))
+    out["ctx_after_error"] = shd.active() is None
+    return out
+
+
+# ---------------------------------------------------------------------------
+# data parallel
+# ---------------------------------------------------------------------------
+
+def _toy_loss(target):
+    def loss_fn(p, batch):
+        return torch.mean((batch @ p["w"] - batch @ target) ** 2)
+    return loss_fn
+
+
+def dp_rank(rank, world, device, toy, trainer_case):
+    """One compressed and one exact DP step of the reference's toy
+    problem, 200 steps of each, and the data-parallel Trainer."""
+    from repro_torch.runtime import dp_trainer as dp
+
+    mesh = shd.build_mesh(data=world)
+    params, target, batch = toy
+    loss_fn = _toy_loss(target)
+    step = dp.make_dp_train_step(loss_fn, mesh, compress=True)
+    exact = dp.make_dp_train_step(loss_fn, mesh, compress=False)
+    err = dp.init_error_feedback(params, mesh)
+    g1, err1, l1 = step(params, err, batch)
+    g0, _, l0 = exact(params, err, batch)
+    out = {"g1": _np(g1["w"]), "err1": _np(err1["w"]), "l1": float(l1),
+           "g0": _np(g0["w"]), "l0": float(l0), "finals": []}
+    for st in (step, exact):
+        p = {"w": params["w"].clone()}
+        e = dp.init_error_feedback(params, mesh)
+        for _ in range(200):
+            g, e, loss = st(p, e, batch)
+            p = {"w": p["w"] - 0.05 * g["w"]}
+        out["finals"].append(float(loss))
+    out["trainer"] = trainer_rank(mesh, *trainer_case)
+    return out
+
+
+def trainer_rank(mesh, cfg, params, batches, ckpt_dir):
+    """The Trainer on `mesh`: a restore of the checkpoint in `ckpt_dir`,
+    then one step per batch; returns the losses and the final weights."""
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    tcfg = TrainerConfig(ckpt_dir=ckpt_dir, ckpt_every=1000,
+                         async_ckpt=False, opt=adamw.AdamWConfig(lr=1e-3))
+    trainer = Trainer(cfg, tcfg, params, mesh=mesh)
+    restored = trainer.restore_latest()
+    losses = [trainer.run_step(b)["loss"] for b in batches]
+    return {"restored": restored, "losses": losses,
+            "params": {k: _np(v) for k, v in tree_items(trainer.params)}}

@@ -188,8 +188,9 @@ def test_disagg_validation_surface():
             TEngine(tc, tp, kv_layout="dense", disagg=True, role=role, **kw)
     with pytest.raises(ValueError, match="mesh"):
         TEngine(tc, tp, kv_layout="paged", disagg=True, mesh="model=1", **kw)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TEngine(tc, tp, kv_layout="paged", mesh="model=1", **kw)
+    # without disaggregation the mesh is served (colocated)
+    with TEngine(tc, tp, kv_layout="paged", mesh="model=1", **kw) as eng:
+        assert eng.mesh.shape == {"data": 1, "model": 1}
     _, rcfg = smoke_pair("jamba-1.5-large-398b")
     with pytest.raises(ValueError, match="page representation"):
         TEngine(rcfg, {}, kv_layout="paged", disagg=True, **kw)

@@ -110,11 +110,12 @@ def test_eos_at_admission_and_max_seq_clip(base):
 
 @pytest.mark.parametrize("option", [
     {"disagg": True, "role": "prefill"}, {"disagg": True, "role": "decode"},
-    {"mesh": "model=2"}])
+    {"mesh": "model=1", "draft_len": 2, "drafter": "model"}])
 def test_unported_options_raise(base, option):
-    """Speculation and disaggregation in this process are served
-    (tests/test_torch_speculate.py, tests/test_torch_disagg.py); the
-    multi-process roles of disaggregation and a mesh still raise."""
+    """Speculation, disaggregation in this process and a mesh are served
+    (tests/test_torch_speculate.py, tests/test_torch_disagg.py,
+    tests/test_torch_parallel_engine.py); the multi-process roles of
+    disaggregation and the model drafter under a mesh still raise."""
     _, tp, _ = base
     _, tc = smoke_pair()
     with pytest.raises(NotImplementedError):

@@ -166,7 +166,8 @@ def test_launcher_closing_line_as_the_reference(tmp_path):
     """`--smoke --device cpu` prints the reference launcher's closing line
     (`loss a -> b over n steps; straggler events: k`) over the same number
     of steps, and writes its final checkpoint; a second run resumes from
-    it and takes no step.  A mesh (--data/--model other than 1) raises."""
+    it and takes no step.  Tensor-parallel training (--model other than
+    1) raises; --data is tests/test_torch_dp_trainer.py's."""
     ref = _run("repro.launch.train", [], tmp_path / "j")
     assert ref.returncode == 0, ref.stderr[-3000:]
     got = _run("repro_torch.launch.train", ["--device", "cpu"],
@@ -185,6 +186,6 @@ def test_launcher_closing_line_as_the_reference(tmp_path):
                  tmp_path / "t")
     assert again.returncode == 0 and len(
         again.stdout.strip().splitlines()) == 1
-    mesh = _run("repro_torch.launch.train", ["--device", "cpu", "--data",
+    mesh = _run("repro_torch.launch.train", ["--device", "cpu", "--model",
                                              "2"], tmp_path / "m")
     assert mesh.returncode != 0 and "NotImplementedError" in mesh.stderr
