@@ -63,7 +63,13 @@ qwen3-moe-30b-a3b at full width, 16 of 48 layers, through
 streams equal to phases 5's and 11c's meshless serves, matmul and decode
 kernel launches and collectives per forward equal to their derivation;
 (e) `launch/serve.py --shard 2` and `launch/train.py
---data 2`. Phase 2 also times the speculative shapes (the verify window at
+--data 2`. Phase 16 holds the dry run (`launch.dryrun`, counted on the
+CPU's meta device) to live runs of the same step functions: granite-8b
+training's predicted peak within 10% of phase 13b's measured one, a q8
+decode step (B=8, 4096-row dense cache) and prefill (B=1, S=4096) on the
+card with their peaks within 10% (or 0.5 GB) of the prediction and their
+`bramac_matmul` launches equal to the counted calls, and the 145
+collectives of the model=2 decode cell. Phase 2 also times the speculative shapes (the verify window at
 M=20; 2-bit at M=4 with the unpack of the packed weights), every
 minicpm3-4b linear and qwen3-moe-30b-a3b's attention linears and unembed;
 phases 3-4 also hold both decode kernels at qwen3-moe-30b-a3b's heads
@@ -97,10 +103,12 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and int8 ops/s
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
-FP32_OPS_PER_S = 67e12
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8 ops/s and
+# float32 FLOP/s outside the tensor cores, from the port's one table of them
+from repro_torch.launch.device import H100  # noqa: E402
+HBM_BYTES_PER_S = H100.hbm_bytes_per_s
+INT8_OPS_PER_S = H100.int8_ops_per_s
+FP32_OPS_PER_S = H100.fp32_flops_per_s
 L2_FLUSH_BYTES = 64 << 20          # > the 50 MB L2: each timed launch is cold
 
 GRANITE_SHAPES = {                  # (K, N) of every linear on the path
@@ -3328,6 +3336,7 @@ def phase_train_granite(report):
          (36, 4096, 49152, "bfloat16"), "granite-8b config")
     per_step = 7 * cfg.num_layers + 1
     need(per_step == 253, f"granite launches per step {per_step}")
+    residue = torch.cuda.memory_allocated()   # earlier phases' leftovers
     t0 = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                            "cuda")
@@ -3382,8 +3391,8 @@ def phase_train_granite(report):
     return dict(losses=[h["loss"] for h in hist],
                 grad_norms=[h["grad_norm"] for h in hist], step_ms=step_ms,
                 first_step_ms=1e3 * times[0], tok_s=tok_s, peak_gb=peak,
-                state_gb=state_gb, launches_per_step=per_step,
-                parts_ms=parts)
+                residue_gb=residue / 1e9, state_gb=state_gb,
+                launches_per_step=per_step, parts_ms=parts)
 
 
 def train_step_parts(trainer, batch) -> dict:
@@ -4062,6 +4071,197 @@ def phase_parallel(report):
     print(f"phase 15 took {spent:.1f} s")
 
 
+def _gb(x) -> float:
+    return x / 1e9
+
+
+def _dry_line(label, rec) -> str:
+    """The dry run's prediction for one step, in words."""
+    r, m = rec["roofline"], rec["memory"]
+    return (f"{label}: predicted peak {_gb(m['peak_est_bytes_per_dev']):.2f} "
+            f"GB (args {_gb(m['args_bytes_per_dev']):.2f} GB), roofline "
+            f"compute {1e3 * r['compute_s']:.3f} ms / memory "
+            f"{1e3 * r['memory_s']:.3f} ms ({r['dominant']}-bound), "
+            f"{rec['kernel_calls_per_dev']['bramac_matmul']} bramac_matmul "
+            f"calls, counted by {rec['cost_probe']} in {rec['count_s']} s")
+
+
+def dry_record(cfg, info, quant_bits=0, mesh=None):
+    """`launch.dryrun`'s record of one step of `cfg` at `info`, counted on
+    the CPU's meta device."""
+    from repro_torch.launch import dryrun
+    return dryrun.predict(cfg, info, quant_bits, mesh)
+
+
+def within(measured: float, predicted: float, rel: float,
+           floor: float = 0.0) -> bool:
+    return abs(measured - predicted) <= max(rel * measured, floor)
+
+
+def live_step(step, args, repeats=3):
+    """Run `step(*args)` on the card `repeats` times after a warm-up; the
+    device peak above what was allocated before (the arguments included),
+    the mean host ms of a synced step, and the kernel launches of one."""
+    step(*args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    step(*args)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    times = []
+    for _ in range(repeats):
+        t = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return peak, 1e3 * float(np.mean(times)), launches
+
+
+def phase_dryrun(report):
+    """Phase 16: the dry run (`launch.dryrun`, counted on the CPU's meta
+    device) held to live runs of the same step functions.  (a) granite-8b
+    training as phase 13b runs it: the predicted peak within 10% of 13b's
+    measured one, its step ms beside the roofline terms; (b) granite-8b's
+    decode step (B=8 over a 4096-row dense cache) and prefill step (B=1,
+    S=4096) on q8 serving weights built as phase 5 builds them, live: each
+    peak within 10% (or 0.5 GB) of the prediction, bramac_matmul launches
+    equal to the counted kernel calls, ms beside the roofline terms, and
+    the full decode_32k / prefill_32k cells' predictions (which do not fit
+    one card); (c) the model=2 serve_tp_q8 decode cell's 145 collectives,
+    beside phase 15c's staged bytes.  The meta count leaves out the cuBLAS
+    workspace (CUBLAS_WORKSPACE_CONFIG :4096:8, 32 MiB) and the
+    allocator's segments; it rounds each storage to the allocator's
+    512-byte granule (`peak_rounded`)."""
+    from repro_torch.configs import archs, get_config
+    from repro_torch.core.bramac_linear import QuantConfig, \
+        tree_prepare_serving
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as M
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    q8 = QuantConfig(enabled=True, bits_w=8, bits_a=8)
+    cfg = get_config("granite-8b").replace(quant=q8)
+    out = {}
+
+    # (a) training: phase 13b's config and measured step
+    tr = report["train"]
+    info = {"kind": "train", "batch": TRAIN_B, "seq": TRAIN_S}
+    rec = dry_record(cfg, info)
+    print("  " + _dry_line(f"16a granite-8b train B={TRAIN_B} S={TRAIN_S}",
+                           rec))
+    pred = rec["memory"]["peak_rounded_bytes_per_dev"]
+    meas = 1e9 * (tr["peak_gb"] - tr["residue_gb"])
+    bound_ms = 1e3 * max(rec["roofline"]["compute_s"],
+                         rec["roofline"]["memory_s"])
+    need(within(meas, pred, 0.10),
+         f"16a: predicted training peak {_gb(pred):.2f} GB is not within 10% "
+         f"of 13b's measured {_gb(meas):.2f} GB")
+    need(rec["kernel_calls_per_dev"]["bramac_matmul"] ==
+         tr["launches_per_step"], f"16a: counted kernel calls "
+         f"{rec['kernel_calls_per_dev']} != 13b's {tr['launches_per_step']}")
+    out["train"] = dict(predicted_peak_gb=_gb(pred), measured_peak_gb=_gb(meas),
+                        step_ms=tr["step_ms"], roofline=rec["roofline"],
+                        bound_ms=bound_ms)
+    print(f"phase 16a granite-8b train: predicted peak {_gb(pred):.2f} GB vs "
+          f"13b's measured {_gb(meas):.2f} GB "
+          f"({100 * (pred - meas) / meas:+.2f}%); step {tr['step_ms']:.1f} ms "
+          f"vs roofline compute {1e3 * rec['roofline']['compute_s']:.2f} ms / "
+          f"memory {1e3 * rec['roofline']['memory_s']:.2f} ms: "
+          f"{tr['step_ms'] / bound_ms:.1f}x the bound")
+
+    # (b) serving steps at cuts of decode_32k and prefill_32k, live
+    residue = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = tree_prepare_serving(M.init_params(cfg, gen, "cuda"), q8)
+    torch.cuda.synchronize()
+    g = torch.Generator(device="cuda").manual_seed(16)
+    cuts = {"decode": ({"kind": "decode", "batch": 8, "seq": 4096},
+                       "decode_32k"),
+            "prefill": ({"kind": "prefill", "batch": 1, "seq": 4096},
+                        "prefill_32k")}
+    for kind, (info, full) in cuts.items():
+        rec = dry_record(cfg, info, 8)
+        full_rec = dry_record(cfg, archs.SHAPES[full], 8)
+        B, S = info["batch"], info["seq"]
+        caches = M.init_cache(cfg, B, S, device="cuda")
+        if kind == "decode":
+            tokens = torch.randint(0, cfg.vocab_size, (B, 1), generator=g,
+                                   device="cuda", dtype=torch.int32)
+            pos = torch.full((B,), S - 1, dtype=torch.int32, device="cuda")
+            args = (params, tokens, caches, pos)
+            step = dryrun.make_decode_step(cfg)
+        else:
+            tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                   device="cuda", dtype=torch.int32)
+            args = (params, {"tokens": tokens}, caches)
+            step = dryrun.make_prefill_step(cfg)
+        with torch.no_grad():
+            peak, ms, got = live_step(step, args)
+        logits = step(*args)[0]
+        need(tuple(logits.shape) == (B, cfg.vocab_size) and
+             bool(torch.isfinite(logits).all()),
+             f"16b {kind}: logits {tuple(logits.shape)} not finite")
+        meas = peak - residue
+        pred = rec["memory"]["peak_rounded_bytes_per_dev"]
+        calls = rec["kernel_calls_per_dev"]["bramac_matmul"]
+        bound_ms = 1e3 * max(rec["roofline"]["compute_s"],
+                             rec["roofline"]["memory_s"])
+        print("  " + _dry_line(f"16b {kind} B={B} S={S}", rec))
+        print("  " + _dry_line(f"16b {full} (full cell, not run)", full_rec))
+        need(within(meas, pred, 0.10, 0.5e9),
+             f"16b {kind}: predicted peak {_gb(pred):.2f} GB is not within "
+             f"10% (or 0.5 GB) of the measured {_gb(meas):.2f} GB")
+        need(got["bramac_matmul"] == calls,
+             f"16b {kind}: {got['bramac_matmul']} bramac_matmul launches != "
+             f"the dry run's {calls} calls")
+        _add_launches(report, got)
+        out[kind] = dict(B=B, S=S, predicted_peak_gb=_gb(pred),
+                         measured_peak_gb=_gb(meas), ms=ms,
+                         roofline=rec["roofline"], bound_ms=bound_ms,
+                         launches=got["bramac_matmul"],
+                         full_cell=full, full_peak_gb=_gb(
+                             full_rec["memory"]["peak_est_bytes_per_dev"]),
+                         full_roofline=full_rec["roofline"])
+        print(f"phase 16b granite-8b q8 {kind} B={B} S={S}: predicted peak "
+              f"{_gb(pred):.2f} GB vs measured {_gb(meas):.2f} GB "
+              f"({100 * (pred - meas) / meas:+.2f}%), {calls} bramac_matmul "
+              f"launches as counted; {ms:.2f} ms a step vs roofline compute "
+              f"{1e3 * rec['roofline']['compute_s']:.3f} ms / memory "
+              f"{1e3 * rec['roofline']['memory_s']:.3f} ms: "
+              f"{ms / bound_ms:.1f}x the bound; the full {full} cell: "
+              f"{out[kind]['full_peak_gb']:.1f} GB predicted peak")
+        del caches, args, logits
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the tensor-parallel decode cell's collectives, on the CPU
+    rec = dry_record(get_config("granite-8b"), archs.SHAPES["decode_32k"], 8,
+                     mesh="model=2")
+    calls = rec["collective_calls_per_dev"]
+    L = cfg.num_layers
+    need(sum(calls.values()) == 145 == L * 2 * 2 + 1 and
+         calls == {"all-reduce": 144, "all-gather": 1},
+         f"16c: model=2 decode collectives {calls} != 36 x 2 x 2 + 1 = 145")
+    staged = report["parallel"]["granite_bf16"]["staged_mb_per_forward"]
+    out["tp_decode"] = dict(collectives=calls,
+                            bytes=rec["collective_bytes_per_dev"],
+                            staged_mb_15c=staged)
+    print(f"phase 16c granite-8b serve_tp_q8 decode_32k on model=2 (dry): "
+          f"{sum(calls.values())} collectives a forward per rank {calls}, "
+          f"result bytes {rec['collective_bytes_per_dev']} "
+          f"({rec['collective_bytes_total_per_dev'] / 1e6:.1f} MB at B=128); "
+          f"phase 15c staged {staged:.3f} MB a forward through the host "
+          f"(its own traffic, in and out, at its slots)")
+    report["dryrun"] = out
+    spent = time.perf_counter() - t_phase
+    report["phase16_s"] = spent
+    print(f"phase 16 took {spent:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4104,6 +4304,7 @@ def main() -> int:
     phase_xattn(report)
     phase_streams()
     phase_parallel(report)
+    phase_dryrun(report)
     print(f"timing: {len(HOST_BOUND)} readings in which an enqueue outlasted "
           f"the device spin" + (f": {HOST_BOUND}" if HOST_BOUND else ""))
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")

@@ -56,24 +56,33 @@ def dense(x: torch.Tensor, w, cfg: QuantConfig | None) -> torch.Tensor:
     return ops.bramac_dense(x, w, cfg.bits_w, cfg.bits_a)
 
 
+SERVE_CHUNK = 1 << 26       # elements one quantize call takes at most
+
+
 def prepare_serving(w: torch.Tensor, cfg: QuantConfig) -> quant.QuantizedTensor:
     """Quantize a weight once for inference: per-output-channel scales over
-    the contraction axis (−2); 4/2-bit values bit-packed along it.  Stacked
-    (periods, …, in, out) weights are quantized one period at a time, which
-    gives the same result as one call and keeps temporaries small."""
-    if w.ndim > 2:
-        return _stack([prepare_serving(w[i], cfg) for i in range(w.shape[0])],
-                      tuple(w.shape))
+    the contraction axis (−2); 4/2-bit values bit-packed along it.  A stacked
+    (periods, …, in, out) weight of more than SERVE_CHUNK elements is
+    quantized in runs of whole leading slices of at most SERVE_CHUNK
+    elements (a slice larger than that on its own, split again), which gives
+    the same result as one call and keeps temporaries small."""
+    if w.ndim > 2 and w.numel() > SERVE_CHUNK:
+        step = SERVE_CHUNK // w[0].numel()
+        if step == 0:
+            return _join(torch.stack, [prepare_serving(w[i], cfg)
+                                       for i in range(w.shape[0])], w.shape)
+        return _join(torch.cat, [prepare_serving(w[i:i + step], cfg)
+                                 for i in range(0, w.shape[0], step)], w.shape)
     return quant.quantize(w, cfg.bits_w, axis=w.ndim - 2,
                           pack=cfg.bits_w < 8, pack_axis=-2)
 
 
-def _stack(parts, shape) -> quant.QuantizedTensor:
-    """Per-period QuantizedTensors stacked back along a leading axis."""
+def _join(join, parts, shape) -> quant.QuantizedTensor:
+    """QuantizedTensors of leading slices joined back (`torch.stack` of
+    single slices, `torch.cat` of runs of them) into one of `shape`."""
     return quant.QuantizedTensor(
-        torch.stack([p.values for p in parts]),
-        torch.stack([p.scale for p in parts]), parts[0].bits,
-        parts[0].packed, shape, parts[0].packed_axis)
+        join([p.values for p in parts]), join([p.scale for p in parts]),
+        parts[0].bits, parts[0].packed, tuple(shape), parts[0].packed_axis)
 
 
 def serve_dense(x: torch.Tensor, qw: quant.QuantizedTensor,
@@ -169,7 +178,8 @@ def requantize_serving(qw: quant.QuantizedTensor,
     if qw.values.ndim > 2:
         parts = [requantize_serving(qw.map(lambda a, i=i: a[i]), cfg)
                  for i in range(qw.values.shape[0])]
-        return _stack(parts, (qw.values.shape[0],) + parts[0].shape)
+        return _join(torch.stack, parts,
+                     (qw.values.shape[0],) + parts[0].shape)
     return quant.requantize(qw, cfg.bits_w, axis=0, pack=cfg.bits_w < 8,
                             pack_axis=-2)
 

@@ -12,7 +12,11 @@ split of K that fill the card.
 `bramac_matmul` launches the kernel for CUDA tensors and runs the plain
 PyTorch version (`bramac_matmul_plain`, the radix-4 digit reference) for
 CPU tensors — the device of the tensors decides, nothing else.  There is
-no fallback: a CUDA tensor the kernel does not take raises.
+no fallback: a CUDA tensor the kernel does not take raises.  Meta tensors
+(the dry run, `launch.dryrun`) take the CUDA route's allocations up to the
+launch and count the call, its 2·M·N·K int8 operations and the bytes of
+its operands and output in `meta_calls`, `meta_ops` and `meta_bytes`;
+`launches` counts only kernels launched.
 """
 from __future__ import annotations
 
@@ -114,9 +118,10 @@ def bramac_matmul(x_q, w_q, x_scale, w_scale, *, bits_a: int, bits_w: int,
                                    out_dtype=out_dtype, w_packed=w_packed,
                                    out=out)
     dev = x_q.device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+    if dev.type not in ("cuda", "meta") or any(t.device != dev
+                                               for t in tensors):
         raise ValueError("bramac_matmul operands must all be on one CUDA "
-                         "device (or all on the CPU)")
+                         "device (or all on the CPU, or all on meta)")
     if out is None:
         out = torch.empty((M, N), dtype=out_dtype, device=dev)
     if M == 0 or N == 0:
@@ -125,6 +130,12 @@ def bramac_matmul(x_q, w_q, x_scale, w_scale, *, bits_a: int, bits_w: int,
     xs = x_scale.to(torch.float32).expand(M, 1).reshape(M).contiguous()
     ws = w_scale.to(torch.float32).expand(1, N).reshape(N).contiguous()
     acc = torch.empty((M, N), dtype=torch.int32, device=dev)
+    if dev.type == "meta":
+        bramac_matmul.meta_calls += 1
+        bramac_matmul.meta_ops += 2 * M * N * K
+        bramac_matmul.meta_bytes += sum(t.numel() * t.element_size()
+                                        for t in (x_q, w_q, xs, ws, out))
+        return out
     bm, _, k_per_split = _plan(
         M, K, N, torch.cuda.get_device_properties(dev).multi_processor_count)
     lib = build.library("bramac_matmul")
@@ -139,3 +150,6 @@ def bramac_matmul(x_q, w_q, x_scale, w_scale, *, bits_a: int, bits_w: int,
 
 
 bramac_matmul.launches = 0
+bramac_matmul.meta_calls = 0
+bramac_matmul.meta_ops = 0
+bramac_matmul.meta_bytes = 0

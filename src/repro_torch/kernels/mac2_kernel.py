@@ -86,6 +86,9 @@ def mac2_mvm_kernel(w: torch.Tensor, x: torch.Tensor, *, bits: int,
     R, C = _check(w, x, bits)
     if w.device.type == "cpu" and x.device.type == "cpu":
         return mac2_mvm_kernel_plain(w, x, bits=bits, signed=signed)
+    if w.is_meta or x.is_meta:
+        raise ValueError("mac2_mvm_kernel has no meta route (the dry run "
+                         "counts the serving and training paths only)")
     dev = w.device
     if dev.type != "cuda" or x.device != dev:
         raise ValueError("mac2_mvm_kernel operands must both be on one CUDA "

@@ -186,6 +186,9 @@ def _check_common(q, pools, tables, n_pages, lengths):
 def _on_cuda(*tensors) -> bool:
     if all(t.device.type == "cpu" for t in tensors):
         return False
+    if any(t.is_meta for t in tensors):
+        raise ValueError("the paged decode kernels have no meta route: the "
+                         "dry run reads dense caches through the gather")
     dev = tensors[0].device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("operands must all be on one CUDA device (or all "

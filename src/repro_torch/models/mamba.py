@@ -70,6 +70,13 @@ def _ssm_inputs(p, xc):
     return dA, dBx, Cm
 
 
+def _read_out(h, c):
+    """y = C·h per row: (B, d_in, N) x (B, N) -> (B, d_in), as the one
+    batched product `einsum("bdn,bn->bd")` lowers to, without its
+    permutes and views (a step of the scan issues a third of the ops)."""
+    return torch.bmm(h, c[..., None])[..., 0]
+
+
 def _chunk_scan(h, xc, p):
     """One chunk: h carried through its T steps.  h (B, d_in, N) f32,
     xc (B, T, d_in).  Returns (h_T, y (B, T, d_in) f32)."""
@@ -77,7 +84,7 @@ def _chunk_scan(h, xc, p):
     ys = []
     for t in range(xc.shape[1]):
         h = dA[:, t] * h + dBx[:, t]
-        ys.append(torch.einsum("bdn,bn->bd", h, Cm[:, t]))
+        ys.append(_read_out(h, Cm[:, t]))
     y = torch.stack(ys, dim=1) + p["d_skip"] * xc.to(torch.float32)
     return h, y
 
@@ -120,7 +127,7 @@ def mamba_step(p, x, cfg, state):
     xc = F.silu(xc + p["conv_b"])
     dA, dBx, Cm = _ssm_inputs(p, xc)             # (B,d_in,N), (B,N)
     h = dA * h + dBx
-    y = torch.einsum("bdn,bn->bd", h, Cm) + p["d_skip"] * xc.to(torch.float32)
+    y = _read_out(h, Cm) + p["d_skip"] * xc.to(torch.float32)
     out = dense(y.to(x.dtype) * F.silu(z), p["w_out"], cfg.quant)
     return out[:, None], (h, window[:, 1:])
 

@@ -8,6 +8,14 @@ version shim with nothing to port).  In the port a rank is a process of
 of one mesh axis line (`sharding.Mesh.group`); an axis of size 1 has no
 group, and a collective over it returns its input.
 
+A dry-run mesh (`sharding.dry_mesh`) holds a `DryGroup` per axis: its
+size and no processes.  A collective over one takes meta tensors, returns
+the meta result of the right shape and exchanges nothing.
+
+Every collective counts its calls and its result bytes by kind in `stats`
+(the reference dry run's convention for collective traffic: the bytes of
+each collective's result, per rank).
+
 Transport: gloo.  Ranks that share one card cannot use NCCL (it refuses
 two ranks on one GPU), so a CUDA tensor is copied to the host, collected
 there, and copied back.  That staging is the transport on a shared card,
@@ -39,14 +47,24 @@ RANK_TIMEOUT = datetime.timedelta(seconds=600)
 @dataclasses.dataclass
 class CommStats:
     """What this rank's collectives did: calls, bytes copied between the
-    card and the host around them, and wall seconds inside them (staging
-    included)."""
+    card and the host around them, wall seconds inside them (staging
+    included), and calls and result bytes by kind ("all-reduce",
+    "all-gather", "all-to-all")."""
     calls: int = 0
     staged_bytes: int = 0
     seconds: float = 0.0
+    kind_calls: dict = dataclasses.field(default_factory=dict)
+    kind_bytes: dict = dataclasses.field(default_factory=dict)
 
     def reset(self) -> None:
         self.calls, self.staged_bytes, self.seconds = 0, 0, 0.0
+        self.kind_calls, self.kind_bytes = {}, {}
+
+    def count(self, kind: str, out: torch.Tensor) -> None:
+        self.calls += 1
+        self.kind_calls[kind] = self.kind_calls.get(kind, 0) + 1
+        self.kind_bytes[kind] = self.kind_bytes.get(kind, 0) + \
+            out.numel() * out.element_size()
 
     def snapshot(self) -> dict:
         return dataclasses.asdict(self)
@@ -55,14 +73,30 @@ class CommStats:
 stats = CommStats()
 
 
-def _collect(t: torch.Tensor, run) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class DryGroup:
+    """The group of a dry-run mesh axis line: `size` ranks, no processes."""
+    size: int
+
+
+def _dry(t: torch.Tensor, kind: str, shape) -> torch.Tensor:
+    """A collective over a DryGroup: the meta result, counted."""
+    if not t.is_meta:
+        raise ValueError(f"a dry-run mesh's {kind} takes meta tensors, got "
+                         f"one on {t.device}")
+    out = torch.empty(shape, dtype=t.dtype, device="meta")
+    stats.count(kind, out)
+    return out
+
+
+def _collect(t: torch.Tensor, kind: str, run) -> torch.Tensor:
     """Stage `t` on the host (a copy), `run(host)` -> the host result,
     bring it back to `t`'s device; counted in `stats`."""
     t0 = time.perf_counter()
     src = t.detach().contiguous()
     host = src.cpu() if src.is_cuda else src.clone()
     out = run(host)
-    stats.calls += 1
+    stats.count(kind, out)
     if src.is_cuda:
         out = out.to(t.device)
         stats.staged_bytes += host.numel() * host.element_size() \
@@ -76,11 +110,13 @@ def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     new tensor, `t` untouched."""
     if group is None:
         return t
+    if isinstance(group, DryGroup):
+        return _dry(t, "all-reduce", t.shape)
 
     def run(h):
         dist.all_reduce(h, op=_OPS[op], group=group)
         return h
-    return _collect(t, run)
+    return _collect(t, "all-reduce", run)
 
 
 def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
@@ -88,13 +124,17 @@ def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     group-rank order."""
     if group is None:
         return t
+    if isinstance(group, DryGroup):
+        shape = list(t.shape)
+        shape[dim] *= group.size
+        return _dry(t, "all-gather", shape)
 
     def run(h):
         parts = [torch.empty_like(h)
                  for _ in range(dist.get_world_size(group))]
         dist.all_gather(parts, h, group=group)
         return torch.cat(parts, dim=dim)
-    return _collect(t, run)
+    return _collect(t, "all-gather", run)
 
 
 def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
@@ -104,12 +144,14 @@ def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     concat_axis=0)`)."""
     if group is None:
         return t
+    if isinstance(group, DryGroup):
+        return _dry(t, "all-to-all", t.shape)
 
     def run(h):
         out = torch.empty_like(h)
         dist.all_to_all_single(out, h, group=group)
         return out
-    return _collect(t, run)
+    return _collect(t, "all-to-all", run)
 
 
 def barrier(group=None) -> None:

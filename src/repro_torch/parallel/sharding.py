@@ -37,6 +37,7 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from repro_torch.parallel.comm import DryGroup
 from repro_torch.tree import tree_map_with_path
 
 _AXIS_ORDER = ("pod", "data", "model")
@@ -214,6 +215,23 @@ def build_mesh(spec: str | int | None = None, *, pod: int | None = None,
         warnings.warn(f"mesh {dict(zip(axes, shape))} uses {need} of "
                       f"{devs} devices", stacklevel=2)
     return _make_mesh(axes, shape)
+
+
+def dry_mesh(spec: str | int | None = None) -> Mesh:
+    """A dry-run mesh (the counterpart of the reference's
+    `make_production_mesh`): the grid a `build_mesh` spec names, with
+    sizes and no processes.  It is rank 0's view, every axis line a
+    `comm.DryGroup`; an omitted `data` is 1.  Collectives over it take
+    meta tensors and exchange nothing (`parallel.comm`)."""
+    named = _parse(spec) if spec is not None else {}
+    for name, val in named.items():
+        if val < 1:
+            raise ValueError(f"mesh axis {name}={val} must be >= 1")
+    named.setdefault("data", 1)
+    axes = tuple(a for a in _AXIS_ORDER if a in named)
+    sizes = tuple(named[a] for a in axes)
+    return Mesh(axes, sizes, (0,) * len(axes),
+                {a: DryGroup(n) for a, n in zip(axes, sizes) if n > 1})
 
 
 def activate(mesh: Mesh, rules: dict | None = None) -> ShardingCtx:

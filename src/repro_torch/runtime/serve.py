@@ -141,6 +141,19 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def check_mesh_layers(cfg) -> None:
+    """Raise NotImplementedError unless every layer of `cfg` is one the
+    mesh path serves: attn with a dense, moe or no FF (the rest is ROADMAP
+    queue 1 item 12)."""
+    for layer in cfg.layer_pattern:
+        mixer, ff = layer.split("+")
+        if mixer != "attn" or ff not in ("dense", "moe", "none"):
+            raise NotImplementedError(
+                f"{cfg.name}: a {layer!r} layer under a mesh is not "
+                f"ported to repro_torch yet (tensor-parallel serving "
+                f"takes attn layers with a dense, moe or no FF)")
+
+
 class Engine:
     """Continuous-batching engine.  Construction mirrors the reference:
     `Engine(cfg, params, options=EngineOptions(...))`, with the legacy flat
@@ -346,13 +359,7 @@ class Engine:
     def _shard(self, cfg, params, options: EngineOptions, mesh):
         """Under a mesh: refuse what the mesh path does not serve, activate
         the serve rules, and return this rank's config and weights."""
-        for layer in cfg.layer_pattern:
-            mixer, ff = layer.split("+")
-            if mixer != "attn" or ff not in ("dense", "moe", "none"):
-                raise NotImplementedError(
-                    f"{cfg.name}: a {layer!r} layer under a mesh is not "
-                    f"ported to repro_torch yet (tensor-parallel serving "
-                    f"takes attn layers with a dense, moe or no FF)")
+        check_mesh_layers(cfg)
         spec = options.speculation
         if spec.draft_len and spec.drafter == "model":
             raise NotImplementedError(

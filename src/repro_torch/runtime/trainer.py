@@ -46,6 +46,19 @@ class TrainerConfig:
         default_factory=adamw.AdamWConfig)
 
 
+def check_mesh(mesh) -> None:
+    """Training splits over a `data` axis only: raise NotImplementedError
+    for a mesh whose other axes are larger than 1."""
+    if mesh is None:
+        return
+    split = {a: n for a, n in mesh.shape.items() if a != "data" and n > 1}
+    if split:
+        raise NotImplementedError(
+            f"tensor-parallel training (mesh axes {split}) is not ported to "
+            f"repro_torch yet (ROADMAP queue 1 item 11); a data axis trains "
+            f"data-parallel")
+
+
 def grads(params):
     """The parameters' gradients as a tree (zeros where autograd left
     none, as `jax.grad` gives for an unused leaf)."""
@@ -61,6 +74,7 @@ def release_grads(params) -> None:
 class Trainer:
     def __init__(self, cfg, tcfg: TrainerConfig, params, opt_state=None,
                  mesh=None):
+        check_mesh(mesh)
         self.cfg, self.tcfg = cfg, tcfg
         self._set_params(params)
         self.opt_state = opt_state or adamw.init(params, tcfg.opt)

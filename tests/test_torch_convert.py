@@ -21,6 +21,7 @@ from repro_torch.core import bramac_linear as tbl
 from repro_torch.core.quant import QuantizedTensor
 
 jax.config.update("jax_platform_name", "cpu")
+torch.set_num_threads(1)  # smoke sizes: one intra-op thread per worker
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -146,7 +147,7 @@ def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.convert, "
             "repro_torch.runtime.serve, repro_torch.launch.serve, "
             "repro_torch.kernels.build, repro_torch.runtime.trainer, "
-            "repro_torch.launch.train\n"
+            "repro_torch.launch.train, repro_torch.launch.dryrun\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')]\n"
             "assert not bad, bad\nprint('CLEAN')")

@@ -35,6 +35,7 @@ from test_torch_convert import np_, smoke_pair, to_torch
 from test_torch_engine_features import _launch, _timing_free
 
 jax.config.update("jax_platform_name", "cpu")
+torch.set_num_threads(1)  # smoke sizes: one intra-op thread per worker
 
 # every cache architecture the port serves, all pool-representable
 ARCHS = {

@@ -32,6 +32,7 @@ from repro_torch.tree import tree_items
 from test_torch_convert import np_, smoke_pair
 
 jax.config.update("jax_platform_name", "cpu")
+torch.set_num_threads(1)  # smoke sizes: one intra-op thread per worker
 
 WORLD = 2
 FP_ATOL = 1e-5

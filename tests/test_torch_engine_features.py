@@ -26,6 +26,7 @@ from repro_torch.runtime.serve import Engine as TEngine
 from test_torch_convert import REPO, smoke_pair, to_torch
 
 jax.config.update("jax_platform_name", "cpu")
+torch.set_num_threads(1)  # smoke sizes: one intra-op thread per worker
 
 
 @pytest.fixture(scope="module")
@@ -280,7 +281,7 @@ def test_cow_copy_matches_jax(case):
 
 def _launch(mod, args):
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
-               JAX_PLATFORMS="cpu")
+               JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-m", mod, "--arch", "granite-8b",
                           "--smoke"] + args, env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=300)

@@ -25,6 +25,7 @@ from repro_torch.kernels import paged_attention as tpk
 from repro_torch.kernels import ref as tref
 
 jax.config.update("jax_platform_name", "cpu")
+torch.set_num_threads(1)  # smoke sizes: one intra-op thread per worker
 
 BITS = [2, 4, 8]
 

@@ -22,6 +22,7 @@ from repro_torch.kernels import mac2_kernel as tk
 from repro_torch.kernels import ref as tref
 
 jax.config.update("jax_platform_name", "cpu")
+torch.set_num_threads(1)  # smoke sizes: one intra-op thread per worker
 
 BITS = [2, 4, 8]
 

@@ -33,6 +33,7 @@ from test_torch_convert import leaves, np_, smoke_pair, to_torch
 from test_torch_model import ATOL_FP, ATOL_Q, B, _jax_run, _torch_run
 
 jax.config.update("jax_platform_name", "cpu")
+torch.set_num_threads(1)  # smoke sizes: one intra-op thread per worker
 
 ARCH = "minicpm3-4b"
 # f32 agreement of one block: the same arithmetic up to reassociation
@@ -44,6 +45,20 @@ def params():
     jc, _ = smoke_pair(ARCH)
     jp = JM.init_params(jc, jax.random.PRNGKey(0))
     return jp, to_torch(jp)
+
+
+_SERVING = {}
+
+
+def _serving(params, bits):
+    """Both sides' `bits`-bit serving trees of the `params` fixture's
+    trees (bits_a = bits), quantized once for the module's tests."""
+    if bits not in _SERVING:
+        jp, tp = params
+        q = dict(enabled=True, bits_w=bits, bits_a=bits)
+        _SERVING[bits] = (jbl.tree_prepare_serving(jp, jbl.QuantConfig(**q)),
+                          tbl.tree_prepare_serving(tp, tbl.QuantConfig(**q)))
+    return _SERVING[bits]
 
 
 def _block_inputs(seed, cfg, S, offsets):
@@ -141,11 +156,8 @@ def test_smoke_serving_tree_carried_leaf_for_leaf(params):
     tree equals the port's quantization of the converted float tree, int8
     values and f32 scales bit for bit — all seven MLA projections, the
     MLP's three and the unembedding."""
-    jp, tp = params
-    q = jbl.QuantConfig(enabled=True, bits_w=8, bits_a=8)
-    jq = to_torch(jbl.tree_prepare_serving(jp, q))
-    tq = tbl.tree_prepare_serving(tp, tbl.QuantConfig(enabled=True, bits_w=8,
-                                                      bits_a=8))
+    jq, tq = _serving(params, 8)
+    jq = to_torch(jq)
     jl, tl = leaves(jq), leaves(tq)
     assert [p for p, _ in jl] == [p for p, _ in tl]
     n_q = 0
@@ -170,10 +182,7 @@ def test_prefill_decode_logits_match_jax(params, layout, bits):
     whole minicpm3 smoke model: logits within ATOL_FP (float) or ATOL_Q
     (quantized); the latent caches within the same."""
     jc, tc = smoke_pair(ARCH, quant_bits=bits)
-    jp, tp = params
-    if bits:
-        jp = jbl.tree_prepare_serving(jp, jc.quant)
-        tp = tbl.tree_prepare_serving(tp, tc.quant)
+    jp, tp = _serving(params, bits) if bits else params
     toks = np.random.default_rng(5).integers(0, jc.vocab_size, (B, 11)
                                              ).astype(np.int32)
     a, ja = _jax_run(jc, jp, toks, layout, 3)

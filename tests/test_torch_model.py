@@ -19,6 +19,7 @@ from repro_torch.models import model as TM
 from test_torch_convert import np_, smoke_pair, to_torch
 
 jax.config.update("jax_platform_name", "cpu")
+torch.set_num_threads(1)  # smoke sizes: one intra-op thread per worker
 
 B, MAX_SEQ, PS = 2, 32, 16
 TABLES = np.asarray([[2, 0], [3, 1]], np.int32)       # shuffled page ids

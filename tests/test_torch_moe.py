@@ -34,6 +34,7 @@ from test_torch_convert import leaves, np_, smoke_pair, to_torch
 from test_torch_model import ATOL_Q, _jax_run, _torch_run
 
 jax.config.update("jax_platform_name", "cpu")
+torch.set_num_threads(1)  # smoke sizes: one intra-op thread per worker
 
 ARCHS = ("qwen3-moe-30b-a3b", "dbrx-132b")
 # f32 MoE layer: the same arithmetic up to reassociation (router matmul,
@@ -47,6 +48,19 @@ def arch_params(request):
     jc, _ = smoke_pair(request.param)
     jp = JM.init_params(jc, jax.random.PRNGKey(0))
     return request.param, jp, to_torch(jp)
+
+
+_Q8 = {}
+
+
+def _q8(arch, jp, tp):
+    """(jc, tc, JAX 8-bit serving tree, the port's) of `arch_params`'
+    trees, quantized once for the module's tests."""
+    if arch not in _Q8:
+        jc, tc = smoke_pair(arch, quant_bits=8)
+        _Q8[arch] = (jc, tc, jbl.tree_prepare_serving(jp, jc.quant),
+                     tbl.tree_prepare_serving(tp, tc.quant))
+    return _Q8[arch]
 
 
 def _layer(jp, tp):
@@ -269,10 +283,7 @@ def test_prefill_decode_logits_match_jax(arch_params):
     """Prefill (11-token prompts) then 3 greedy decode steps through the
     whole 8-bit model, paged, at the default capacity: logits within
     ATOL_Q; the dense layout reproduces them bit for bit."""
-    arch, jp, tp = arch_params
-    jc, tc = smoke_pair(arch, quant_bits=8)
-    jp = jbl.tree_prepare_serving(jp, jc.quant)
-    tp = tbl.tree_prepare_serving(tp, tc.quant)
+    jc, tc, jp, tp = _q8(*arch_params)
     toks = np.random.default_rng(5).integers(0, jc.vocab_size, (2, 11)
                                              ).astype(np.int32)
     a, _ = _jax_run(jc, jp, toks, "paged", 3)
@@ -326,10 +337,7 @@ def test_engine_greedy_streams_equal_jax(arch_params):
     under the same options at the default capacity (1.25, tokens dropped):
     paged, dense, disaggregated and the prefix cache on; a draft_len=4
     engine opts out of speculation and serves the paged streams."""
-    arch, jp, tp = arch_params
-    jc, tc = smoke_pair(arch, quant_bits=8)
-    jq = jbl.tree_prepare_serving(jp, jc.quant)
-    tq = tbl.tree_prepare_serving(tp, tc.quant)
+    jc, tc, jq, tq = _q8(*arch_params)
     waves = _waves(tc.vocab_size)
     runs = {"paged": dict(prefix_cache=False, check_invariants=True),
             "dense": dict(kv_layout="dense"),

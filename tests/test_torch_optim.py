@@ -31,6 +31,7 @@ from repro_torch.tree import tree_items, tree_leaves
 from test_torch_convert import np_, smoke_pair, to_torch
 
 jax.config.update("jax_platform_name", "cpu")
+torch.set_num_threads(1)  # smoke sizes: one intra-op thread per worker
 
 ATOL_PARAM = 1e-6
 ATOL_Q8 = 1.0 / 127

@@ -19,6 +19,7 @@ import sys
 
 import jax
 import pytest
+import torch
 
 from repro.core import arch_models as jam
 from repro.core import dla_model as jdla
@@ -33,6 +34,7 @@ from repro_torch.core import workloads as twl
 from repro_torch.launch import paper
 
 jax.config.update("jax_platform_name", "cpu")
+torch.set_num_threads(1)  # smoke sizes: one intra-op thread per worker
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BITS = (2, 4, 8)
@@ -59,7 +61,8 @@ def cli_proc():
     proc = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.paper", "--device", "cpu"],
         cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        env={**os.environ, "PYTHONPATH": os.path.join(REPO, "src")})
+        env={**os.environ, "PYTHONPATH": os.path.join(REPO, "src"),
+             "OMP_NUM_THREADS": "1"})
     yield proc
     if proc.poll() is None:
         proc.kill()

@@ -40,6 +40,7 @@ from repro_torch.runtime.serve import Engine as TEngine
 from test_torch_convert import smoke_pair, to_torch
 
 jax.config.update("jax_platform_name", "cpu")
+torch.set_num_threads(1)  # smoke sizes: one intra-op thread per worker
 
 NO_DROP = 4.0                            # qwen3-moe smoke: E / k = 8 / 2
 MAX_SEQ = 32                             # serve_streams' default

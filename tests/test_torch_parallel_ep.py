@@ -35,6 +35,7 @@ from test_torch_model import ATOL_Q
 from test_torch_moe import ATOL_MOE
 
 jax.config.update("jax_platform_name", "cpu")
+torch.set_num_threads(1)  # smoke sizes: one intra-op thread per worker
 
 BITS = (2, 4, 8)
 E, C, D, F = 8, 16, 32, 24               # the reference's einsum shapes

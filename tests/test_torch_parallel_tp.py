@@ -29,6 +29,7 @@ from repro_torch.parallel import comm
 from test_torch_convert import np_, to_torch
 
 jax.config.update("jax_platform_name", "cpu")
+torch.set_num_threads(1)  # smoke sizes: one intra-op thread per worker
 
 BITS = (2, 4, 8)
 M, K, N = 16, 64, 24                     # the reference's shapes

@@ -16,6 +16,7 @@ import functools
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.core import bramac_linear as jbl
 from repro.models import model as JM
@@ -25,6 +26,7 @@ from repro_torch.runtime.serve import Engine as TEngine
 from test_torch_convert import smoke_pair, to_torch
 
 jax.config.update("jax_platform_name", "cpu")
+torch.set_num_threads(1)  # smoke sizes: one intra-op thread per worker
 
 # "mla" is minicpm3-4b's smoke config, with its own weights
 VARIANTS = {"fp": {}, "int8_kv": {"quant_kv": True}, "quant8": {"quant_bits": 8},

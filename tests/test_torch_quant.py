@@ -10,6 +10,7 @@ from repro.core import quant as jq
 from repro_torch.core import quant as tq
 
 jax.config.update("jax_platform_name", "cpu")
+torch.set_num_threads(1)  # smoke sizes: one intra-op thread per worker
 
 BITS = [2, 4, 8]
 
@@ -81,3 +82,27 @@ def test_pack_unpack_and_digits_bit_exact(bits):
                                       tq.to_bits(qt, bits, signed).numpy())
     np.testing.assert_array_equal(
         tq.from_radix4_digits(tq.to_radix4_digits(qt, bits)).numpy(), q)
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("chunk", [100, 1500])
+def test_prepare_serving_in_runs_equals_one_call(bits, chunk, monkeypatch):
+    """A stacked (periods, E, in, out) weight larger than SERVE_CHUNK is
+    quantized in runs of leading slices: single experts stacked back (a
+    chunk below one expert's 128 elements) or runs of whole (E, in, out)
+    periods (above one period's 512) give the values, scales and layout of
+    one call, and of the reference's `prepare_serving`."""
+    from repro.core import bramac_linear as jbl
+    from repro_torch.core import bramac_linear as tbl
+    w = _x(7 * bits + chunk, shape=(3, 4, 16, 8))
+    q = dict(enabled=True, bits_w=bits, bits_a=8)
+    whole = tbl.prepare_serving(torch.from_numpy(w), tbl.QuantConfig(**q))
+    monkeypatch.setattr(tbl, "SERVE_CHUNK", chunk)
+    got = tbl.prepare_serving(torch.from_numpy(w), tbl.QuantConfig(**q))
+    want = jbl.prepare_serving(jnp.asarray(w), jbl.QuantConfig(**q))
+    for b in (whole, got):
+        assert (b.bits, b.packed, tuple(b.shape), b.packed_axis) == \
+            (want.bits, want.packed, tuple(want.shape), want.packed_axis)
+        np.testing.assert_array_equal(np.asarray(want.values),
+                                      b.values.numpy())
+        np.testing.assert_array_equal(np.asarray(want.scale), b.scale.numpy())

@@ -42,6 +42,7 @@ from test_torch_convert import leaves, np_, smoke_pair, to_torch
 from test_torch_model import ATOL_Q
 
 jax.config.update("jax_platform_name", "cpu")
+torch.set_num_threads(1)  # smoke sizes: one intra-op thread per worker
 
 XL, JB = "xlstm-1.3b", "jamba-1.5-large-398b"
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -55,6 +56,15 @@ def _params(arch):
     jc, _ = smoke_pair(arch)
     jp = JM.init_params(jc, jax.random.PRNGKey(0))
     return jp, to_torch(jp)
+
+
+@functools.lru_cache(maxsize=None)
+def _q8(arch):
+    """(jc, tc, JAX 8-bit serving tree, the port's) of `_params(arch)`."""
+    jp, tp = _params(arch)
+    jc, tc = smoke_pair(arch, quant_bits=8)
+    return (jc, tc, jbl.tree_prepare_serving(jp, jc.quant),
+            tbl.tree_prepare_serving(tp, tc.quant))
 
 
 @pytest.fixture(scope="module", params=[XL, JB])
@@ -334,9 +344,8 @@ def test_serving_tree_carried_leaf_for_leaf(arch_params):
     w_in/w_out) equal as values and scales; the recurrence weights (w_if,
     r_gates, w_bc, w_dt_*) and the f32 leaves stay float."""
     arch, jp, tp = arch_params
-    q = dict(enabled=True, bits_w=8, bits_a=8)
-    jq = to_torch(jbl.tree_prepare_serving(jp, jbl.QuantConfig(**q)))
-    tq = tbl.tree_prepare_serving(tp, tbl.QuantConfig(**q))
+    _, _, jq, tq = _q8(arch)
+    jq = to_torch(jq)
     jl, tl = leaves(jq), leaves(tq)
     assert [p for p, _ in jl] == [p for p, _ in tl]
     quantized = set()
@@ -407,10 +416,7 @@ def test_engine_greedy_streams_equal_jax(arch_params):
     the port's paged and dense Engines equal the JAX Engine's (paged, no
     prefix cache); both prefill one token per forward; the prefix cache
     (paged) and speculation (dense) requested opt out silently."""
-    arch, jp, tp = arch_params
-    jc, tc = smoke_pair(arch, quant_bits=8)
-    jq = jbl.tree_prepare_serving(jp, jc.quant)
-    tq = tbl.tree_prepare_serving(tp, tc.quant)
+    jc, tc, jq, tq = _q8(arch_params[0])
     prompts, news = _prompts(tc.vocab_size), (6, 3, 5, 2)
     want, jeng = _serve(JEngine, jc, jq, prompts, news, prefix_cache=False)
     assert jeng.prefill_chunk == 1

@@ -17,6 +17,7 @@ from repro_torch.runtime.serve import Engine
 from test_torch_convert import smoke_pair, to_torch
 
 jax.config.update("jax_platform_name", "cpu")
+torch.set_num_threads(1)  # smoke sizes: one intra-op thread per worker
 
 V = 16
 DRAWS = 40_000

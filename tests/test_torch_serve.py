@@ -20,6 +20,7 @@ from test_serving_engine import reference_greedy
 from test_torch_convert import smoke_pair, to_torch
 
 jax.config.update("jax_platform_name", "cpu")
+torch.set_num_threads(1)  # smoke sizes: one intra-op thread per worker
 
 LENS = (3, 16, 17, 29, 40)
 NEWS = (5, 1, 7, 4, 6)

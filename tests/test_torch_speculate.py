@@ -40,6 +40,7 @@ from repro_torch.runtime import speculate as tspc
 from test_torch_convert import leaves, np_, smoke_pair, to_torch
 
 jax.config.update("jax_platform_name", "cpu")
+torch.set_num_threads(1)  # smoke sizes: one intra-op thread per worker
 
 # f32 agreement of draft-cache rows computed by programs of other shapes
 # (chunked vs one-shot observe, the port vs the reference): fp32

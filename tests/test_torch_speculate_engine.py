@@ -21,6 +21,7 @@ from test_torch_engine_features import _launch, _timing_free
 from test_torch_speculate import CACHE_ATOL, _t, base  # noqa: F401
 
 jax.config.update("jax_platform_name", "cpu")
+torch.set_num_threads(1)  # smoke sizes: one intra-op thread per worker
 
 
 # --- the Engine -------------------------------------------------------------
@@ -200,9 +201,10 @@ def test_draft_len_clamped_and_unported_options(base):
                          ids=["ngram", "model"])
 def test_launcher_speculation_report_as_the_reference(args, monkeypatch,
                                                       capsys):
-    """The port's launcher (CPU subprocess) against the reference's `main`:
-    the same lines apart from wall-time readings, the speculation line
-    word for word."""
+    """The port's launcher (CPU subprocess) against the reference's `main`,
+    both serving four requests: the same lines apart from wall-time
+    readings, the speculation line word for word."""
+    args = ["--requests", "4"] + args
     import sys
     from repro.launch import serve as jlaunch
     port = _launch("repro_torch.launch.serve", ["--device", "cpu"] + args)

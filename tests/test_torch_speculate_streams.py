@@ -8,6 +8,7 @@ and minicpm3-4b's MLA."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.models import model as JM
 from repro.runtime.serve import Engine as JEngine
@@ -16,18 +17,22 @@ from test_torch_convert import smoke_pair, to_torch
 from test_torch_speculate import base  # noqa: F401
 
 jax.config.update("jax_platform_name", "cpu")
+torch.set_num_threads(1)  # smoke sizes: one intra-op thread per worker
 
 
 # --- the Engine -------------------------------------------------------------
 
-def _jobs(vocab):
+def _jobs(vocab, drafter):
     """Repetitive prompts behind a shared 16-token system prefix, so the
-    n-gram drafter accepts and the prefix cache shares pages."""
+    n-gram drafter accepts and the prefix cache shares pages.  The model
+    drafter, whose checks count drafts and not acceptance, takes half the
+    new tokens (two to three windows a request)."""
     rng = np.random.default_rng(0)
     sys_p = list(rng.integers(1, vocab, 16))
-    return [(sys_p + list(rng.integers(1, vocab, 4)) * 3, 20),
-            (sys_p + list(rng.integers(1, vocab, 5)) * 2, 18),
-            (sys_p + list(rng.integers(1, vocab, 4)) * 3, 16)]
+    div = 2 if drafter == "model" else 1
+    return [(sys_p + list(rng.integers(1, vocab, 4)) * 3, 20 // div),
+            (sys_p + list(rng.integers(1, vocab, 5)) * 2, 18 // div),
+            (sys_p + list(rng.integers(1, vocab, 4)) * 3, 16 // div)]
 
 
 def _serve(engine_cls, cfg, params, jobs, **kw):
@@ -61,7 +66,7 @@ def test_engine_greedy_streams_equal_jax_and_non_speculative(base, arch,
     else:
         over = {"quant_kv": True} if arch == "int8kv" else {}
         jc, tc = smoke_pair(**over)
-    jobs = _jobs(tc.vocab_size)
+    jobs = _jobs(tc.vocab_size, drafter)
     plain, _ = _serve(TEngine, tc, tp, jobs, kv_layout="dense")
     jspec, jeng = _serve(JEngine, jc, jp, jobs, draft_len=4, drafter=drafter)
     assert jspec == plain

@@ -25,6 +25,7 @@ from repro_torch.models import model as TM
 from test_torch_convert import smoke_pair, to_torch
 
 jax.config.update("jax_platform_name", "cpu")
+torch.set_num_threads(1)  # smoke sizes: one intra-op thread per worker
 
 RTOL_GRAD = 2e-3
 ATOL_LOSS = 1e-5

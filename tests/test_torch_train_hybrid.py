@@ -5,8 +5,11 @@ xlstm-1.3b: mLSTM and sLSTM; dbrx-132b) in the port against
 test_torch_train's tolerances: autograd through the recurrent mixers'
 step-by-step state writes and the MoE dispatch's `index_put_`."""
 import pytest
+import torch
 
 from test_torch_train import HYBRID, check_loss_and_grads
+
+torch.set_num_threads(1)  # smoke sizes: one intra-op thread per worker
 
 
 @pytest.mark.parametrize("arch", HYBRID)

@@ -37,6 +37,7 @@ from repro_torch.tree import tree_items, tree_leaves
 from test_torch_convert import REPO, smoke_pair, to_torch
 
 jax.config.update("jax_platform_name", "cpu")
+torch.set_num_threads(1)  # smoke sizes: one intra-op thread per worker
 
 ATOL_HIST = 1e-4
 # QAT: after the first update the params differ in their last bits, and a
@@ -153,7 +154,7 @@ def test_trainer_straggler_watchdog(tmp_path):
 
 def _run(mod, args, tmp):
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
-               JAX_PLATFORMS="cpu")
+               JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-m", mod, "--arch", "granite-8b", "--smoke",
          "--steps", "3", "--seq", "16", "--batch", "2", "--quant-bits", "8",

@@ -28,6 +28,7 @@ from repro_torch.runtime.serve import Engine as TEngine
 from test_torch_convert import leaves, np_, smoke_pair, to_torch
 
 jax.config.update("jax_platform_name", "cpu")
+torch.set_num_threads(1)  # smoke sizes: one intra-op thread per worker
 
 ATOL_FP, ATOL_Q = 1e-4, 5e-2
 VLM = "llama-3.2-vision-11b"
