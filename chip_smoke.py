@@ -63,13 +63,18 @@ qwen3-moe-30b-a3b at full width, 16 of 48 layers, through
 streams equal to phases 5's and 11c's meshless serves, matmul and decode
 kernel launches and collectives per forward equal to their derivation;
 (e) `launch/serve.py --shard 2` and `launch/train.py
---data 2`. Phase 16 holds the dry run (`launch.dryrun`, counted on the
+--data 2` and `--model 2`; (f) granite-8b trained at full width on
+model=2 (each rank its half of every split weight and of its AdamW
+state), 4 steps: losses finite, step 1's within 1e-3 relative of phase
+13b's, 253 `bramac_matmul` launches and 291 collectives per rank and
+step. Phase 16 holds the dry run (`launch.dryrun`, counted on the
 CPU's meta device) to live runs of the same step functions: granite-8b
 training's predicted peak within 10% of phase 13b's measured one, a q8
 decode step (B=8, 4096-row dense cache) and prefill (B=1, S=4096) on the
 card with their peaks within 10% (or 0.5 GB) of the prediction and their
-`bramac_matmul` launches equal to the counted calls, and the 145
-collectives of the model=2 decode cell. Phase 2 also times the speculative shapes (the verify window at
+`bramac_matmul` launches equal to the counted calls, the 145
+collectives of the model=2 decode cell, and 15f's per-rank peak within
+10% of its prediction with its collectives as counted. Phase 2 also times the speculative shapes (the verify window at
 M=20; 2-bit at M=4 with the unpack of the packed weights), every
 minicpm3-4b linear and qwen3-moe-30b-a3b's attention linears and unembed;
 phases 3-4 also hold both decode kernels at qwen3-moe-30b-a3b's heads
@@ -3397,25 +3402,17 @@ def phase_train_granite(report):
 
 def train_step_parts(trainer, batch) -> dict:
     """Where a training step's time goes: one more step through the
-    Trainer's own parts (the loss forward, autograd's backward, the AdamW
-    update with the gradients' release), each ended by a device sync;
-    host ms of each."""
-    from repro_torch.models import model as M
-    from repro_torch.optim import adamw
-    from repro_torch.runtime.trainer import grads, release_grads
+    Trainer's own step (`TrainLayout.step`: the loss forward, autograd's
+    backward, the AdamW update with the gradients' release), each part
+    ended by a device sync; host ms of each."""
     marks = [time.perf_counter()]
 
     def mark():
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
 
-    loss, _ = M.loss_fn(trainer.params, batch, trainer.cfg)
-    mark()
-    loss.backward()
-    mark()
-    adamw.apply(trainer.params, trainer.opt_state, grads(trainer.params),
-                trainer.tcfg.opt)
-    release_grads(trainer.params)
+    trainer.layout.step(trainer.params, trainer.opt_state, batch,
+                        trainer.tcfg.opt, mark)
     mark()
     ms = [round(1e3 * (b - a), 1) for a, b in zip(marks, marks[1:])]
     return dict(zip(("forward_ms", "backward_ms", "adamw_ms"), ms))
@@ -3890,8 +3887,67 @@ def _rank_serve(cfg, params, prompts, new_tokens, mesh):
     return run
 
 
+def _rank_train(mesh):
+    """15f on one rank: granite-8b at full width (36 layers, bf16, QAT
+    8/8, int8 m / bf16 v) trained on `mesh` as phase 13b trains it
+    meshless: 4 `Trainer.run_step`s on the same seeded weights and
+    batches, no checkpoint.  Each rank draws the whole weights and keeps
+    its blocks; the peak is read from the Trainer's construction on (the
+    whole draw freed), its residue (what the rank held before the draw)
+    beside it."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.core.bramac_linear import QuantConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import comm
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    gc.collect()
+    torch.cuda.empty_cache()
+    residue = torch.cuda.memory_allocated()
+    q8 = QuantConfig(enabled=True, bits_w=8, bits_a=8)
+    cfg = get_config("granite-8b").replace(quant=q8)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    with tempfile.TemporaryDirectory() as d:
+        trainer = Trainer(cfg, TrainerConfig(
+            ckpt_dir=d, opt=adamw.AdamWConfig(lr=1e-3)), params, mesh=mesh)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        state_gb = (torch.cuda.memory_allocated() - residue) / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        pipe = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B))
+        hist, times, launches, comms = [], [], [], []
+        for step in range(4):
+            batch = pipe.batch(step, "cuda")
+            _zero_counts()
+            comm.stats.reset()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            hist.append(trainer.run_step(batch))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            launches.append(_read_counts())
+            comms.append(comm.stats.snapshot())
+        peak = torch.cuda.max_memory_allocated()
+        layers = trainer.layout.cfg.num_layers
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=[h["loss"] for h in hist],
+                grad_norms=[h["grad_norm"] for h in hist], times=times,
+                launches=launches, comm=comms, peak_gb=peak / 1e9,
+                residue_gb=residue / 1e9, state_gb=state_gb,
+                build_s=build_s, layers=layers)
+
+
 def parallel_rank(rank, world, device):
-    """Phases 15b-d on one rank of the mesh "model=2"."""
+    """Phases 15b-d and 15f on one rank of the mesh "model=2"."""
     from repro_torch.configs import get_config
     from repro_torch.core.bramac_linear import QuantConfig
     from repro_torch.kernels import build
@@ -3926,6 +3982,8 @@ def parallel_rank(rank, world, device):
         cfg.num_experts
     out["qwen3"] = _rank_serve(cfg, params,
                                _phase5_prompts(cfg.vocab_size)[:4], 8, mesh)
+    del params
+    out["train"] = _rank_train(mesh)
     return out
 
 
@@ -3985,13 +4043,80 @@ def _check_mesh_serve(label, runs, want, layers, kv, per_fwd, calls_per_fwd,
     return row
 
 
+def tp_train_collectives(layers: int) -> dict:
+    """Per rank and step of QAT training on model=2: forward, wo's and
+    w_down's max x, max w and int32 sum a layer, one gather of the logits;
+    backward, one gradient sum at the input of each layer's attention and
+    MLP and of the unembed; AdamW's norm, one sum."""
+    return {"all-reduce": layers * 2 * 3 + layers * 2 + 1 + 1,
+            "all-gather": 1}
+
+
+def _check_tp_train(runs, report):
+    """15f: the ranks' 4 steps of granite-8b on model=2 against the
+    derivation and phase 13b's meshless run of the same weights and
+    batches."""
+    L = runs[0]["layers"]
+    per_step = 7 * L + 1
+    want_calls = tp_train_collectives(L)
+    for r, run in enumerate(runs):
+        need(all(np.isfinite(x) for x in run["losses"] + run["grad_norms"]),
+             f"15f: rank {r} non-finite losses {run['losses']} or grad norms "
+             f"{run['grad_norms']}")
+        need(run["losses"] == runs[0]["losses"],
+             f"15f: rank {r}'s losses {run['losses']} != rank 0's")
+        for step, (got, c) in enumerate(zip(run["launches"], run["comm"])):
+            need(got["bramac_matmul"] == per_step and got["paged_decode"] ==
+                 0 == got["paged_decode_q"],
+                 f"15f: rank {r} step {step} launches {got}")
+            need(c["kind_calls"] == want_calls,
+                 f"15f: rank {r} step {step} collectives {c['kind_calls']} "
+                 f"!= {want_calls}")
+            report["bramac_matmul"]["launches"] += got["bramac_matmul"]
+    mine, meshless = runs[0]["losses"][0], report["train"]["losses"][0]
+    rel = abs(mine - meshless) / abs(meshless)
+    need(rel <= 1e-3, f"15f: step 1's loss {mine!r} is not within 1e-3 "
+         f"relative of 13b's {meshless!r}")
+    r0 = runs[0]
+    step_ms = 1e3 * float(np.mean(r0["times"][1:]))
+    comm_ms = 1e3 * float(np.mean([c["seconds"] for c in r0["comm"][1:]]))
+    staged = float(np.mean([c["staged_bytes"] for c in r0["comm"][1:]]))
+    peaks = [run["peak_gb"] - run["residue_gb"] for run in runs]
+    row = dict(losses=r0["losses"], grad_norms=r0["grad_norms"],
+               loss_13b=meshless, loss_rel=rel, bit_equal=mine == meshless,
+               step_ms=step_ms, first_step_ms=1e3 * r0["times"][0],
+               tok_s=TRAIN_B * TRAIN_S / (step_ms / 1e3), comm_ms=comm_ms,
+               comm_share=comm_ms / step_ms, staged_mb=staged / 1e6,
+               peak_gb=peaks, state_gb=[run["state_gb"] for run in runs],
+               build_s=[run["build_s"] for run in runs],
+               collectives=want_calls, launches_per_step=per_step)
+    print(f"phase 15f train granite-8b full width ({L} layers, QAT 8/8, int8 "
+          f"m / bf16 v, B={TRAIN_B} S={TRAIN_S}) on model=2, 2 ranks on the "
+          f"card: losses {[round(x, 4) for x in r0['losses']]}, grad norms "
+          f"{[round(x, 3) for x in r0['grad_norms']]}; step 1's loss {mine!r}"
+          f" vs 13b's {meshless!r} ({'bit-equal' if mine == meshless else f'relative difference {rel:.3e}'}); "
+          f"{step_ms:.1f} ms per step (steps 2-4; step 1 "
+          f"{row['first_step_ms']:.1f} ms), {row['tok_s']:.1f} training "
+          f"tokens/s; per rank and step {per_step} bramac_matmul launches "
+          f"and {sum(want_calls.values())} collectives {want_calls} (as "
+          f"derived), {comm_ms:.1f} ms in collectives "
+          f"({100 * row['comm_share']:.1f}% of the step), "
+          f"{row['staged_mb']:.1f} MB staged through the host; state per "
+          f"rank {', '.join(f'{g:.2f}' for g in row['state_gb'])} GB, peak "
+          f"per rank {', '.join(f'{g:.2f}' for g in peaks)} GB (drawn and "
+          f"placed in {', '.join(f'{t:.1f}' for t in row['build_s'])} s)")
+    return row
+
+
 def phase_parallel_launchers():
-    """15e: `launch/serve.py --shard 2` and `launch/train.py --data 2` on
-    the card, each in a subprocess that spawns its 2 ranks."""
+    """15e: `launch/serve.py --shard 2` and `launch/train.py --data 2` and
+    `--model 2` on the card, each in a subprocess that spawns its 2
+    ranks."""
     import tempfile
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = {}
-    with tempfile.TemporaryDirectory() as ckpt:
+    with tempfile.TemporaryDirectory() as ckpt, \
+            tempfile.TemporaryDirectory() as ckpt_tp:
         for name, args, want in (
                 ("serve", ["repro_torch.launch.serve", "--arch",
                            "granite-8b", "--smoke", "--shard", "2"],
@@ -3999,6 +4124,12 @@ def phase_parallel_launchers():
                 ("train", ["repro_torch.launch.train", "--arch",
                            "granite-8b", "--smoke", "--steps", "4", "--data",
                            "2", "--ckpt-dir", ckpt],
+                 r"^loss \d+\.\d{4} -> \d+\.\d{4} over 4 steps; straggler "
+                 r"events: \d+$"),
+                ("train_tp", ["repro_torch.launch.train", "--arch",
+                              "granite-8b", "--smoke", "--steps", "4",
+                              "--quant-bits", "8", "--model", "2",
+                              "--ckpt-dir", ckpt_tp],
                  r"^loss \d+\.\d{4} -> \d+\.\d{4} over 4 steps; straggler "
                  r"events: \d+$")):
             t0 = time.perf_counter()
@@ -4024,7 +4155,8 @@ def phase_parallel(report):
     qwen3-moe-30b-a3b at full width, 16 of 48 layers, through
     `Engine(mesh="model=2")`, the decode kernels on each rank's KV heads,
     against the meshless streams of phases 5 and 11c; (e) both launchers'
-    mesh flags."""
+    mesh flags; (f) granite-8b trained at full width on model=2, against
+    phase 13b."""
     from repro_torch.parallel import comm
     t_phase = time.perf_counter()
     gc.collect()
@@ -4064,6 +4196,7 @@ def phase_parallel(report):
         f"phase 15d qwen3-moe-30b-a3b ({L} of 48 layers) model=2, bf16 KV",
         [o["qwen3"] for o in outs], report["qwen3_streams"], L, "bf16",
         (4 + 3 * E // PAR_RANKS) * L + 1, L * (2 + 3) + 1, report)
+    par["train"] = _check_tp_train([o["train"] for o in outs], report)
     par["launchers"] = phase_parallel_launchers()
     report["parallel"] = par
     spent = time.perf_counter() - t_phase
@@ -4130,7 +4263,9 @@ def phase_dryrun(report):
     equal to the counted kernel calls, ms beside the roofline terms, and
     the full decode_32k / prefill_32k cells' predictions (which do not fit
     one card); (c) the model=2 serve_tp_q8 decode cell's 145 collectives,
-    beside phase 15c's staged bytes.  The meta count leaves out the cuBLAS
+    beside phase 15c's staged bytes; (d) phase 15f's tensor-parallel
+    training step on a dry model=2: the per-rank peak within 10% of each
+    rank's measured one, collectives and kernel calls equal to 15f's.  The meta count leaves out the cuBLAS
     workspace (CUBLAS_WORKSPACE_CONFIG :4096:8, 32 MiB) and the
     allocator's segments; it rounds each storage to the allocator's
     512-byte granule (`peak_rounded`)."""
@@ -4256,6 +4391,33 @@ def phase_dryrun(report):
           f"({rec['collective_bytes_total_per_dev'] / 1e6:.1f} MB at B=128); "
           f"phase 15c staged {staged:.3f} MB a forward through the host "
           f"(its own traffic, in and out, at its slots)")
+    # (d) tensor-parallel training: phase 15f's configuration, per rank
+    tp = report["parallel"]["train"]
+    rec = dry_record(cfg, {"kind": "train", "batch": TRAIN_B,
+                           "seq": TRAIN_S}, mesh="model=2")
+    print("  " + _dry_line(f"16d granite-8b train B={TRAIN_B} S={TRAIN_S} "
+                           f"model=2 (per rank)", rec))
+    pred = _gb(rec["memory"]["peak_rounded_bytes_per_dev"])
+    calls = rec["collective_calls_per_dev"]
+    for r, meas in enumerate(tp["peak_gb"]):
+        need(within(meas, pred, 0.10),
+             f"16d: predicted per-rank training peak {pred:.2f} GB is not "
+             f"within 10% of 15f rank {r}'s measured {meas:.2f} GB")
+    need(calls == tp["collectives"],
+         f"16d: counted collectives {calls} != 15f's {tp['collectives']}")
+    need(rec["kernel_calls_per_dev"]["bramac_matmul"] ==
+         tp["launches_per_step"], f"16d: counted kernel calls "
+         f"{rec['kernel_calls_per_dev']} != 15f's {tp['launches_per_step']}")
+    out["tp_train"] = dict(predicted_peak_gb=pred, measured_peak_gb=tp[
+        "peak_gb"], collectives=calls, roofline=rec["roofline"],
+        args_gb=_gb(rec["memory"]["args_bytes_per_dev"]))
+    print(f"phase 16d granite-8b train on model=2: predicted per-rank peak "
+          f"{pred:.2f} GB vs 15f's measured "
+          f"{', '.join(f'{g:.2f}' for g in tp['peak_gb'])} GB "
+          f"({', '.join(f'{100 * (pred - g) / g:+.2f}%' for g in tp['peak_gb'])}); "
+          f"{sum(calls.values())} collectives {calls} and "
+          f"{rec['kernel_calls_per_dev']['bramac_matmul']} bramac_matmul "
+          f"calls a step, as 15f counted them")
     report["dryrun"] = out
     spent = time.perf_counter() - t_phase
     report["phase16_s"] = spent

@@ -11,7 +11,8 @@ Paths are `repro_torch.tree`'s: dict keys and tuple indices joined with
 scales under ".../1", as the reference's pytree flattening names them.  bfloat16 leaves (which npz
 cannot hold) go in as raw little-endian bytes of shape `shape + (2,)`,
 with "bfloat16" as the manifest dtype; no ml_dtypes is needed for that.
-`restore(..., device=...)` places every leaf on one torch device.
+`restore(..., device=...)` places every leaf on one torch device, and
+`take=` maps each leaf as it is read (a rank's block of a whole leaf).
 """
 from __future__ import annotations
 
@@ -85,26 +86,30 @@ def latest_step(directory: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore(directory: str, step: int, skeleton, *, device=None):
+def restore(directory: str, step: int, skeleton, *, device=None,
+            take=None):
     """Restore into `skeleton`'s structure and dtypes, every leaf on
-    `device` (the skeleton leaf's device if None)."""
+    `device` (the skeleton leaf's device if None).  Leaves are read one at
+    a time; `take(path, tensor)`, if given, maps each leaf as read (a
+    tensor-parallel rank takes its block of the whole leaf)."""
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)["leaves"]
     with np.load(os.path.join(path, "arrays.npz")) as z:
-        flat = {}
-        for k in z.files:
-            key = k.replace("|", SEP)
-            flat[key] = _decode(z[k], manifest[key]["dtype"],
-                                manifest[key]["shape"])
+        names = set(z.files)
 
-    def leaf(key, ref):
-        if key not in flat:
-            raise KeyError(f"checkpoint missing leaf {key!r}")
-        return flat[key].to(device=device if device is not None
-                            else ref.device, dtype=ref.dtype)
+        def leaf(key, ref):
+            name = key.replace(SEP, "|")
+            if name not in names:
+                raise KeyError(f"checkpoint missing leaf {key!r}")
+            t = _decode(z[name], manifest[key]["dtype"],
+                        manifest[key]["shape"])
+            if take is not None:
+                t = take(key, t)
+            return t.to(device=device if device is not None else ref.device,
+                        dtype=ref.dtype)
 
-    return tree_map_with_path(leaf, skeleton)
+        return tree_map_with_path(leaf, skeleton)
 
 
 def prune(directory: str, keep: int = 3):

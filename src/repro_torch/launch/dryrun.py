@@ -41,8 +41,11 @@ What differs from the reference:
   (`sharding.dry_mesh`); its collectives return meta results and count
   their result bytes by kind.  Prefill and decode run the mesh Engine's
   rules and weights (serve rules, `shard_params`, `local_config`);
-  tensor-parallel training and the layers the mesh Engine does not serve
-  raise the port's own errors (`status: error`).  The 256/512-chip
+  training runs the Trainer's own layout (`trainer.TrainLayout`: train
+  rules, each rank's blocks of the params and AdamW state, replicated over
+  `data`), so the forward's and the backward's collectives are counted;
+  the layers the mesh path does not take and attn+moe training under a
+  model axis raise the port's own errors (`status: error`).  The 256/512-chip
   production meshes mean nothing on one card and are not taken;
 - ranks share one card, so the roofline terms are the card's: every
   rank's FLOPs and bytes over its peaks.  Host-staged gloo has no
@@ -67,7 +70,7 @@ from repro_torch.models import model as M
 from repro_torch.models import transformer as tf
 from repro_torch.optim import adamw
 from repro_torch.parallel import comm, sharding
-from repro_torch.runtime import dp_trainer, trainer
+from repro_torch.runtime import trainer
 from repro_torch.runtime.serve import check_mesh_layers
 from repro_torch.tree import tree_items, tree_leaves
 
@@ -81,33 +84,19 @@ COLLECTIVE_NOTE = ("ranks share one card and collect over host-staged gloo, "
 # step functions
 # ---------------------------------------------------------------------------
 
-def make_train_step(cfg, opt_cfg: adamw.AdamWConfig = OPT_CFG, mesh=None,
-                    mark=lambda: None):
-    """The Trainer's step (`Trainer._train_step`) written out, with
-    `mark()` called between its three phases: `model.loss_fn`, its
-    backward, `adamw.apply` with the gradients released.  With a `data`
-    axis of n > 1 each rank takes its B/n rows and the gradients are
-    averaged before AdamW, as the Trainer's data-parallel step does."""
-    trainer.check_mesh(mesh)
-    dp = None
-    if mesh is not None and mesh.shape.get("data", 1) > 1:
-        dp = dp_trainer.make_dp_train_step(
-            lambda p, b: M.loss_fn(p, b, cfg)[0], mesh, compress=False)
+def make_train_step(cfg, opt_cfg: adamw.AdamWConfig = OPT_CFG,
+                    mark=lambda: None, layout=None):
+    """The Trainer's step (`trainer.TrainLayout.step`, which
+    `Trainer.run_step` runs), with `mark()` called between its phases:
+    `model.loss_fn`, its backward, `adamw.apply` with the gradients
+    released (under a `data` axis the averaged gradients come in one
+    phase).  `layout` (default: `cfg` on one card) holds the mesh and the
+    parameters' splits, which `specs.state_specs` notes on it."""
+    layout = layout or trainer.TrainLayout(cfg)
 
     def train_step(params, opt_state, batch):
-        if dp is not None:
-            g, _, loss = dp(params, None, batch)
-            mark()
-            _, _, om = adamw.apply(params, opt_state, g, opt_cfg)
-            return params, opt_state, {"loss": loss, **om}
-        loss, parts = M.loss_fn(params, batch, cfg)
-        mark()
-        loss.backward()
-        mark()
-        _, _, om = adamw.apply(params, opt_state, trainer.grads(params),
-                               opt_cfg)
-        trainer.release_grads(params)
-        return params, opt_state, {"loss": loss.detach(), **parts, **om}
+        return params, opt_state, layout.step(params, opt_state, batch,
+                                              opt_cfg, mark)
     return train_step
 
 
@@ -164,10 +153,12 @@ def count_step(cfg, info: dict, quant_bits: int = 0, mesh=None) -> dict:
     raw counts.  Prefill and decode under a mesh run with the serve rules
     active, as the mesh Engine does."""
     kind, S = info["kind"], info["seq"]
-    ctx = None
+    ctx = layout = None
     counter = Counter()
     if kind == "train":
-        step = make_train_step(cfg, OPT_CFG, mesh, counter.mark)
+        layout = trainer.TrainLayout(cfg, mesh)
+        step = make_train_step(cfg, OPT_CFG, mark=counter.mark,
+                               layout=layout)
     elif mesh is not None:
         check_mesh_layers(cfg)
         ctx = sharding.activate(mesh, sharding.serve_rules(
@@ -176,7 +167,7 @@ def count_step(cfg, info: dict, quant_bits: int = 0, mesh=None) -> dict:
         rcfg = specs.rank_config(cfg, mesh) if ctx is not None else cfg
         batch = specs.batch_specs(cfg, info)
         if kind == "train":
-            params, opt = specs.state_specs(cfg, OPT_CFG)
+            params, opt = specs.state_specs(cfg, OPT_CFG, layout)
             for p in tree_leaves(params):
                 p.requires_grad_(True)
             args = (params, opt, batch)

@@ -10,7 +10,8 @@ becomes each rank's own shapes under the port's rules: the weights
 sliced as the mesh Engine slices them (`sharding.shard_params`, the
 embedding whole), the config of one rank (`sharding.local_config`: its
 query and KV heads and its d_ff), the batch split over `data`, the AdamW
-moments following their parameters.
+moments following their parameters; a training step's state is placed by
+the Trainer's own layout.
 """
 from __future__ import annotations
 
@@ -81,11 +82,17 @@ def param_specs(cfg, quant_bits: int = 0) -> dict:
     return params
 
 
-def state_specs(cfg, opt_cfg: adamw.AdamWConfig):
-    """(params, opt_state) on meta."""
+def state_specs(cfg, opt_cfg: adamw.AdamWConfig, layout=None):
+    """(params, opt_state) on meta: the whole tree, or one rank's under a
+    training `layout` (`trainer.TrainLayout`: its blocks of the params, as
+    the Trainer places them, replicated over `data`, and the AdamW state
+    of those blocks; the layout notes the splits)."""
     params = param_specs(cfg)
     with FastMeta():
-        return params, adamw.init(params, opt_cfg)
+        if layout is not None:
+            params = layout.shard(params)
+        return params, adamw.init(params, opt_cfg,
+                                  layout.splits if layout else None)
 
 
 def cache_specs(cfg, batch: int, max_seq: int):

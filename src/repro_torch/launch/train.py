@@ -2,21 +2,24 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \
         [--smoke] [--steps 20] [--batch 4] [--seq 64] [--quant-bits 8] \
-        [--ckpt-dir DIR] [--lr 1e-3] [--data N] [--device cuda|cpu]
+        [--ckpt-dir DIR] [--lr 1e-3] [--data D] [--model N] \
+        [--device cuda|cpu]
 
 Trains on the card by default (`--device cpu` runs the plain PyTorch
 versions of the kernels), from random weights drawn from a seeded
 generator, on the stateless `SyntheticLM` stream, resuming from the
 newest checkpoint in --ckpt-dir if there is one.  --quant-bits trains
 with the BRAMAC fake-quant forward (QAT, straight-through gradients).
-The flags are the reference launcher's.  `--data N` trains
-data-parallel on N ranks (`parallel.comm.spawn`: gloo, every rank on the
-card, all on cuda:0 on one H100, with host staging): each rank draws the
-same weights, takes B/N rows of each batch, and the gradients are averaged
-before AdamW (`runtime.trainer`); rank 0 prints and writes the
-checkpoints.  `--model` other than 1 (tensor-parallel training) raises
-NotImplementedError.  The last line reads as the reference's:
-`loss a -> b over n steps; straggler events: k`.
+The flags are the reference launcher's.  `--data D` and `--model N`
+train on a data x model mesh of D·N ranks (`parallel.comm.spawn`: gloo,
+every rank on the card, all on cuda:0 on one H100, with host staging):
+each rank draws the same whole weights and keeps its `model` blocks of
+them, takes B/D rows of each batch, and the gradients are averaged over
+`data` before AdamW (`runtime.trainer`); rank 0 prints and writes the
+checkpoints, which hold whole leaves.  A `model` axis trains attn+dense
+archs; an attn+moe arch or a layer the mesh Engine does not serve raises
+NotImplementedError before any rank starts.  The last line reads as the
+reference's: `loss a -> b over n steps; straggler events: k`.
 """
 from __future__ import annotations
 
@@ -32,9 +35,9 @@ from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
 from repro_torch.parallel import comm
-from repro_torch.parallel.sharding import build_mesh
+from repro_torch.parallel.sharding import build_mesh, dry_mesh
 from repro_torch.runtime.serve import resolve_device
-from repro_torch.runtime.trainer import Trainer, TrainerConfig
+from repro_torch.runtime.trainer import Trainer, TrainerConfig, check_mesh
 
 
 def main(argv=None):
@@ -54,29 +57,32 @@ def main(argv=None):
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.model != 1:
-        raise NotImplementedError(
-            "tensor-parallel training (--model > 1) is not ported to "
-            "repro_torch yet (ROADMAP queue 1 item 11); --data N trains "
-            "data-parallel")
-    if args.data not in (None, 1):
-        comm.spawn(_train_rank, args.data, args, device=args.device)
+    data = args.data or 1
+    if data * args.model > 1:
+        spec = f"data={data},model={args.model}"
+        check_mesh(_config(args), dry_mesh(spec))    # before any rank starts
+        comm.spawn(_train_rank, data * args.model, args, spec,
+                   device=args.device)
         return
     _train(args, resolve_device(args.device))
 
 
-def _train_rank(rank, world, device, args):
-    """One rank of `--data N`; rank 0 reports."""
-    _train(args, device, mesh=build_mesh(data=world),
-           report=rank == 0)
+def _train_rank(rank, world, device, args, spec):
+    """One rank of the `--data` x `--model` mesh; rank 0 reports."""
+    _train(args, device, mesh=build_mesh(spec), report=rank == 0)
 
 
-def _train(args, device, mesh=None, report=True):
+def _config(args):
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.quant_bits:
         cfg = cfg.replace(quant=QuantConfig(enabled=True,
                                             bits_w=args.quant_bits,
                                             bits_a=args.quant_bits))
+    return cfg
+
+
+def _train(args, device, mesh=None, report=True):
+    cfg = _config(args)
     if report:
         print(f"{'' if mesh is None else f'mesh {mesh.shape}  '}"
               f"device {device}  arch {cfg.name}  "
@@ -87,6 +93,7 @@ def _train(args, device, mesh=None, report=True):
     tcfg = TrainerConfig(ckpt_dir=args.ckpt_dir, ckpt_every=25,
                          opt=adamw.AdamWConfig(lr=args.lr))
     trainer = Trainer(cfg, tcfg, params, mesh=mesh)
+    del params                          # a model axis keeps its blocks only
     trainer.restore_latest()
     pipe = SyntheticLM(DataConfig(cfg.vocab_size, args.seq, args.batch))
     hist = trainer.train(pipe, args.steps)

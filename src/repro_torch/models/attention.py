@@ -33,8 +33,9 @@ import math
 import torch
 
 from repro_torch.kernels import paged_attention as pk
-from repro_torch.models.layers import (apply_rope, dense, dense_row,
-                                       init_dense, init_rmsnorm, rmsnorm)
+from repro_torch.models.layers import (apply_rope, column_input, dense,
+                                       dense_row, init_dense, init_rmsnorm,
+                                       rmsnorm)
 
 Q_CHUNK = 1024
 
@@ -221,6 +222,7 @@ def gqa(p, x, cfg, positions, cache=None, cache_pos=None, paged=None):
     is row-parallel (`layers.dense_row`)."""
     B, S, _ = x.shape
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    x = column_input(x)
     q = dense(x, p["wq"], cfg.quant).reshape(B, S, H, hd)
     k = dense(x, p["wk"], cfg.quant).reshape(B, S, Hkv, hd)
     v = dense(x, p["wv"], cfg.quant).reshape(B, S, Hkv, hd)

@@ -5,10 +5,13 @@ apply functions consume it.  Every matmul flows through `dense()`, so the
 BRAMAC quantized path is one switch across the model.
 
 Under an active sharding ctx whose `tp` axis splits the model (the mesh
-Engine), the Megatron split that the reference's `_PARAM_RULES` name is
-written out here: column-parallel linears (`wq`/`wk`/`wv`/`w_gate`/`w_up`)
-run on their local columns as they are, the row-parallel ones (`wo`,
-`w_down`) go through `dense_row`, and `unembed` gathers its vocab columns.
+Engine, the tensor-parallel Trainer), the Megatron split that the
+reference's `_PARAM_RULES` name is written out here: column-parallel
+linears (`wq`/`wk`/`wv`/`w_gate`/`w_up`) run on their local columns, their
+block's input passed once through `column_input` (identity forward, the
+gradient summed over the axis in backward), the row-parallel ones (`wo`,
+`w_down`) go through `dense_row`, and `unembed` gathers its vocab columns
+(in backward each rank keeps its own columns' gradient).
 """
 from __future__ import annotations
 
@@ -16,12 +19,23 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import bramac_linear as bl
+from repro_torch.core.quant import QuantizedTensor
 from repro_torch.parallel import comm, sharding, tp
 
 
 def dense(x: torch.Tensor, w, quant: bl.QuantConfig | None) -> torch.Tensor:
     """All model matmuls route here → BRAMAC integration point."""
     return bl.dense(x, w, quant)
+
+
+def column_input(x: torch.Tensor) -> torch.Tensor:
+    """The input of a column-parallel block: `x` itself, or under a
+    tp-splitting ctx `comm.copy_to` over the tp axis, so that the
+    backward sums the ranks' partial input gradients."""
+    ax = sharding.tp_axis()
+    if ax is None:
+        return x
+    return comm.copy_to(x, sharding.active().mesh.group(ax))
 
 
 def dense_row(x: torch.Tensor, w, quant: bl.QuantConfig | None
@@ -79,6 +93,7 @@ def init_mlp(gen, d_model, d_ff, dtype, device):
 
 
 def mlp(p, x, quant=None):
+    x = column_input(x)
     g = dense(x, p["w_gate"], quant)
     u = dense(x, p["w_up"], quant)
     return dense_row(F.silu(g) * u, p["w_down"], quant)
@@ -126,12 +141,14 @@ def unembed(p, x, quant=None):
     """Logits over the whole vocab: under a tp-splitting ctx the unembed
     holds this rank's vocab columns (the embedding stays whole), and the
     logits are all-gathered along the vocab."""
-    logits = dense(x, p["unembed"], quant)
+    w = p["unembed"]
+    cols = (w.values if isinstance(w, QuantizedTensor) else w).shape[-1]
     ax = sharding.tp_axis()
-    if ax is not None and logits.shape[-1] != p["embedding"].shape[0]:
-        logits = comm.all_gather(logits, sharding.active().mesh.group(ax),
-                                 dim=-1)
-    return logits
+    if ax is None or cols == p["embedding"].shape[0]:
+        return dense(x, w, quant)
+    mesh = sharding.active().mesh
+    logits = dense(column_input(x), w, quant)
+    return comm.gather_from(logits, mesh.group(ax), -1, mesh.index(ax))
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,24 @@ one slice's, not the tree's: granite-8b's stacked w_gate alone
 (36 x 4096 x 14336) would need ~34 GB of them.  Every step of the update
 is elementwise and every slice boundary is a block boundary, so the
 result is the same bit for bit whatever the slice size.
+
+On a tensor-parallel mesh each rank updates its own block of every
+`model`-split leaf (`splits`: {path: `sharding.Split`}).  The global
+norm sums the split leaves' squares over the axis (one `all_reduce`) and
+counts the replicated ones once.  The int8 first moment keeps the whole
+leaf's block grid, so the update equals the meshless one bit for bit and
+a checkpoint holds the reference's layout whatever the mesh:
+  * a block whose 128 values all lie on one rank (every block of a leaf
+    whose runs, `Split.run`, are whole blocks: granite-8b at full width
+    on model=2) is updated locally, and the rank's Q8 is the ordinary
+    one of its block, whose blocks are the whole leaf's;
+  * otherwise (the smoke widths: wq's 32 local columns of 64) the rank
+    keeps its values in its own flat order, (ceil(local/128), 128), and
+    the whole leaf's scales, (n_blocks, 1); each step's new block absmax
+    is the max of every rank's partial one: one `all_reduce` max over the
+    axis for all such leaves together.
+`gather_q` / `gather_scale` and `take_q` / `take_scale` convert a rank's
+Q8 to the whole leaf's and back (checkpoints).
 """
 from __future__ import annotations
 
@@ -22,7 +40,8 @@ from typing import Any
 import torch
 
 from repro_torch.core.quant import Q8
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.parallel import comm
+from repro_torch.tree import tree_items, tree_leaves, tree_map_with_path
 
 BLOCK = 128
 SLICE_ELEMS = BLOCK << 17          # 16.8 M values: ~67 MB per f32 temporary
@@ -44,12 +63,17 @@ class AdamWConfig:
 # block-wise int8 state quantization
 # ---------------------------------------------------------------------------
 
-def _q8_blocks(flat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Quantize a flat f32 run (zero-padded to whole blocks)."""
+def _blocked(flat: torch.Tensor) -> torch.Tensor:
+    """A flat run as (n_blocks, BLOCK), zero-padded to whole blocks."""
     pad = (-flat.numel()) % BLOCK
     if pad:
         flat = torch.cat([flat, flat.new_zeros(pad)])
-    blocks = flat.reshape(-1, BLOCK)
+    return flat.reshape(-1, BLOCK)
+
+
+def _q8_blocks(flat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantize a flat f32 run (zero-padded to whole blocks)."""
+    blocks = _blocked(flat)
     scale = torch.amax(torch.abs(blocks), dim=1, keepdim=True) / 127.0
     scale = torch.clamp(scale, min=1e-12)
     q = torch.round(blocks / scale).to(torch.int8)
@@ -70,15 +94,30 @@ def _dq8(s: Q8) -> torch.Tensor:
 # optimizer
 # ---------------------------------------------------------------------------
 
-def init(params: Any, cfg: AdamWConfig) -> dict:
+def _spread(s) -> bool:
+    """Whether a leaf split `s` has blocks that span ranks."""
+    return s is not None and s.run % BLOCK != 0
+
+
+def _n_blocks(numel: int) -> int:
+    return -(-numel // BLOCK)
+
+
+def init(params: Any, cfg: AdamWConfig, splits: dict | None = None) -> dict:
     """Zero moments, built without the reference's f32 temporaries: a Q8 of
-    zeros is int8 zeros with every scale at the 1e-12 floor."""
-    def zeros_m(p):
+    zeros is int8 zeros with every scale at the 1e-12 floor.  A leaf whose
+    split spreads blocks over ranks keeps the whole leaf's scales."""
+    splits = splits or {}
+
+    def zeros_m(path, p):
         if not cfg.quantize_state:
             return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-        nb = -(-p.numel() // BLOCK)
-        return Q8(torch.zeros((nb, BLOCK), dtype=torch.int8, device=p.device),
-                  torch.full((nb, 1), 1e-12, dtype=torch.float32,
+        s = splits.get(path)
+        ns = _n_blocks(math.prod(s.whole)) if _spread(s) else \
+            _n_blocks(p.numel())
+        return Q8(torch.zeros((_n_blocks(p.numel()), BLOCK), dtype=torch.int8,
+                              device=p.device),
+                  torch.full((ns, 1), 1e-12, dtype=torch.float32,
                              device=p.device), tuple(p.shape))
 
     def zeros_v(p):
@@ -87,49 +126,122 @@ def init(params: Any, cfg: AdamWConfig) -> dict:
 
     dev = tree_leaves(params)[0].device
     return {"step": torch.zeros((), dtype=torch.int32, device=dev),
-            "m": tree_map(zeros_m, params), "v": tree_map(zeros_v, params)}
+            "m": tree_map_with_path(zeros_m, params),
+            "v": tree_map_with_path(lambda _, p: zeros_v(p), params)}
 
 
-def global_norm(grads) -> torch.Tensor:
+def global_norm(grads, splits: dict | None = None, group=None
+                ) -> torch.Tensor:
     """sqrt of the sum of squares of every gradient, in f32; each leaf is
-    summed in fixed flat chunks, so no full-size f32 copy is made."""
-    total = None
-    for g in tree_leaves(grads):
+    summed in fixed flat chunks, so no full-size f32 copy is made.  With
+    `splits`, the split leaves' sum is reduced over `group` (one
+    `all_reduce`) and the replicated leaves are counted once."""
+    splits = splits or {}
+    total = {False: None, True: None}          # by: the leaf is split
+    for path, g in tree_items(grads):
+        key = splits.get(path) is not None
         flat = g.reshape(-1)
         for s in range(0, flat.numel(), NORM_CHUNK):
             part = torch.sum(torch.square(
                 flat[s:s + NORM_CHUNK].to(torch.float32)))
-            total = part if total is None else total + part
-    return torch.sqrt(total)
+            total[key] = part if total[key] is None else total[key] + part
+    whole, split = total[False], total[True]
+    if split is not None:
+        split = comm.all_reduce(split, group, "sum")
+        whole = split if whole is None else whole + split
+    return torch.sqrt(whole)
+
+
+def _m_run(cfg, m: Q8, gs, s, e, blk):
+    """The new first moment of flat positions [s, e) in f32: `m`'s int8
+    values there times their blocks' scales (`blk`: the positions' rows of
+    `m.scale`, None when they are `m`'s own rows), moved by `gs`."""
+    if blk is None:
+        b0, b1 = s // BLOCK, -(-e // BLOCK)
+        old = (m.q[b0:b1].to(torch.float32) * m.scale[b0:b1]).reshape(-1)[
+            :e - s]
+    else:
+        old = m.q.view(-1)[s:e].to(torch.float32) * m.scale.view(-1)[blk]
+    return cfg.b1 * old + (1 - cfg.b1) * gs
+
+
+def _blocks_of(split, s, e, device) -> torch.Tensor:
+    """The whole leaf's block of each of this rank's flat positions
+    [s, e)."""
+    j = torch.arange(s, e, device=device)
+    return torch.div(split.whole_index(j), BLOCK, rounding_mode="floor")
+
+
+def _spread_amax(cfg, leaves, clip, group) -> list:
+    """For each leaf (g, m, split) whose blocks span ranks: the whole
+    leaf's new block absmax, each rank's partial maxima reduced in one
+    `all_reduce` max for all of them."""
+    parts = []
+    for g, m, split in leaves:
+        gf = g.reshape(-1)
+        amax = torch.zeros(_n_blocks(math.prod(split.whole)),
+                           dtype=torch.float32, device=g.device)
+        for s in range(0, gf.numel(), SLICE_ELEMS):
+            e = min(s + SLICE_ELEMS, gf.numel())
+            blk = _blocks_of(split, s, e, g.device)
+            ms = _m_run(cfg, m, gf[s:e].to(torch.float32) * clip, s, e,
+                        blk)
+            amax.scatter_reduce_(0, blk, torch.abs(ms), "amax")
+        parts.append(amax)
+    if not parts:
+        return []
+    red = comm.all_reduce(torch.cat(parts), group, "max")
+    return list(torch.split(red, [p.numel() for p in parts]))
 
 
 @torch.no_grad()
-def apply(params: Any, state: dict, grads: Any, cfg: AdamWConfig):
+def apply(params: Any, state: dict, grads: Any, cfg: AdamWConfig,
+          splits: dict | None = None, group=None):
     """One AdamW step, in place on `params` and `state`.  Returns
-    (params, state, {"grad_norm"})."""
+    (params, state, {"grad_norm"}).  `splits` ({path: Split}) and `group`
+    (the `model` axis line) describe a tensor-parallel rank's tree."""
+    splits = splits or {}
     slice_elems = SLICE_ELEMS
     state["step"] += 1
     step = state["step"].to(torch.float32)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, splits, group)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     bc1 = 1 - torch.pow(torch.full_like(step, cfg.b1), step)
     bc2 = 1 - torch.pow(torch.full_like(step, cfg.b2), step)
 
-    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
-                          tree_leaves(state["m"]), tree_leaves(state["v"]),
-                          strict=True):
+    rows = list(zip(tree_items(params), tree_leaves(grads),
+                    tree_leaves(state["m"]), tree_leaves(state["v"]),
+                    strict=True))
+    spread = []
+    for (path, _), g, m, _ in rows:
+        split = splits.get(path)
+        if not (isinstance(m, Q8) and _spread(split)):
+            continue
+        whole = _n_blocks(math.prod(split.whole))
+        if m.scale.shape[0] != whole:
+            raise ValueError(
+                f"{path}: its int8 first moment holds {m.scale.shape[0]} "
+                f"block scales, not the whole leaf's {whole}: this rank's "
+                f"blocks span ranks, so it keeps the whole leaf's grid "
+                f"(adamw.init with the splits)")
+        spread.append((g, m, split))
+    amaxes = iter(_spread_amax(cfg, spread, clip, group))
+    for (path, p), g, m, v in rows:
         decay = p.ndim >= 2                       # matrices only
+        split = splits.get(path)
+        new_scale = None
+        if isinstance(m, Q8) and _spread(split):
+            new_scale = torch.clamp(next(amaxes) / 127.0, min=1e-12)
         pf, gf, vf = p.view(-1), g.reshape(-1), v.view(-1)
         for s in range(0, pf.numel(), slice_elems):
             e = min(s + slice_elems, pf.numel())
             gs = gf[s:e].to(torch.float32) * clip
+            blk = None if new_scale is None else \
+                _blocks_of(split, s, e, p.device)
             if isinstance(m, Q8):
-                b0, b1 = s // BLOCK, -(-e // BLOCK)
-                ms = (m.q[b0:b1].to(torch.float32) * m.scale[b0:b1]
-                      ).reshape(-1)[:e - s]
+                ms = _m_run(cfg, m, gs, s, e, blk)
             else:
-                ms = m.view(-1)[s:e]
-            ms = cfg.b1 * ms + (1 - cfg.b1) * gs
+                ms = cfg.b1 * m.view(-1)[s:e] + (1 - cfg.b1) * gs
             vs = cfg.b2 * vf[s:e].to(torch.float32) + (1 - cfg.b2) * gs * gs
             delta = (ms / bc1) / (torch.sqrt(vs / bc2) + cfg.eps)
             ps = pf[s:e].to(torch.float32)
@@ -137,13 +249,50 @@ def apply(params: Any, state: dict, grads: Any, cfg: AdamWConfig):
                 delta = delta + cfg.weight_decay * ps
             pf[s:e] = (ps - cfg.lr * delta).to(p.dtype)
             vf[s:e] = vs.to(v.dtype)
-            if isinstance(m, Q8):
-                q, sc = _q8_blocks(ms)
-                m.q[b0:b1] = q
-                m.scale[b0:b1] = sc
+            if blk is not None:
+                m.q.view(-1)[s:e] = torch.round(
+                    ms / new_scale[blk]).to(torch.int8)
+            elif isinstance(m, Q8):
+                b0, b1 = s // BLOCK, -(-e // BLOCK)
+                m.q[b0:b1], m.scale[b0:b1] = _q8_blocks(ms)
             else:
                 m.view(-1)[s:e] = ms
+        if new_scale is not None:
+            m.scale.copy_(new_scale.view(-1, 1))
     return params, state, {"grad_norm": gnorm}
+
+
+# ---------------------------------------------------------------------------
+# a tensor-parallel rank's first moment <-> the whole leaf's
+# ---------------------------------------------------------------------------
+
+def gather_q(q: torch.Tensor, split, gather) -> torch.Tensor:
+    """The whole leaf's int8 blocks from this rank's: its values in its
+    block's shape, joined along the split dim by `gather(t, dim)`."""
+    local = q.reshape(-1)[:math.prod(split.local)].reshape(split.local)
+    return _blocked(gather(local, split.dim).reshape(-1))
+
+
+def gather_scale(scale: torch.Tensor, split, gather) -> torch.Tensor:
+    """The whole leaf's block scales: a rank whose blocks are the whole
+    leaf's holds `runs` rows of run/128 of them, joined across ranks; a
+    rank of a spread leaf holds them all."""
+    if _spread(split):
+        return scale
+    return gather(scale.reshape(split.runs, -1), 1).reshape(-1, 1)
+
+
+def take_q(q: torch.Tensor, split) -> torch.Tensor:
+    whole = q.reshape(-1)[:math.prod(split.whole)].reshape(split.whole)
+    return _blocked(split.take(whole).reshape(-1))
+
+
+def take_scale(scale: torch.Tensor, split) -> torch.Tensor:
+    if _spread(split):
+        return scale
+    per = split.run // BLOCK
+    return scale.reshape(split.runs, -1).narrow(
+        1, split.i * per, per).reshape(-1, 1)
 
 
 def lr_schedule(step, base_lr, warmup=100, total=10_000, min_frac=0.1):

@@ -16,6 +16,16 @@ Every collective counts its calls and its result bytes by kind in `stats`
 (the reference dry run's convention for collective traffic: the bytes of
 each collective's result, per rank).
 
+The collectives above detach their input: serving and the dry run's
+forwards need no gradient through them.  Training a `model`-split model
+needs three that autograd passes through (Megatron-LM's conjugate pairs,
+for a loss that every rank of the group computes alike): `copy_to`
+(identity forward, the gradient summed over the group: Megatron's *f*),
+`reduce_from` (a sum forward, the gradient passed through: *g*) and
+`gather_from` (an all-gather forward, this rank's slice of the gradient
+back).  Each counts the collective it runs in `stats`, forward or
+backward, and works over a `DryGroup` on meta tensors too.
+
 Transport: gloo.  Ranks that share one card cannot use NCCL (it refuses
 two ranks on one GPU), so a CUDA tensor is copied to the host, collected
 there, and copied back.  That staging is the transport on a shared card,
@@ -152,6 +162,68 @@ def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
         dist.all_to_all_single(out, h, group=group)
         return out
     return _collect(t, "all-to-all", run)
+
+
+# ---------------------------------------------------------------------------
+# collectives autograd passes through (tensor-parallel training)
+# ---------------------------------------------------------------------------
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group, "sum"), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        return all_reduce(t, group, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim, index):
+        ctx.dim, ctx.index, ctx.size = dim, index, t.shape[dim]
+        return all_gather(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.size, ctx.size), None, \
+            None, None
+
+
+def copy_to(t: torch.Tensor, group) -> torch.Tensor:
+    """`t` unchanged; in backward the gradient is summed over the group
+    (the input of a column-parallel block, whose ranks each see part of
+    its consumers)."""
+    if group is None:
+        return t
+    return _CopyTo.apply(t, group)
+
+
+def reduce_from(t: torch.Tensor, group) -> torch.Tensor:
+    """`all_reduce` sum whose backward passes the (replicated) gradient to
+    every rank's partial unchanged."""
+    if group is None:
+        return t
+    return _ReduceFrom.apply(t, group)
+
+
+def gather_from(t: torch.Tensor, group, dim: int, index: int) -> torch.Tensor:
+    """`all_gather` along `dim` whose backward hands this rank (group rank
+    `index`) its own slice of the replicated gradient; no collective."""
+    if group is None:
+        return t
+    return _GatherFrom.apply(t, group, dim % t.ndim, index)
 
 
 def barrier(group=None) -> None:

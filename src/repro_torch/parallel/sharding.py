@@ -16,7 +16,9 @@ row-parallel ones, experts on (tp→EP, fsdp, ·), everything else
 replicated; stacked layer params get a leading None for the period axis.
 The rules cover the layers the mesh Engine serves (attention, the dense
 FF, MoE); the reference's MLA, mamba and xLSTM rules come with those
-layers' mesh paths.
+layers' mesh paths.  `serve_rules` and `train_rules` map `fsdp` to
+nothing (weights split over `model` only); `leaf_splits` notes each
+leaf's `Split` for the training state's optimizer and checkpoints.
 
 What differs from the reference: a mesh here is a grid of
 `torch.distributed` ranks (processes), not of devices in one program.
@@ -29,7 +31,9 @@ GSPMD insert them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 import re
 import warnings
 from typing import Any
@@ -130,6 +134,16 @@ def default_rules(multi_pod: bool) -> dict:
 def serve_rules(multi_pod: bool) -> dict:
     """Inference sharding profile: weights tensor-parallel over `model`
     only, replicated across the DP axes."""
+    r = default_rules(multi_pod)
+    r["fsdp"] = None
+    return r
+
+
+def train_rules(multi_pod: bool) -> dict:
+    """Training sharding profile: weights (and their AdamW moments)
+    tensor-parallel over `model` only, replicated over the DP axes.  The
+    reference trains ZeRO-3 (`fsdp` over the DP axes); that placement is
+    ROADMAP queue 1 item 16, so `fsdp` maps to nothing here."""
     r = default_rules(multi_pod)
     r["fsdp"] = None
     return r
@@ -250,6 +264,21 @@ def active() -> ShardingCtx | None:
     return _ACTIVE
 
 
+@contextlib.contextmanager
+def use(ctx: ShardingCtx | None):
+    """`ctx` active inside the block (nothing changes for None), the
+    previous one restored after it."""
+    global _ACTIVE
+    if ctx is None:
+        yield
+        return
+    before, _ACTIVE = _ACTIVE, ctx
+    try:
+        yield ctx
+    finally:
+        _ACTIVE = before
+
+
 def tp_axis() -> str | None:
     """The mesh axis the active ctx's `tp` rule splits weights over (its
     size > 1), else None: where the model's row-parallel linears and the
@@ -306,18 +335,60 @@ def block(t: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:
     return t.narrow(dim, i * size, size)
 
 
-def _placed(t: torch.Tensor, dim: int, ctx: ShardingCtx, ax) -> torch.Tensor:
-    """This rank's block of `t` along `dim` over the mesh axes `ax` (one
-    name or a tuple, major first), or `t` when their size does not divide
-    the dim (as `to_sharding` leaves it unsharded)."""
-    mesh = ctx.mesh
-    names = (ax,) if isinstance(ax, str) else tuple(ax)
-    n, i = 1, 0
-    for a in names:
-        n, i = n * mesh.shape[a], i * mesh.shape[a] + mesh.index(a)
-    if n == 1 or t.shape[dim] % n:
-        return t
-    return block(t, dim, n, i)
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """A leaf of shape `whole` split `n` ways along `dim`, of which this
+    rank holds block `i`.  In the whole leaf's flat order the block is
+    `runs` runs of `run` elements, one per index of the dims before
+    `dim`, rank i's run of each at offset i·run of its n·run."""
+    whole: tuple
+    dim: int
+    n: int
+    i: int
+
+    @property
+    def run(self) -> int:
+        return self.whole[self.dim] // self.n * math.prod(
+            self.whole[self.dim + 1:])
+
+    @property
+    def runs(self) -> int:
+        return math.prod(self.whole[:self.dim])
+
+    @property
+    def local(self) -> tuple:
+        return tuple(s // self.n if d == self.dim else s
+                     for d, s in enumerate(self.whole))
+
+    def take(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the whole leaf `t` (a view)."""
+        return block(t, self.dim, self.n, self.i)
+
+    def whole_index(self, j: torch.Tensor) -> torch.Tensor:
+        """The whole leaf's flat index of this rank's flat positions j."""
+        a = torch.div(j, self.run, rounding_mode="floor")
+        return j + a * (self.n - 1) * self.run + self.i * self.run
+
+
+def _leaf_split(path: str, shape, ctx: ShardingCtx, whole) -> list:
+    """[(dim, n, i)] of the mesh blocks the leaf at `path` takes along each
+    dim its spec maps to mesh axes (a dim whose size the axes' product
+    does not divide stays whole, as `to_sharding` leaves it)."""
+    if any(re.search(p, re.sub(r"/(values|scale)$", "", path))
+           for p in whole):
+        return []
+    mesh, out = ctx.mesh, []
+    for dim, name in enumerate(spec_for(path, len(shape))):
+        ax = ctx.rules.get(name) if name is not None else None
+        if ax is None:
+            continue
+        names = (ax,) if isinstance(ax, str) else tuple(ax)
+        n, i = 1, 0
+        for a in names:
+            n, i = n * mesh.shape[a], i * mesh.shape[a] + mesh.index(a)
+        if n > 1 and shape[dim] % n == 0:
+            out.append((dim, n, i))
+    return out
 
 
 def shard_params(params: Any, ctx: ShardingCtx | None = None, *,
@@ -334,16 +405,29 @@ def shard_params(params: Any, ctx: ShardingCtx | None = None, *,
         raise ValueError("shard_params needs a sharding ctx")
 
     def place(path, leaf):
-        if any(re.search(p, re.sub(r"/(values|scale)$", "", path))
-               for p in whole):
-            return leaf
         out = leaf
-        for dim, name in enumerate(spec_for(path, leaf.ndim)):
-            ax = ctx.rules.get(name) if name is not None else None
-            if ax is not None:
-                out = _placed(out, dim, ctx, ax)
+        for dim, n, i in _leaf_split(path, leaf.shape, ctx, whole):
+            out = block(out, dim, n, i)
         return out if out is leaf else out.contiguous().clone()
     return tree_map_with_path(place, params)
+
+
+def leaf_splits(params: Any, ctx: ShardingCtx, *,
+                whole: tuple[str, ...] = ()) -> dict:
+    """{path: Split or None} of every leaf of the whole tree `params` as
+    `shard_params` places it; a leaf split along more than one dim raises
+    (the training layouts split each along one)."""
+    out = {}
+
+    def note(path, leaf):
+        cuts = _leaf_split(path, leaf.shape, ctx, whole)
+        if len(cuts) > 1:
+            raise ValueError(f"{path}: split along dims {cuts}; a training "
+                             f"leaf splits along one")
+        out[path] = Split(tuple(leaf.shape), *cuts[0]) if cuts else None
+        return leaf
+    tree_map_with_path(note, params)
+    return out
 
 
 def local_config(cfg, mesh: Mesh, axis: str = "model"):

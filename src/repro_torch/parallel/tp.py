@@ -101,6 +101,47 @@ def tp_quant_matmul(x_q, w_q, x_scale, w_scale, *, mesh, bits_a: int,
     raise ValueError(f"partition must be 'k' or 'n', got {partition!r}")
 
 
+def _rows_quantized(x2, wq, ws, bits_a, bits_w, group, out_dtype):
+    """The row-parallel product of this rank's (M, K/n) float rows `x2`
+    and integer weight rows `wq` (column scales `ws`): the rows quantized
+    at the global per-row absmax (one `all_reduce` max), the int32
+    partials summed (one `all_reduce` sum), one epilogue."""
+    if wq.shape[0] != x2.shape[1]:
+        raise ValueError(f"row-parallel weight has {wq.shape[0]} rows for a "
+                         f"{x2.shape[1]}-feature input slice (K/n must "
+                         f"split the stored rows)")
+    x_amax = comm.all_reduce(x2.abs().amax(dim=-1, keepdim=True), group,
+                             "max")
+    qx = quant.quantize(x2, bits_a, axis=-1, amax=x_amax)
+    acc = row_parallel_acc(qx.values, wq, bits_a=bits_a, bits_w=bits_w,
+                           signed=True, group=group)
+    return ref.epilogue(acc, qx.scale, ws.to(torch.float32), out_dtype)
+
+
+class _RowParallelQAT(torch.autograd.Function):
+    """The QAT row-parallel linear.  Forward: the weight's column scales
+    from the global absmax (one `all_reduce` max), then `_rows_quantized`.
+    Backward: `ops._BramacDense`'s straight-through products on this
+    rank's rows, cast as it casts them; the output gradient is replicated,
+    so no collective: dx_local = g @ w_local^T, dw_local = x_local^T @ g."""
+
+    @staticmethod
+    def forward(ctx, x2, w, bits_a, bits_w, group):
+        w_amax = comm.all_reduce(w.abs().amax(dim=0, keepdim=True), group,
+                                 "max")
+        qw = quant.quantize(w, bits_w, axis=0, amax=w_amax)
+        ctx.save_for_backward(x2, w)
+        return _rows_quantized(x2, qw.values, qw.scale, bits_a, bits_w,
+                               group, x2.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g2 = g.to(w.dtype)
+        return (g2 @ w.T).to(x2.dtype), (x2.T @ g2).to(w.dtype), None, \
+            None, None
+
+
 def row_parallel_dense(x: torch.Tensor, w, qcfg, *, mesh,
                        axis: str) -> torch.Tensor:
     """The row-parallel linear of a `axis`-split model: `x` (..., K/n) is
@@ -112,31 +153,18 @@ def row_parallel_dense(x: torch.Tensor, w, qcfg, *, mesh,
     whole K (an `all_reduce` max of the slices' absmax), so every rank
     quantizes its slice to the meshless integers; one row-parallel int32
     reduction, one epilogue.  A float weight under an enabled QuantConfig
-    (the QAT forward) takes its column scales the same way; a float weight
-    without one sums its float partials."""
+    (the QAT forward) takes its column scales the same way and trains
+    through `_RowParallelQAT`; a float weight without one sums its float
+    partials through `comm.reduce_from`.  Both carry gradients."""
     group = mesh.group(axis)
     x2 = x.reshape(-1, x.shape[-1])
     enabled = qcfg is not None and qcfg.enabled
     if isinstance(w, quant.QuantizedTensor):
         bits_a = qcfg.bits_a if enabled else min(w.bits, 8)
-        wq, ws, bits_w = w.unpacked_values(), w.scale.reshape(1, -1), w.bits
+        y = _rows_quantized(x2, w.unpacked_values(), w.scale.reshape(1, -1),
+                            bits_a, w.bits, group, x.dtype)
     elif enabled:
-        bits_a, bits_w = qcfg.bits_a, qcfg.bits_w
-        w_amax = comm.all_reduce(w.abs().amax(dim=0, keepdim=True), group,
-                                 "max")
-        qw = quant.quantize(w, bits_w, axis=0, amax=w_amax)
-        wq, ws = qw.values, qw.scale
+        y = _RowParallelQAT.apply(x2, w, qcfg.bits_a, qcfg.bits_w, group)
     else:
-        y = comm.all_reduce(x2 @ w, group, "sum")
-        return y.reshape(*x.shape[:-1], y.shape[-1])
-    if wq.shape[0] != x2.shape[1]:
-        raise ValueError(f"row-parallel weight has {wq.shape[0]} rows for a "
-                         f"{x2.shape[1]}-feature input slice (K/n must "
-                         f"split the stored rows)")
-    x_amax = comm.all_reduce(x2.abs().amax(dim=-1, keepdim=True), group,
-                             "max")
-    qx = quant.quantize(x2, bits_a, axis=-1, amax=x_amax)
-    acc = row_parallel_acc(qx.values, wq, bits_a=bits_a, bits_w=bits_w,
-                           signed=True, group=group)
-    y = ref.epilogue(acc, qx.scale, ws.to(torch.float32), x.dtype)
+        y = comm.reduce_from(x2 @ w, group)
     return y.reshape(*x.shape[:-1], y.shape[-1])

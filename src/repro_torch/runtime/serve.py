@@ -150,8 +150,8 @@ def check_mesh_layers(cfg) -> None:
         if mixer != "attn" or ff not in ("dense", "moe", "none"):
             raise NotImplementedError(
                 f"{cfg.name}: a {layer!r} layer under a mesh is not "
-                f"ported to repro_torch yet (tensor-parallel serving "
-                f"takes attn layers with a dense, moe or no FF)")
+                f"ported to repro_torch yet (ROADMAP queue 1 item 12; the "
+                f"mesh path takes attn layers with a dense, moe or no FF)")
 
 
 class Engine:

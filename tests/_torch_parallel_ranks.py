@@ -1,5 +1,5 @@
 """Rank-side bodies of the port's parallel tests (`tests/test_torch_parallel_
-*.py`, `tests/test_torch_dp_trainer.py`).
+*.py`, `tests/test_torch_dp_trainer.py`, `tests/test_torch_tp_trainer.py`).
 
 Each test file spawns its ranks once (`repro_torch.parallel.comm.spawn`,
 gloo on the CPU) with one of the functions below, which runs every case's
@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.parallel import sharding as shd
-from repro_torch.tree import tree_items
+from repro_torch.tree import tree_items, tree_map
 
 
 def _np(t):
@@ -228,3 +228,99 @@ def trainer_rank(mesh, cfg, params, batches, ckpt_dir):
     losses = [trainer.run_step(b)["loss"] for b in batches]
     return {"restored": restored, "losses": losses,
             "params": {k: _np(v) for k, v in tree_items(trainer.params)}}
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel training
+# ---------------------------------------------------------------------------
+
+def _whole_np(layout, tree):
+    """A rank's {"params", "opt"} (or any part of it) as whole leaves,
+    {path: numpy} (bf16 as its int16 bits), on the first data index."""
+    out = {}
+    for k, t in tree_items(layout.gather(tree)):
+        t = t.detach().cpu()
+        out[k] = t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 \
+            else t.numpy()
+    return out
+
+
+def tp_train_rank(rank, world, device, cases, trainer_case):
+    """On mesh data=2,model=2: per case (float, QAT 8/8) one step's loss
+    and whole gradients and its collectives; two AdamW updates with
+    grad_clip 1e9 on those gradients (the whole state after them, and
+    their collectives); then the Trainer (`tp_trainer_body`)."""
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import comm
+    from repro_torch.runtime.trainer import TrainLayout
+
+    mesh = shd.build_mesh("data=2,model=2")
+    out = {}
+    for name, (cfg, params, batch) in cases.items():
+        layout = TrainLayout(cfg, mesh)
+        # a copy: spawn hands every rank the same shared-memory tensors,
+        # and AdamW updates the whole leaves a rank keeps in place
+        local = layout.shard(tree_map(torch.clone, params))
+        for _, p in tree_items(local):
+            p.requires_grad_(True)
+        comm.stats.reset()
+        g, loss, _ = layout.grads(local, batch)
+        grad_calls = dict(comm.stats.kind_calls)
+        grads = {k.partition("/")[2]: v for k, v in
+                 _whole_np(layout, {"params": g}).items()}
+        ocfg = adamw.AdamWConfig(lr=1e-2, grad_clip=1e9)
+        state = adamw.init(local, ocfg, layout.splits)
+        comm.stats.reset()
+        for _ in range(2):
+            _, _, om = adamw.apply(local, state, g, ocfg, layout.splits,
+                                   layout.group)
+        out[name] = {"loss": float(loss), "grads": grads,
+                     "grad_calls": grad_calls,
+                     "adamw_calls": dict(comm.stats.kind_calls),
+                     "grad_norm": float(om["grad_norm"]),
+                     "state": _whole_np(layout, {"params": local,
+                                                 "opt": state}),
+                     "local": {k: tuple(t.shape) for k, t in
+                               tree_items(local)}}
+    out["trainer"] = tp_trainer_body(mesh, *trainer_case)
+    return out
+
+
+def tp_trainer_body(mesh, cfg, params, batches, dirs):
+    """The Trainer on `mesh`: (a) 3 steps from `params`; (b) 5 steps with
+    checkpoints every 2, uninterrupted and with a failure injected on every
+    rank at step 3 (rolled back to step 2 and replayed): histories and each
+    rank's final state; (c) a restore of the meshless checkpoint in
+    dirs["meshless"]."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    def trainer(d, **kw):
+        # a copy each (see tp_train_rank)
+        return Trainer(cfg, TrainerConfig(ckpt_dir=d, opt=adamw.AdamWConfig(
+            lr=1e-3), **kw), tree_map(torch.clone, params), mesh=mesh)
+
+    out = {}
+    t = trainer(dirs["history"])
+    out["history"] = [t.run_step(b) for b in batches]
+    pipe = SyntheticLM(DataConfig(cfg.vocab_size, 16, 2))
+    t0 = trainer(dirs["plain"], ckpt_every=2)
+    h0 = t0.train(pipe, 5)
+    t1 = trainer(dirs["crash"], ckpt_every=2)
+    crashed = []
+
+    def hook(step):                      # on every rank at the same step
+        if step == 3 and not crashed:
+            crashed.append(step)
+            raise RuntimeError("injected node failure")
+    h1 = t1.train(pipe, 5, failure_hook=hook)
+    out["recovery"] = {
+        "h0": h0, "h1": h1, "crashed": crashed, "step": t1.step,
+        "state_equal": all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            tree_items(t0.state_tree()), tree_items(t1.state_tree()))),
+        "final": _whole_np(t1.layout, t1.state_tree())}
+    t2 = trainer(dirs["meshless"])
+    out["restored"] = t2.restore_latest()
+    out["restored_state"] = _whole_np(t2.layout, t2.state_tree())
+    return out

@@ -22,6 +22,7 @@ from repro.core import bramac_linear as jbl
 from repro.launch import analysis as janalysis
 from repro.launch import specs as jspecs
 from repro_torch.configs import archs, get_config
+from repro_torch.core.bramac_linear import QuantConfig
 from repro_torch.kernels.bramac_matmul import bramac_matmul
 from repro_torch.launch import analysis, dryrun, specs
 from repro_torch.launch import device as dev
@@ -324,20 +325,61 @@ def test_tp_granite_decode_counts_145_collectives():
     assert rec["roofline"]["collective_s"] is None
 
 
+def test_tp_granite_train_counts_291_collectives():
+    """granite-8b training as the card's phase 15f runs it (QAT 8/8, B=4,
+    S=64) on `model=2`, per rank: the forward's max x, max w and int32 sum
+    of wo and w_down a layer and the logits' gather, the backward's
+    gradient sum at the input of each layer's attention and MLP and of
+    the unembed, AdamW's one norm: 36 x 2 x 3 + 1 + 36 x 2 + 1 + 1 = 291;
+    253 bramac_matmul calls, as meshless; the rank holds its blocks."""
+    q8 = QuantConfig(enabled=True, bits_w=8, bits_a=8)
+    cfg = get_config("granite-8b").replace(quant=q8)
+    L = cfg.num_layers
+    rec = dryrun.predict(cfg, {"kind": "train", "batch": 4, "seq": 64},
+                         mesh="model=2")
+    assert rec["ranks"] == 2
+    assert rec["collective_calls_per_dev"] == {
+        "all-reduce": L * 2 * 3 + L * 2 + 1 + 1, "all-gather": 1}
+    assert sum(rec["collective_calls_per_dev"].values()) == 291
+    assert rec["kernel_calls_per_dev"]["bramac_matmul"] == 7 * L + 1
+    whole = dryrun.predict(cfg, {"kind": "train", "batch": 4, "seq": 64})
+    assert whole["collective_calls_per_dev"] == {}
+    # half of every split leaf's state (bf16 param, int8 m and its f32
+    # block scales, bf16 v), the embedding's and the norms' whole
+    emb = cfg.vocab_size * cfg.d_model * (2 + 1 + 4 / 128 + 2)
+    half = (whole["memory"]["args_bytes_per_dev"] + emb) / 2
+    assert abs(rec["memory"]["args_bytes_per_dev"] - half) < 0.01 * half
+
+
 @pytest.mark.parametrize("arch,shape,variant,mesh,match", [
-    ("granite-8b", "train_4k", "baseline", "model=2",
-     "tensor-parallel training"),
+    pytest.param("granite-8b", "train_4k", "baseline", "model=2", None,
+                 id="granite-8b-train_4k-baseline-model=2-tensor-parallel "
+                    "training"),
+    ("qwen3-moe-30b-a3b", "train_4k", "baseline", "model=2",
+     "queue 1 item 17"),
     ("minicpm3-4b", "decode_32k", "serve_tp_q8", "model=2",
      "'mla\\+dense' layer under a mesh"),
     ("granite-8b", "decode_32k", "cache_seq_q8", None, "KV layout"),
     ("granite-8b", "train_4k", "no_remat", None, "no remat")])
 def test_refused_cells_record_the_port_error(tmp_path, capsys, arch, shape,
                                              variant, mesh, match):
+    """Each refused cell's record holds the port's error.  granite-8b's
+    train_4k on `model=2` was refused until tensor-parallel training was
+    ported: its record is ok now, with the backward's collectives counted
+    (float: 36 x 2 sums and the gather forward, 36 x 2 + 1 sums backward,
+    the norm: 147)."""
     argv = ["--arch", arch, "--shape", shape, "--variant", variant,
             "--out", str(tmp_path)]
     dryrun.main(argv + (["--mesh", mesh] if mesh else []))
     (path,) = tmp_path.iterdir()
     rec = json.loads(path.read_text())
+    if match is None:
+        L = get_config(arch).num_layers
+        assert rec["status"] == "ok", rec.get("error")
+        assert rec["collective_calls_per_dev"] == {
+            "all-reduce": L * 2 + L * 2 + 1 + 1, "all-gather": 1}
+        assert ": ok" in capsys.readouterr().out
+        return
     assert rec["status"] == "error"
     assert __import__("re").search(match, rec["error"])
     assert ": error" in capsys.readouterr().out

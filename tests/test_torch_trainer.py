@@ -167,8 +167,10 @@ def test_launcher_closing_line_as_the_reference(tmp_path):
     """`--smoke --device cpu` prints the reference launcher's closing line
     (`loss a -> b over n steps; straggler events: k`) over the same number
     of steps, and writes its final checkpoint; a second run resumes from
-    it and takes no step.  Tensor-parallel training (--model other than
-    1) raises; --data is tests/test_torch_dp_trainer.py's."""
+    it and takes no step.  `--model 2` trains tensor-parallel on 2 ranks
+    and prints the same closing line; qwen3-moe under `--model 2` raises
+    NotImplementedError naming its ROADMAP item; --data is
+    tests/test_torch_dp_trainer.py's."""
     ref = _run("repro.launch.train", [], tmp_path / "j")
     assert ref.returncode == 0, ref.stderr[-3000:]
     got = _run("repro_torch.launch.train", ["--device", "cpu"],
@@ -189,4 +191,16 @@ def test_launcher_closing_line_as_the_reference(tmp_path):
         again.stdout.strip().splitlines()) == 1
     mesh = _run("repro_torch.launch.train", ["--device", "cpu", "--model",
                                              "2"], tmp_path / "m")
-    assert mesh.returncode != 0 and "NotImplementedError" in mesh.stderr
+    assert mesh.returncode == 0, mesh.stderr[-3000:]
+    ml = mesh.stdout.strip().splitlines()
+    assert ml[0].startswith("mesh {'data': 1, 'model': 2}  device cpu  arch "
+                            "granite-8b-smoke  params ")
+    mm = pat.match(ml[-1])
+    assert mm and mm.group(3) == "3", ml[-1]
+    assert ckpt.latest_step(str(tmp_path / "m")) == 3
+    moe = _run("repro_torch.launch.train", ["--device", "cpu", "--model",
+                                            "2", "--arch",
+                                            "qwen3-moe-30b-a3b"],
+               tmp_path / "q")
+    assert moe.returncode != 0 and "NotImplementedError" in moe.stderr
+    assert "queue 1 item 17" in moe.stderr
