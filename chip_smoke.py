@@ -15,29 +15,31 @@ fp and int8 KV caches, counts that each path went through its kernels, and
 checks that greedy streams are identical with the decode kernels on and off
 and under the dense layout, with the prefix cache on and off, and with
 speculation on and off (phase 6, f32). Phases 8-10 run granite-8b at full
-width cut to 12 of its 36 layers (views of phase 5's stacked weights).
+width cut to 6 of its 36 layers (views of phase 5's stacked weights).
 Phase 8 serves the rest of the Engine: the prefix cache with copy-on-write
 splits and invariant checks (bf16 and int8 KV, on vs off), abort of a
 running and a queued request, and per-request sampling streams that depend
 on the seed only. Phase 9 serves speculative decoding: an integer-exact
 structured stream without speculation, with the n-gram drafter and with the
-2-bit draft model (all 12 layers), then phase 5's weights and prompts with
+2-bit draft model (all 6 layers), then phase 5's weights and prompts with
 both drafters, every `bramac_matmul` launch held to its derived count.
 Phase 10 serves prefill/decode disaggregation (streams and launch counts
 equal to the cut's colocated serves, invariants I1–I7 checked on both
 pools, decode-pool backpressure, the transfer rounds timed beside their
-byte bound) and minicpm3-4b (MLA) at full size, colocated and
-disaggregated. Phase 11 serves the MoE feed-forward: the expert einsum (one
-`bramac_matmul` per expert) bit-exact and timed at qwen3-moe-30b-a3b's
+byte bound) and minicpm3-4b (MLA) at full size colocated (phase 5's first 4
+prompts cut to 16 tokens, 8 new tokens), and colocated == disaggregated on
+its first 8 layers. Phase 11 serves the MoE feed-forward: the expert einsum
+(one `bramac_matmul` per expert) bit-exact and timed at qwen3-moe-30b-a3b's
 shapes, one MoE layer at full width against its dense reference,
-qwen3-moe-30b-a3b at full width cut to 16 of its 48 layers (128 experts,
+qwen3-moe-30b-a3b at full width cut to 8 of its 48 layers (128 experts,
 each layer quantized as it is drawn) with bf16 and int8 KV, and its stream
 identities at 2 layers. Phase 12 serves the recurrent mixers: one
 full-width mLSTM, sLSTM and mamba block (sequence == steps at f32; bf16
 8-bit vs plain f32), xlstm-1.3b at full width (48 layers, one-token
-prefill) and jamba-1.5-large-398b at full width cut to one period (8 of its
-72 layers), and their stream identities and slot reuse at 2 periods of the
-smoke widths; phase 2 holds `bramac_matmul` at their mixers' shapes and
+prefill; phase 5's prompts cut to 8 tokens, 8 new tokens) and
+jamba-1.5-large-398b at full width cut to one period (8 of its 72 layers),
+and their stream identities and slot reuse at 2 periods of the smoke
+widths; phase 2 holds `bramac_matmul` at their mixers' shapes and
 phases 3-4 both decode kernels at jamba's 64/8 heads. Phase 13 trains: the
 QAT `bramac_dense` bit-exact vs its plain version at granite-8b's training
 rows (M = 256) with its straight-through gradients equal to the plain
@@ -57,17 +59,27 @@ share the card, collecting over gloo with host staging: (a) the matmul's
 int32 output mode bit-exact vs plain at granite-8b's TP-2 row shards and
 at |acc| > 2^24, timed; (b) `tp_quant_matmul`, `ep_quant_einsum_edf`,
 `ep_moe` and `make_dp_train_step` against their single-rank versions,
-bit for bit; (c) granite-8b at full width and depth (36 layers) and (d)
-qwen3-moe-30b-a3b at full width, 16 of 48 layers, through
+bit for bit; (c) granite-8b at full width on phases 8-10's 6-layer cut
+and (d) qwen3-moe-30b-a3b at full width, 8 of 48 layers, through
 `Engine(mesh="model=2")` with the decode kernels on each rank's KV heads,
-streams equal to phases 5's and 11c's meshless serves, matmul and decode
-kernel launches and collectives per forward equal to their derivation;
-(e) `launch/serve.py --shard 2` and `launch/train.py
+streams equal to the meshless serves of that cut and of phase 11c,
+matmul and decode kernel launches and collectives per forward equal to
+their derivation; (e) `launch/serve.py --shard 2` and `launch/train.py
 --data 2` and `--model 2`; (f) granite-8b trained at full width on
 model=2 (each rank its half of every split weight and of its AdamW
 state), 4 steps: losses finite, step 1's within 1e-3 relative of phase
 13b's, 253 `bramac_matmul` launches and 291 collectives per rank and
-step. Phase 16 holds the dry run (`launch.dryrun`, counted on the
+step; (g) the MLA, mamba, mLSTM and sLSTM mixers and the 2-bit model
+drafter through `Engine(mesh="model=2")`: one full-width block of each
+(minicpm3-4b's MLA, xlstm-1.3b's mLSTM and sLSTM, jamba's mamba at
+d=8192) against the meshless block on the same weights, sequence, step
+and state; minicpm3-4b (62 layers) and xlstm-1.3b (48 layers) at full
+width on phases 10d's and 12c's traffic against their streams (249
+and 181 collectives per forward); jamba-1.5-large-398b at two periods of
+its smoke widths (8-bit, the decode kernel on each rank's KV heads)
+against 12e's; the 2-bit model drafter on phase 9's 6-layer cut
+against 9a's and 9b's streams and drafted / accepted totals. Phase 16
+holds the dry run (`launch.dryrun`, counted on the
 CPU's meta device) to live runs of the same step functions: granite-8b
 training's predicted peak within 10% of phase 13b's measured one, a q8
 decode step (B=8, 4096-row dense cache) and prefill (B=1, S=4096) on the
@@ -1154,6 +1166,21 @@ def _phase5_prompts(vocab):
             for n in rng.integers(17, 121, size=8)]
 
 
+def minicpm_traffic(vocab):
+    """Phase 10d's full-depth serve and 15g(b)'s: phase 5's first 4
+    prompts cut to their first 16 tokens, 8 new tokens.  A 62-layer mesh
+    forward stages 249 collectives through the host, ~2 s for a prefill
+    chunk of phase 5's whole prompts."""
+    return [p[:16] for p in _phase5_prompts(vocab)[:4]], 8
+
+
+def xlstm_traffic(vocab):
+    """Phase 12c's serves and 15g(c)'s: phase 5's 8 prompts cut to their
+    first 8 tokens (a recurrent arch prefills one token a forward), 8
+    new tokens on 4 slots, so every slot serves twice."""
+    return [p[:8] for p in _phase5_prompts(vocab)], 8
+
+
 def serve(cfg, params, prompts, new_tokens, *, decode_kernel=True,
           num_slots=4, max_seq=256, top2=None, routes=None, **kw):
     """Serve `prompts` on a fresh Engine and return the run's readings.
@@ -1412,7 +1439,6 @@ def phase_serve(report):
     counters = _counters()
     per_layer = 7 * cfg.num_layers + 1         # wq wk wv wo gate up down + unembed
     totals = {k: 0 for k in counters}
-    streams5, launches5 = {}, {}
     for quant_kv in (False, True):
         c = cfg.replace(quant_kv=quant_kv)
         # warm-up: a short serve pays the first-use costs (module loads,
@@ -1450,8 +1476,6 @@ def phase_serve(report):
         rep = serve(c, params, prompts, 16)
         need(rep["streams"] == run["streams"],
              "a repeated greedy serve gave other streams")
-        streams5["int8" if quant_kv else "bf16"] = run["streams"]
-        launches5["int8" if quant_kv else "bf16"] = got
         rep_ttft = 1e3 * float(np.mean(rep["ttft"]))
         print(f"  repeat: {rep['tokens'] / rep['wall']:.1f} tok/s, mean TTFT "
               f"{rep_ttft:.1f} ms, same streams")
@@ -1462,13 +1486,12 @@ def phase_serve(report):
     for k, n in totals.items():
         need(n > 0, f"{k} was never launched on the main path")
         report[k]["launches"] = n
-    report["granite_streams"] = streams5     # phase 15c's mesh Engine's
     report["profile"] = profile_serve(cfg, params, prompts[:4])
     report["profile_int8_kv"] = profile_serve(cfg.replace(quant_kv=True),
                                               params, prompts[:4])
-    # phases 8-10 run at full width on the first 12 of the 36 layers (views
+    # phases 8-10 run at full width on the first 6 of the 36 layers (views
     # of phase 5's stacked leaves), against colocated serves of that cut
-    cut, pcut = granite_cut(cfg, params, CUT_LAYERS)
+    cut, pcut = depth_cut(cfg, params, CUT_LAYERS)
     streams_c, launches_c = {}, {}
     for quant_kv in (False, True):
         c = cut.replace(quant_kv=quant_kv)
@@ -1483,6 +1506,7 @@ def phase_serve(report):
         streams_c[kv], launches_c[kv] = run["streams"], got
         for k, n in got.items():
             report[k]["launches"] += n
+    report["granite_cut_streams"] = streams_c   # phase 15c's mesh Engine's
     print(f"  granite-8b cut to {CUT_LAYERS} of 36 layers for phases 8-10: "
           f"colocated streams and launches taken as their reference "
           f"(bramac_matmul {7 * CUT_LAYERS + 1} per forward)")
@@ -1494,36 +1518,38 @@ def phase_serve(report):
     torch.cuda.empty_cache()
 
 
-CUT_LAYERS = 12                    # granite-8b depth of phases 8-10
+CUT_LAYERS = 6                     # granite-8b depth of phases 8-10
 
 
-def granite_cut(cfg, params, n_layers):
-    """granite-8b's config and serving tree cut to its first `n_layers`
-    layers at full width: views of the stacked per-period leaves."""
+def depth_cut(cfg, params, periods):
+    """A config and its tree cut to the first `periods` periods of its
+    layer pattern at full width: views of the stacked per-period
+    leaves."""
     from repro_torch.tree import tree_map
-    layers = {k: tree_map(lambda a: a[:n_layers], v)
+    layers = {k: tree_map(lambda a: a[:periods], v)
               for k, v in params["layers"].items()}
-    return cfg.replace(num_layers=n_layers), dict(params, layers=layers)
+    return cfg.replace(num_layers=periods * len(cfg.layer_pattern)), \
+        dict(params, layers=layers)
 
 
 def profile_serve(cfg, params, prompts, new_tokens=8,
-                  label="phase 5 profile", host_ops=True, **kw):
+                  label="phase 5 profile", **kw):
     """Where the time goes: one short serve (by default 4 requests x 8
     tokens) under torch.profiler; device-busy share of the wall time and
     device time by kernel name.  The profiler slows the host, so its wall
-    time is not the serve's tok/s.  `host_ops=False` traces the device
-    only, which keeps the event list of a long serve short to read back."""
+    time is not the serve's tok/s.  It traces the device only and reads
+    the raw trace: with the host's ops, or through `prof.events()` (which
+    builds the event tree), reading back phase 5's short serve took
+    longer than the serve."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops
-                                      else [])
-    with profile(activities=acts) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run = serve(cfg, params, prompts, new_tokens, **kw)
     by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) \
-                + e.time_range.elapsed_us() / 1e3
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            by_name[e.name()] = by_name.get(e.name(), 0.0) \
+                + e.duration_ns() / 1e6
     busy = sum(by_name.values())
     wall = run["wall"] * 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
@@ -1551,7 +1577,7 @@ def profile_serve(cfg, params, prompts, new_tokens=8,
 
 # ---------------------------------------------------------------------------
 # phase 8: the rest of the single-device Engine at granite-8b full width,
-# 12 of its 36 layers
+# 6 of its 36 layers
 # ---------------------------------------------------------------------------
 
 SYS_LEN = 104                      # 6.5 pages: 6 shared + 1 copy-on-write
@@ -1748,7 +1774,7 @@ def phase_engine(cfg, params, prompts5, report):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: speculative decoding at granite-8b full width, 12 of 36 layers
+# phase 9: speculative decoding at granite-8b full width, 6 of 36 layers
 # ---------------------------------------------------------------------------
 
 def structured_params(cfg, params, q8):
@@ -1835,11 +1861,15 @@ def phase_spec(cfg, params, prompts, streams5, report):
         k: dict(ticks=r["ticks"], forwards=r["forwards"],
                 tok_s=r["tokens"] / r["wall"], spec=r["spec"])
         for k, r in runs.items()}
+    # phase 15g(e)'s meshless references
+    spec_streams = {"9a": dict(streams=runs["model"]["streams"],
+                               drafted=md["drafted"],
+                               accepted=md["accepted"])}
     # where the model drafter's time goes: its 2-bit weights unpacked at
     # every call, beside the kernels (one admission and one full window)
     report["profile_spec_model"] = profile_serve(
         cfg, sparams, [prompt], d + 2, label="phase 9a profile, model drafter",
-        host_ops=False, num_slots=1, max_seq=64, draft_len=d,
+        num_slots=1, max_seq=64, draft_len=d,
         drafter="model", draft_bits=2)
     del sparams
     torch.cuda.empty_cache()
@@ -1894,6 +1924,10 @@ def phase_spec(cfg, params, prompts, streams5, report):
         ttft = 1e3 * float(np.mean([r.result.ttft for r in reqs]))
         tokens = sum(len(x) for x in streams)
         forwards = run["ticks"] + run["admits"]
+        if kind == "model":
+            spec_streams["9b"] = dict(streams=streams,
+                                      drafted=st["drafted"],
+                                      accepted=st["accepted"])
         rows[kind] = dict(acceptance=st["acceptance_rate"],
                           drafted=st["drafted"], accepted=st["accepted"],
                           tok_s=tokens / wall, ttft_ms=ttft,
@@ -1912,13 +1946,14 @@ def phase_spec(cfg, params, prompts, streams5, report):
               f"2-bit draft-model calls); common prefix with phase 5's "
               f"streams {common}")
     report["spec_serve"] = rows
+    report["spec_streams"] = spec_streams
     for k, n in totals.items():
         report[k]["launches"] += n
     print(f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------------------
-# phase 10: prefill/decode disaggregation at granite-8b full width (12 of
+# phase 10: prefill/decode disaggregation at granite-8b full width (6 of
 # its 36 layers), and
 # minicpm3-4b (MLA) at full size
 # ---------------------------------------------------------------------------
@@ -2055,12 +2090,19 @@ def phase_disagg(cfg, params, prompts, streams5, launches5, report):
     report["phase10_s"] = spent
 
 
+MLA_CUT_LAYERS = 8                 # minicpm3-4b depth of 10d's disagg check
+
+
 def phase_minicpm(report):
     """Phase 10d: minicpm3-4b at full size (62 layers, d=2560, 40 heads,
     MLA with q_lora 768 / kv_lora 256, vocab 73448; bf16, 8-bit weights,
-    random from a seed), phase 5's serve colocated and disaggregated: equal
-    streams, bramac_matmul launches = (10 x 62 + 1) per forward, no decode
-    kernel (MLA reads through the gather); then a device-only profile."""
+    random from a seed) colocated at full depth on `minicpm_traffic` (its
+    decode rows' top two tokens logged for phase 15g), then phase 5's
+    serve colocated and disaggregated at full width cut to its first
+    MLA_CUT_LAYERS layers: equal streams,
+    bramac_matmul launches = (10 x layers + 1) per forward, no decode
+    kernel (MLA reads through the gather); then a device-only profile at
+    full depth."""
     from repro_torch.configs import get_config
     from repro_torch.core.bramac_linear import QuantConfig, \
         tree_prepare_serving
@@ -2082,18 +2124,24 @@ def phase_minicpm(report):
           f"after granite-8b was freed, "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB now")
     prompts = _phase5_prompts(cfg.vocab_size)
-    per_fwd = 10 * cfg.num_layers + 1
     serve(cfg, params, prompts[:1], 2)                  # warm-up
-    runs = {}
-    for disagg in (False, True):
-        what = "disaggregated" if disagg else "colocated"
+    cut, pcut = depth_cut(cfg, params, MLA_CUT_LAYERS)
+    runs, top2 = {}, {}
+    for what, c, p, (ps, new), kw in (
+            ("colocated", cfg, params, minicpm_traffic(cfg.vocab_size),
+             dict(top2=top2)),
+            (f"colocated, {MLA_CUT_LAYERS} layers", cut, pcut,
+             (prompts, 16), {}),
+            (f"disaggregated, {MLA_CUT_LAYERS} layers", cut, pcut,
+             (prompts, 16), dict(disagg=True))):
+        per_fwd = 10 * c.num_layers + 1
         _zero_counts()
         torch.cuda.reset_peak_memory_stats()
-        run = serve(cfg, params, prompts, 16, disagg=disagg)
+        run = serve(c, p, ps, new, **kw)
         got = _read_counts()
         peak = torch.cuda.max_memory_allocated() / 1e9
-        need(run["done"] == 8 and all(
-            len(x) == 16 and all(0 <= t < cfg.vocab_size for t in x)
+        need(run["done"] == len(ps) and all(
+            len(x) == new and all(0 <= t < cfg.vocab_size for t in x)
             for x in run["streams"]), f"phase 10d ({what}): streams")
         need(got["bramac_matmul"] == per_fwd * run["forwards"],
              f"phase 10d ({what}): bramac_matmul launches "
@@ -2105,25 +2153,30 @@ def phase_minicpm(report):
         ttft = 1e3 * float(np.mean(run["ttft"]))
         runs[what] = dict(tok_s=run["tokens"] / run["wall"], ttft_ms=ttft,
                           peak_gb=peak, forwards=run["forwards"],
+                          layers=c.num_layers,
                           launches=got["bramac_matmul"], disagg=run["disagg"])
-        print(f"phase 10d serve minicpm3-4b {what}: {run['done']}/8 "
+        print(f"phase 10d serve minicpm3-4b {what}: {run['done']}/{len(ps)} "
               f"requests, {run['tokens']} tokens, "
               f"{run['tokens'] / run['wall']:.1f} tok/s, mean TTFT "
               f"{ttft:.1f} ms, peak memory {peak:.2f} GB, "
               f"{run['forwards']} forwards, bramac_matmul launches "
               f"{got['bramac_matmul']} (= {per_fwd} x forwards), no decode "
               f"kernel" + (f"; {run['disagg']['pages_transferred']} pages "
-                           f"transferred" if disagg else ""))
+                           f"transferred" if "disagg" in kw else ""))
         runs[what]["streams"] = run["streams"]
-    need(runs["colocated"]["streams"] == runs["disaggregated"]["streams"],
-         "phase 10d: minicpm3-4b disaggregated streams != colocated")
+    co, dis = (runs[f"{w}, {MLA_CUT_LAYERS} layers"]["streams"]
+               for w in ("colocated", "disaggregated"))
+    need(co == dis, f"phase 10d: minicpm3-4b disaggregated streams != "
+         f"colocated at {MLA_CUT_LAYERS} layers")
+    # phase 15g(b)'s meshless reference
+    report["minicpm3_streams"] = dict(streams=runs["colocated"]["streams"],
+                                      top2=top2)
     prof = profile_serve(cfg, params, prompts[:4], new_tokens=4,
-                         label="phase 10d profile minicpm3-4b",
-                         host_ops=False)
+                         label="phase 10d profile minicpm3-4b")
     for r in runs.values():
         del r["streams"]
     report["minicpm3"] = dict(runs, profile=prof)
-    del params
+    del params, pcut
     gc.collect()
     torch.cuda.empty_cache()
     spent = time.perf_counter() - t_phase
@@ -2154,7 +2207,7 @@ def _qwen3_cfg(**over):
     return cfg, q8
 
 
-MOE_CUT_LAYERS = 16                # qwen3-moe-30b-a3b depth of phase 11c
+MOE_CUT_LAYERS = 8                 # qwen3-moe-30b-a3b depth of phase 11c
 
 
 def _moe_matmul_launches(cfg) -> int:
@@ -2212,10 +2265,10 @@ def phase_moe_einsum(gen, cfg):
         # them: a long spin keeps host hiccups out of the device interval
         ms = time_cold(lambda: serve_einsum_edf(x, qw, False),
                        spin_factor=10)
-        # the plain loop takes ~1 s of host time a call: one warm-up, one
-        # timed call
+        # the plain loop takes ~1 s of host time a call: one timed call
+        # (the check's call above was its warm-up)
         plain_ms = time_cold(lambda: serve_einsum_edf_plain(x, qw, False),
-                             iters=1, spin_factor=10, warmup=1)
+                             iters=1, spin_factor=10, warmup=0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(5):
@@ -2297,16 +2350,16 @@ MOE_LAYER_RTOL = 0.08
 
 def phase_moe_serve(cfg, q8, report):
     """11c: qwen3-moe-30b-a3b at full width (128 experts top-8, bf16, 8-bit
-    weights, random from a seed), cut to 16 of its 48 layers, through the
+    weights, random from a seed), cut to 8 of its 48 layers, through the
     Engine: phase 5's traffic cut to 4 requests x 8 new tokens, bf16 and
-    int8 KV.  bramac_matmul launches (4 + 3 x 128) x 16 + 1 per forward,
-    the decode kernel 16 per decode step, the pools drained; then a
+    int8 KV.  bramac_matmul launches (4 + 3 x 128) x 8 + 1 per forward,
+    the decode kernel 8 per decode step, the pools drained; then a
     device-only profile of one short request."""
     from repro_torch.core.quant import QuantizedTensor
     from repro_torch.models import model as M
     t0 = time.perf_counter()
-    # the first 16 of the 48 layers at full width (the same draws as the
-    # full model's first 16 periods)
+    # the first 8 of the 48 layers at full width (the same draws as the
+    # full model's first 8 periods)
     cfg = cfg.replace(num_layers=MOE_CUT_LAYERS)
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                            "cuda", serving=q8)
@@ -2326,7 +2379,7 @@ def phase_moe_serve(cfg, q8, report):
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     prompts = _phase5_prompts(cfg.vocab_size)[:4]
     per_fwd = _moe_matmul_launches(cfg)
-    need(per_fwd == 6209, f"qwen3 launches per forward {per_fwd}")
+    need(per_fwd == 3105, f"qwen3 launches per forward {per_fwd}")
     serve(cfg, params, [prompts[0][:5]], 2)                 # warm-up
     runs = {}
     for quant_kv in (False, True):
@@ -2369,8 +2422,7 @@ def phase_moe_serve(cfg, q8, report):
               f"{cfg.num_layers} x {run['steps']} steps)")
     report["qwen3_streams"] = streams       # phase 15d's mesh Engine's
     prof = profile_serve(cfg, params, [prompts[0][:16]], new_tokens=2,
-                         label="phase 11c profile qwen3-moe-30b-a3b",
-                         host_ops=False)
+                         label="phase 11c profile qwen3-moe-30b-a3b")
     report["qwen3_moe"] = dict(runs, profile=prof,
                                expert_gb=expert_b / 1e9)
     del params, moe
@@ -2661,12 +2713,14 @@ def _recurrent_launches(cfg) -> int:
 def phase_xlstm_serve(report):
     """12c: xlstm-1.3b at full width (48 layers, d=2048, bf16, 8-bit
     weights quantized period by period as drawn, random from seed 0) on
-    phase 5's traffic: 8 requests of 17-120 tokens, 16 new tokens, 4
-    slots, max_seq 256, greedy, paged.  Prompts prefill one token per
+    `xlstm_traffic`: phase 5's 8 prompts cut to 8 tokens, 8 new tokens,
+    4 slots, max_seq 256, greedy, paged.  Prompts prefill one token per
     forward; bramac_matmul launches 229 times per forward and no decode
-    kernel launches (no attention layer).  Streams are equal under the
-    dense layout, and with the prefix cache and speculation requested
-    (both opt out); then a device-only profile."""
+    kernel launches (no attention layer); its decode rows' top two
+    tokens are logged for phase 15g.  On the first period (8 of the 48
+    layers) streams are equal paged, under the dense layout, and with the
+    prefix cache and speculation requested (both opt out); then a
+    device-only profile."""
     from repro_torch.configs import get_config
     from repro_torch.core.bramac_linear import QuantConfig
     from repro_torch.core.quant import QuantizedTensor
@@ -2698,17 +2752,20 @@ def phase_xlstm_serve(report):
           f"{int8_b / 1e9:.2f} GB int8 + {float_b / 1e9:.2f} GB float "
           f"(embedding, norms, gates, sLSTM r_gates); build peak "
           f"{build_peak:.2f} GB")
-    prompts = _phase5_prompts(cfg.vocab_size)
+    prompts, new = xlstm_traffic(cfg.vocab_size)
     per_fwd = _recurrent_launches(cfg)
     need(per_fwd == 229, f"xlstm launches per forward {per_fwd}")
     serve(cfg, params, [prompts[0][:5]], 2)                 # warm-up
     _zero_counts()
     torch.cuda.reset_peak_memory_stats()
-    run = serve(cfg, params, prompts, 16)
+    top2 = {}
+    run = serve(cfg, params, prompts, new, top2=top2)
     got = _read_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
+    # phase 15g(c)'s meshless reference
+    report["xlstm_streams"] = dict(streams=run["streams"], top2=top2)
     need(run["done"] == 8 and all(
-        len(s) == 16 and all(0 <= t < cfg.vocab_size for t in s)
+        len(s) == new and all(0 <= t < cfg.vocab_size for t in s)
         for s in run["streams"]), "phase 12c: streams")
     need(run["prefill_chunk"] == 1 and
          run["admits"] >= max(len(p) for p in prompts),
@@ -2728,23 +2785,28 @@ def phase_xlstm_serve(report):
           f"forwards, {run['steps']} decode steps; "
           f"{run['wall'] / run['forwards'] * 1e3:.1f} ms each), launches "
           f"{got} (= {per_fwd} x forwards)")
-    same = {}
+    # the layout identities at full width on the first period (8 of the 48
+    # layers: views), against a paged serve of the same cut
+    one, pone = depth_cut(cfg, params, 1)
+    base = serve(one, pone, prompts, new)
+    same = {"paged": base["tokens"] / base["wall"]}
     for what, extra in {"dense layout": dict(kv_layout="dense"),
                         "prefix cache and speculation requested": dict(
                             prefix_cache=True, draft_len=4)}.items():
-        other = serve(cfg, params, prompts, 16, **extra)
-        need(other["streams"] == run["streams"],
-             f"phase 12c: {what} streams != paged: {other['streams']} vs "
-             f"{run['streams']}")
+        other = serve(one, pone, prompts, new, **extra)
+        need(other["streams"] == base["streams"],
+             f"phase 12c: {what} streams != paged at {one.num_layers} "
+             f"layers: {other['streams']} vs {base['streams']}")
         need(not other["prefix_on"] and other["spec"]["drafted"] == 0
              and other["spec"]["drafter"] is None,
              f"phase 12c ({what}): prefix {other['prefix_on']}, "
              f"{other['spec']}")
         same[what] = other["tokens"] / other["wall"]
-    print(f"  streams equal: paged == " + " == ".join(same) + " (tok/s "
+    print(f"  streams equal at {one.num_layers} of the 48 layers: "
+          + " == ".join(same) + " (tok/s "
           + ", ".join(f"{v:.2f}" for v in same.values()) + ")")
     prof = profile_serve(cfg, params, [prompts[0][:16]], new_tokens=4,
-                         label="phase 12c profile xlstm-1.3b", host_ops=False)
+                         label="phase 12c profile xlstm-1.3b")
     report["xlstm"] = dict(tok_s=run["tokens"] / run["wall"], ttft_ms=ttft,
                            wall_s=run["wall"], peak_gb=peak,
                            build_peak_gb=build_peak,
@@ -2899,6 +2961,10 @@ def phase_recurrent_streams(seed=5):
         + "".join(f"; {w}" for w in routes["switches"] + routes["partings"])
         + ")")
     out["jamba 8-bit routes"] = routes
+    # phase 15g(d)'s meshless reference
+    out["jamba mesh reference"] = dict(prompts=prompts,
+                                       streams=qon["streams"],
+                                       top2=logs["on"][0])
     del params
     xcfg = get_config("xlstm-1.3b", smoke=True).replace(num_layers=16,
                                                          quant=q8)
@@ -3872,18 +3938,23 @@ def _rank_primitives(mesh):
     return "ok"
 
 
-def _rank_serve(cfg, params, prompts, new_tokens, mesh):
-    """One mesh serve on this rank (after a short warm-up), with its
-    launches, collectives and peak memory."""
+def _rank_serve(cfg, params, prompts, new_tokens, mesh, warm=None,
+                top2=None, **kw):
+    """One mesh serve on this rank after a short warm-up (`warm`, by
+    default the first two prompts, 2 tokens each), with its launches,
+    collectives and peak memory; `top2` (a dict) collects the top two
+    tokens of every decode row (`_log_top2`)."""
     from repro_torch.parallel import comm
-    serve(cfg, params, prompts[:2], 2, mesh=mesh)
+    serve(cfg, params, prompts[:2] if warm is None else warm, 2, mesh=mesh,
+          **kw)
     _zero_counts()
     comm.stats.reset()
     torch.cuda.reset_peak_memory_stats()
-    run = serve(cfg, params, prompts, new_tokens, mesh=mesh)
+    run = serve(cfg, params, prompts, new_tokens, mesh=mesh, top2=top2, **kw)
     run["launches"] = _read_counts()
     run["comm"] = comm.stats.snapshot()
     run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    run["top2"] = top2
     return run
 
 
@@ -3946,8 +4017,9 @@ def _rank_train(mesh):
                 build_s=build_s, layers=layers)
 
 
-def parallel_rank(rank, world, device):
-    """Phases 15b-d and 15f on one rank of the mesh "model=2"."""
+def parallel_rank(rank, world, device, jobs):
+    """Phases 15b-d, 15f and 15g on one rank of the mesh "model=2"
+    (`jobs`: the inputs 15g takes from earlier phases)."""
     from repro_torch.configs import get_config
     from repro_torch.core.bramac_linear import QuantConfig
     from repro_torch.kernels import build
@@ -3959,7 +4031,9 @@ def parallel_rank(rank, world, device):
     out = {"15b": _rank_primitives(mesh)}
     t0 = time.perf_counter()
     q8 = QuantConfig(enabled=True, bits_w=8, bits_a=8)
-    cfg = get_config("granite-8b").replace(quant=q8)
+    # phase 5's weights cut to phases 8-10's first CUT_LAYERS layers (the
+    # same draw: one layer a period, drawn in order)
+    cfg = get_config("granite-8b").replace(quant=q8, num_layers=CUT_LAYERS)
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                            "cuda", serving=q8)
     torch.cuda.synchronize()
@@ -3984,63 +4058,10 @@ def parallel_rank(rank, world, device):
                                _phase5_prompts(cfg.vocab_size)[:4], 8, mesh)
     del params
     out["train"] = _rank_train(mesh)
+    t0 = time.perf_counter()
+    out["15g"] = _rank_mixers(mesh, jobs)
+    out["15g_s"] = time.perf_counter() - t0
     return out
-
-
-def _check_mesh_serve(label, runs, want, layers, kv, per_fwd, calls_per_fwd,
-                      report):
-    """The ranks' serves of one configuration: every rank's streams the
-    meshless Engine's (`want`), bramac_matmul launches, the `kv` KV's
-    decode kernel once per layer and decode step (the other never) and
-    collectives their derived counts."""
-    r0 = runs[0]
-    attn = "paged_decode_q" if kv == "int8" else "paged_decode"
-    other = "paged_decode" if kv == "int8" else "paged_decode_q"
-    for r, run in enumerate(runs):
-        got = run["launches"]
-        parted = [i for i, (a, b) in enumerate(zip(run["streams"], want))
-                  if a != b]
-        need(run["done"] == len(want) and not parted,
-             f"{label}: rank {r} streams != the meshless Engine's: requests "
-             f"{parted} part (first: {run['streams'][parted[0]] if parted else None}"
-             f" vs {want[parted[0]] if parted else None})")
-        need(got["bramac_matmul"] == per_fwd * run["forwards"],
-             f"{label}: rank {r} bramac_matmul launches "
-             f"{got['bramac_matmul']} != {per_fwd} x {run['forwards']} "
-             f"forwards")
-        need(got[attn] == layers * run["steps"] > 0 and got[other] == 0,
-             f"{label}: rank {r} decode kernel launches {got} for "
-             f"{run['steps']} steps x {layers} layers")
-        need(run["comm"]["calls"] == calls_per_fwd * run["forwards"],
-             f"{label}: rank {r} {run['comm']['calls']} collectives != "
-             f"{calls_per_fwd} x {run['forwards']} forwards")
-        for k in ("bramac_matmul", attn):
-            report[k]["launches"] += got[k]
-    c = r0["comm"]
-    row = dict(tok_s=r0["tokens"] / r0["wall"],
-               ttft_ms=1e3 * float(np.mean(r0["ttft"])),
-               wall_s=r0["wall"], forwards=r0["forwards"],
-               peak_gb=[run["peak_gb"] for run in runs],
-               launches_per_rank=[run["launches"]["bramac_matmul"]
-                                  for run in runs],
-               decode_launches_per_rank=[run["launches"][attn]
-                                         for run in runs],
-               collectives_per_forward=calls_per_fwd,
-               staged_mb_per_forward=c["staged_bytes"] / r0["forwards"] / 1e6,
-               comm_ms=1e3 * c["seconds"],
-               comm_ms_per_forward=1e3 * c["seconds"] / r0["forwards"])
-    print(f"{label}: {r0['done']} requests, {r0['tokens']} tokens in "
-          f"{r0['wall']:.2f} s ({row['tok_s']:.2f} tok/s), mean TTFT "
-          f"{row['ttft_ms']:.1f} ms, peak memory per rank "
-          f"{', '.join(f'{g:.2f}' for g in row['peak_gb'])} GB, "
-          f"{r0['forwards']} forwards; per rank and forward {per_fwd} "
-          f"bramac_matmul launches and {calls_per_fwd} collectives, {attn} "
-          f"{layers} x {r0['steps']} decode steps (as derived), "
-          f"{row['staged_mb_per_forward']:.3f} MB staged through "
-          f"the host, {row['comm_ms_per_forward']:.2f} ms in collectives "
-          f"({row['comm_ms']:.1f} ms of the serve); streams == the meshless "
-          f"Engine's on every rank")
-    return row
 
 
 def tp_train_collectives(layers: int) -> dict:
@@ -4111,12 +4132,15 @@ def _check_tp_train(runs, report):
 def phase_parallel_launchers():
     """15e: `launch/serve.py --shard 2` and `launch/train.py --data 2` and
     `--model 2` on the card, each in a subprocess that spawns its 2
-    ranks."""
+    ranks.  The three run at once (each is mostly start-up); each wall
+    time is from the three's start until that one was collected, in
+    turn."""
     import tempfile
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = {}
     with tempfile.TemporaryDirectory() as ckpt, \
             tempfile.TemporaryDirectory() as ckpt_tp:
+        procs = []
         for name, args, want in (
                 ("serve", ["repro_torch.launch.serve", "--arch",
                            "granite-8b", "--smoke", "--shard", "2"],
@@ -4132,31 +4156,47 @@ def phase_parallel_launchers():
                               "--ckpt-dir", ckpt_tp],
                  r"^loss \d+\.\d{4} -> \d+\.\d{4} over 4 steps; straggler "
                  r"events: \d+$")):
-            t0 = time.perf_counter()
-            run = subprocess.run([sys.executable, "-m", *args], env=env,
-                                 cwd=ROOT, capture_output=True, text=True,
-                                 timeout=300)
-            wall = time.perf_counter() - t0
-            lines = run.stdout.strip().splitlines()
+            procs.append((name, args, want, time.perf_counter(),
+                          subprocess.Popen(
+                              [sys.executable, "-m", *args], env=env,
+                              cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)))
+        results = []
+        try:
+            for *_, t0, proc in procs:
+                results.append(proc.communicate(timeout=300)
+                               + (time.perf_counter() - t0,))
+        finally:
+            for *_, proc in procs:
+                proc.kill()
+                proc.wait()
+        for (name, args, want, _, proc), (stdout, stderr, wall) in zip(
+                procs, results):
+            lines = stdout.strip().splitlines()
             line = lines[0 if name == "serve" else -1] if lines else ""
-            need(run.returncode == 0 and re.match(want, line),
-                 f"15e launcher {name}: rc {run.returncode}, "
-                 f"{line!r}\n{run.stderr[-2000:]}")
+            need(proc.returncode == 0 and re.match(want, line),
+                 f"15e launcher {name}: rc {proc.returncode}, "
+                 f"{line!r}\n{stderr[-2000:]}")
             out[name] = dict(wall_s=wall, line=line)
-            print(f"  15e python -m {' '.join(args)}: exit 0 in "
-                  f"{wall:.1f} s: {line}")
+            print(f"  15e python -m {' '.join(args)}: exit 0, collected "
+                  f"at {wall:.1f} s: {line}")
     return out
 
 
 def phase_parallel(report):
     """Phase 15: (a) kernel 1's int32 mode; on 2 ranks sharing cuda:0
     (gloo, host staging): (b) the sharded primitives against their
-    single-rank versions, (c) granite-8b at full width and depth and (d)
-    qwen3-moe-30b-a3b at full width, 16 of 48 layers, through
+    single-rank versions, (c) granite-8b at full width on phases 8-10's
+    cut and (d) qwen3-moe-30b-a3b at full width, 8 of 48 layers, through
     `Engine(mesh="model=2")`, the decode kernels on each rank's KV heads,
-    against the meshless streams of phases 5 and 11c; (e) both launchers'
-    mesh flags; (f) granite-8b trained at full width on model=2, against
-    phase 13b."""
+    against the meshless streams of that cut and of phase 11c; (e) both
+    launchers' mesh flags; (f) granite-8b trained at full width on model=2, against
+    phase 13b; (g) the MLA, mamba, mLSTM and sLSTM mixers and the 2-bit
+    model drafter on model=2: full-width blocks against the meshless ones,
+    minicpm3-4b and xlstm-1.3b at full width and depth, jamba at two
+    periods of its smoke widths and the drafter on phase 9's cut, against
+    the meshless streams of phases 10d, 12c, 12e and 9."""
+    from repro_torch.configs import get_config
     from repro_torch.parallel import comm
     t_phase = time.perf_counter()
     gc.collect()
@@ -4164,7 +4204,9 @@ def phase_parallel(report):
     gen = torch.Generator(device="cuda").manual_seed(15)
     report["int32_mode"] = phase_int32(gen)
     t0 = time.perf_counter()
-    outs = comm.spawn(parallel_rank, PAR_RANKS)
+    jobs = {"jamba_prompts":
+            report["recurrent_streams"]["jamba mesh reference"]["prompts"]}
+    outs = comm.spawn(parallel_rank, PAR_RANKS, jobs)
     draws = {k: ", ".join("%.1f" % o[k] for o in outs)
              for k in ("granite_draw_s", "qwen3_draw_s")}
     print(f"  phase 15b-d: {PAR_RANKS} ranks on "
@@ -4182,26 +4224,393 @@ def phase_parallel(report):
     # and the unembed; a max and a sum for each row-parallel wo and w_down,
     # one gather of the logits
     L = outs[0]["granite_layers"]
+    prompts5 = _phase5_prompts(get_config("granite-8b").vocab_size)
     par = {}
     for kv in ("bf16", "int8"):
         par["granite_" + kv] = _check_mesh_serve(
-            f"phase 15c granite-8b ({L} layers) model=2, {kv} KV",
-            [o["granite_" + kv] for o in outs], report["granite_streams"][kv],
-            L, kv, 7 * L + 1, L * 2 * 2 + 1, report)
+            f"phase 15c granite-8b ({L} of 36 layers) model=2, {kv} KV",
+            [o["granite_" + kv] for o in outs],
+            {"streams": report["granite_cut_streams"][kv]}, prompts5,
+            lambda run: (7 * L + 1) * run["forwards"],
+            lambda run: (L * 2 * 2 + 1) * run["forwards"], L, report, kv=kv)
     # qwen3: wq wk wv wo and E/2 local experts of each expert einsum a
     # layer, the unembed; wo's max and sum, a gather per expert einsum,
     # the logits' gather
     L, E = outs[0]["qwen3_layers"], outs[0]["qwen3_experts"]
     par["qwen3"] = _check_mesh_serve(
         f"phase 15d qwen3-moe-30b-a3b ({L} of 48 layers) model=2, bf16 KV",
-        [o["qwen3"] for o in outs], report["qwen3_streams"], L, "bf16",
-        (4 + 3 * E // PAR_RANKS) * L + 1, L * (2 + 3) + 1, report)
+        [o["qwen3"] for o in outs], {"streams": report["qwen3_streams"]},
+        _phase5_prompts(get_config("qwen3-moe-30b-a3b").vocab_size)[:4],
+        lambda run: ((4 + 3 * E // PAR_RANKS) * L + 1) * run["forwards"],
+        lambda run: (L * (2 + 3) + 1) * run["forwards"], L, report)
     par["train"] = _check_tp_train([o["train"] for o in outs], report)
+    print(f"  phase 15g on the ranks took "
+          f"{', '.join('%.1f' % o['15g_s'] for o in outs)} s (the blocks "
+          f"{', '.join('%.1f' % o['15g']['blocks_s'] for o in outs)} s; "
+          f"minicpm3-4b drawn in "
+          f"{', '.join('%.1f' % o['15g']['minicpm3_draw_s'] for o in outs)}"
+          f" s, xlstm-1.3b in "
+          f"{', '.join('%.1f' % o['15g']['xlstm_draw_s'] for o in outs)} s)"
+          f"; card {smi_line()}")
+    par["mixers"] = _check_mixers([o["15g"] for o in outs], report)
     par["launchers"] = phase_parallel_launchers()
     report["parallel"] = par
     spent = time.perf_counter() - t_phase
     report["phase15_s"] = spent
     print(f"phase 15 took {spent:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 15g: the mesh Engine's MLA, mamba and xLSTM mixers and the model
+# drafter, on the ranks of phase 15
+# ---------------------------------------------------------------------------
+
+# (a): one full-width block of each new kind on model=2 against the
+# meshless block on the same 8-bit weights.  The row-parallel sums run in
+# int32 and every other op sees the meshless operands, so the outputs
+# should be bit-equal.  Batched products over a rank's heads or channels
+# (the mLSTM's einsums, mamba's conv step) may take another cuBLAS
+# algorithm than over all of them: on an H100 the outputs were bit-equal
+# and the mLSTM's and mamba's final states 3e-8 and 1.3e-5 apart (f32).
+# Each difference is printed and held to one 8-bit quantization step of
+# the value's scale, 1/127 of its max |value|
+TP_BLOCKS = {"MLA": ("minicpm3-4b", "mla"), "mLSTM": ("xlstm-1.3b", "mlstm"),
+             "sLSTM": ("xlstm-1.3b", "slstm"),
+             "mamba": ("jamba-1.5-large-398b", "mamba")}
+TP_BLOCK_RTOL = 1 / 127
+
+
+def mesh_collectives(cfg) -> int:
+    """Collectives of one forward of the mesh Engine on a model axis: a max
+    and a sum for each row-parallel `wo` (attn, mla) and `w_down` (dense
+    FF, mLSTM, sLSTM); mamba's two gathers (its conv output, y·silu(z));
+    the mLSTM's two gathers (xm, h before its norm); a gather per expert
+    einsum of an EP MoE FF (3); the logits' gather."""
+    per = {"attn": 2, "mla": 2, "mamba": 2, "mlstm": 4, "slstm": 2,
+           "dense": 2, "moe": 3, "none": 0}
+    return cfg.n_periods * sum(per[m] + per[f] for m, f in (
+        s.split("+") for s in cfg.layer_pattern)) + 1
+
+
+def _tp_block_run(kind, p, x, cfg, S):
+    """One block of `kind` on `x` (B, S + 1, d): the sequence on the first
+    S positions, then one step on the last from its state (MLA: a prefill
+    into a dense cache, then a decode step).  Returns (sequence out, step
+    out, state leaves)."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import mamba as mb
+    from repro_torch.models import xlstm as xl
+    B, dev = x.shape[0], x.device
+    if kind == "mla":
+        pos = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(
+            B, S)
+        seq, _ = attn.mla(p, x[:, :S], cfg, pos)
+        cache = attn.init_mla_cache(cfg, B, S + 1, x.dtype, device=dev)
+        attn.mla(p, x[:, :S], cfg, pos, cache,
+                 torch.zeros((B,), dtype=torch.int32, device=dev))
+        last = torch.full((B,), S, dtype=torch.int32, device=dev)
+        step, cache = attn.mla(p, x[:, S:], cfg, last[:, None], cache, last)
+        return seq, step, [cache["c_kv"], cache["k_rope"]]
+    fns = {"mamba": (mb.mamba_sequence, mb.mamba_step),
+           "mlstm": (xl.mlstm_sequence, xl.mlstm_step),
+           "slstm": (xl.slstm_sequence, xl.slstm_step)}[kind]
+    seq, state = fns[0](p, x[:, :S], cfg)
+    step, state = fns[1](p, x[:, S:], cfg, state)
+    return seq, step, list(state)
+
+
+def _tp_block(kind, cfg, mesh, seed=17, S=16):
+    """15g(a) on one rank: the block of `kind` at `cfg`'s full width
+    (bf16, 8-bit weights, chunks of 8) meshless and on `mesh`'s model axis
+    (this rank's shards, under the serve rules), on the same weights and
+    input; the max abs difference of the sequence's and the step's output
+    and of the final state (reassembled over the ranks), each beside the
+    max |meshless value|, and the launches of the sharded call."""
+    from repro_torch.core.bramac_linear import tree_prepare_serving
+    from repro_torch.models import attention as attn
+    from repro_torch.models import mamba as mb
+    from repro_torch.models import xlstm as xl
+    from repro_torch.parallel import comm, sharding as shd
+    cfg = cfg.replace(chunk_size=8)
+    init = {"mla": attn.init_mla, "mamba": mb.init_mamba,
+            "mlstm": xl.init_mlstm, "slstm": xl.init_slstm}[kind]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    p = tree_prepare_serving(init(gen, cfg, "cuda"), cfg.quant)
+    x = torch.randn((2, S + 1, cfg.d_model), generator=gen,
+                    device="cuda").to(cfg.compute_dtype)
+    want = _tp_block_run(kind, p, x, cfg, S)
+    pos = next(i for i, s in enumerate(cfg.layer_pattern)
+               if s.startswith(kind + "+"))
+    ctx = shd.ShardingCtx(mesh, shd.serve_rules(False))
+    mine = shd.shard_params({f"pos{pos}": {"mixer": p}}, ctx,
+                            whole=shd.serve_whole(cfg))[f"pos{pos}"]["mixer"]
+    _zero_counts()
+    comm.stats.reset()
+    with shd.use(ctx):
+        got = _tp_block_run(kind, mine, x, shd.local_config(cfg, mesh), S)
+    torch.cuda.synchronize()
+    launches, calls = _read_counts()["bramac_matmul"], comm.stats.calls
+    group = mesh.group("model")
+    states = []
+    for a, b in zip(want[2], got[2]):
+        dims = [d for d, (u, v) in enumerate(zip(a.shape, b.shape)) if u != v]
+        states.append((a, comm.all_gather(b, group, dims[0]) if dims else b))
+
+    def diff(pairs):
+        return (max((u.float() - v.float()).abs().max().item()
+                    for u, v in pairs),
+                max(u.float().abs().max().item() for u, _ in pairs))
+    return dict(seq=diff([(want[0], got[0])]),
+                step=diff([(want[1], got[1])]), state=diff(states),
+                launches=launches, collectives=calls,
+                heads=shd.local_config(cfg, mesh).num_heads)
+
+
+def _rank_mixers(mesh, jobs):
+    """15g on one rank of model=2: (a) the full-width blocks; (b)
+    minicpm3-4b at full width and depth on phase 10d's traffic; (c)
+    xlstm-1.3b at full width and depth on phase 12c's; (d)
+    jamba-1.5-large-398b at two periods of its smoke widths on 12e's
+    (8-bit weights, the decode kernel on); (e) the 2-bit model drafter on
+    phase 9's 6-layer cut of granite-8b: 9a's structured stream (the
+    drafter over all 6 layers) and 9b's random weights (4 draft
+    layers).  Every model is drawn on the rank with the seed its meshless
+    phase used."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.bramac_linear import QuantConfig, \
+        tree_prepare_serving
+    from repro_torch.models import model as M
+    q8 = QuantConfig(enabled=True, bits_w=8, bits_a=8)
+    out = {"blocks": {}}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def draw(cfg, seed, serving=True):
+        t0 = time.perf_counter()
+        p = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            seed), "cuda", serving=q8 if serving else None)
+        torch.cuda.synchronize()
+        return p, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    for name, (arch, kind) in TP_BLOCKS.items():
+        out["blocks"][name] = _tp_block(kind, get_config(arch).replace(
+            quant=q8), mesh)
+        free()
+    out["blocks_s"] = time.perf_counter() - t0
+    cfg = get_config("minicpm3-4b").replace(quant=q8)
+    params, out["minicpm3_draw_s"] = draw(cfg, 0)
+    prompts, new = minicpm_traffic(cfg.vocab_size)
+    out["minicpm3"] = _rank_serve(cfg, params, prompts, new, mesh,
+                                  warm=[prompts[0][:5]], top2={})
+    del params
+    free()
+    cfg = get_config("xlstm-1.3b").replace(quant=q8)
+    params, out["xlstm_draw_s"] = draw(cfg, 0)
+    prompts, new = xlstm_traffic(cfg.vocab_size)
+    out["xlstm"] = _rank_serve(cfg, params, prompts, new, mesh,
+                               warm=[prompts[0][:5]], top2={})
+    del params
+    free()
+    cfg = get_config("jamba-1.5-large-398b", smoke=True).replace(
+        num_layers=16)
+    params, _ = draw(cfg, 5, serving=False)
+    params = tree_prepare_serving(params, q8)
+    prompts = jobs["jamba_prompts"]
+    out["jamba"] = _rank_serve(cfg.replace(quant=q8), params, prompts, 12,
+                               mesh, warm=[prompts[0][:5]], top2={},
+                               num_slots=3, max_seq=96)
+    del params
+    free()
+    cfg = get_config("granite-8b").replace(quant=q8, num_layers=CUT_LAYERS)
+    params, _ = draw(cfg, 0)
+    spec = dict(draft_len=4, drafter="model", draft_bits=2)
+    out["spec_9a"] = _rank_serve(
+        cfg, structured_params(cfg, params, q8), [[1, 2, 3]], 32, mesh,
+        num_slots=1, max_seq=64, **spec)
+    prompts = _phase5_prompts(cfg.vocab_size)
+    out["spec_9b"] = _rank_serve(
+        cfg, params, prompts, 16, mesh, warm=[prompts[0][:5]],
+        num_slots=4, max_seq=256, draft_layers=4, check_invariants=True,
+        **spec)
+    del params
+    free()
+    return out
+
+
+def _check_mixer_blocks(outs, report):
+    """15g(a): every rank's block differences within TP_BLOCK_RTOL of the
+    max |meshless value| (0 expected), the launches of the meshless
+    block's linears and the mixer's collectives."""
+    from repro_torch.configs import get_config
+    lin = {"mla": 7, "mlstm": 5, "slstm": 3, "mamba": 2}
+    coll = {"mla": 2, "mlstm": 4, "slstm": 2, "mamba": 2}
+    rows = {}
+    for name, (arch, kind) in TP_BLOCKS.items():
+        parts = []
+        # the sequence and the step (MLA: the sequence, its prefill into
+        # the cache and the step): each linear and collective once a call
+        calls = 3 if kind == "mla" else 2
+        for r, o in enumerate(outs):
+            b = o["blocks"][name]
+            need(b["launches"] == calls * lin[kind] and
+                 b["collectives"] == calls * coll[kind],
+                 f"15g(a) {name}: rank {r} {b['launches']} launches and "
+                 f"{b['collectives']} collectives for {calls} calls")
+            for part in ("seq", "step", "state"):
+                err, scale = b[part]
+                need(err <= TP_BLOCK_RTOL * scale,
+                     f"15g(a) {name} {part}: rank {r} max abs difference "
+                     f"{err} from the meshless block (max |value| {scale})")
+                parts.append(err)
+            report["bramac_matmul"]["launches"] += b["launches"]
+        b = outs[0]["blocks"][name]
+        diffs = {part: max(o["blocks"][name][part][0] for o in outs)
+                 for part in ("seq", "step", "state")}
+        rows[name] = dict(max_abs_diff=diffs, heads_per_rank=b["heads"],
+                          max_abs={p: b[p][1] for p in diffs})
+        cfg = get_config(arch)
+        print(f"phase 15g(a) {name} block at full width ({arch}, d="
+              f"{cfg.d_model}, bf16, 8-bit) on model=2 vs the meshless "
+              f"block (sequence of 16 in chunks of 8, one step, the state "
+              f"reassembled), max abs difference on the two ranks: "
+              + ", ".join(f"{p} " + ("0 (bit-equal)" if e == 0 else
+                                     f"{e:.4g} of max |value| {b[p][1]:.4g}")
+                          for p, e in diffs.items())
+              + f" (limit {TP_BLOCK_RTOL:.4g} x max |value|); "
+              f"{b['launches']} bramac_matmul launches and "
+              f"{b['collectives']} collectives a rank")
+    return rows
+
+
+def _check_mesh_serve(label, runs, want, prompts, per_fwd, coll, decode,
+                      report, kv="bf16", totals=None):
+    """One serve of the mesh Engine on the ranks: every rank's streams the
+    meshless ones (`want`: {"streams"} and, where the meshless serve
+    logged them, {"top2"}, and then a parting only where
+    `same_or_near_tie` allows it, printed), bramac_matmul launches
+    `per_fwd(run)`, collectives `coll(run)`, the `kv` KV's decode kernel
+    `decode` times a decode step (the other never), and for a speculative
+    serve the drafted and accepted `totals`."""
+    attn = "paged_decode_q" if kv == "int8" else "paged_decode"
+    other = "paged_decode" if kv == "int8" else "paged_decode_q"
+    r0 = runs[0]
+    swaps = []
+    for r, run in enumerate(runs):
+        need(run["done"] == len(prompts), f"{label}: rank {r} finished "
+             f"{run['done']} of {len(prompts)}")
+        if want.get("top2") is None:
+            need(run["streams"] == want["streams"],
+                 f"{label}: rank {r} streams != the meshless ones: "
+                 f"{run['streams']} vs {want['streams']}")
+        else:
+            swaps += [f"rank {r} {w}" for w in same_or_near_tie(
+                prompts, run["streams"], want["streams"], run["top2"],
+                want["top2"], f"{label} rank {r}")]
+        if totals is not None:
+            st = run["spec"]
+            need((st["drafted"], st["accepted"]) == totals,
+                 f"{label}: rank {r} drafted / accepted "
+                 f"{st['drafted']} / {st['accepted']} != the meshless "
+                 f"{totals}")
+        got = run["launches"]
+        need(got["bramac_matmul"] == per_fwd(run),
+             f"{label}: rank {r} bramac_matmul launches "
+             f"{got['bramac_matmul']} != derived {per_fwd(run)}")
+        need(got[attn] == decode * run["steps"] and got[other] == 0
+             and (decode == 0 or got[attn] > 0),
+             f"{label}: rank {r} decode kernel launches {got} for "
+             f"{run['steps']} steps x {decode}")
+        need(run["comm"]["calls"] == coll(run),
+             f"{label}: rank {r} {run['comm']['calls']} collectives != "
+             f"derived {coll(run)}")
+        for k in ("bramac_matmul", attn):
+            report[k]["launches"] += got[k]
+    c = r0["comm"]
+    fwd = r0["forwards"]
+    row = dict(tok_s=r0["tokens"] / r0["wall"],
+               ttft_ms=1e3 * float(np.mean(r0["ttft"])), wall_s=r0["wall"],
+               forwards=fwd, peak_gb=[run["peak_gb"] for run in runs],
+               collectives=c["calls"], collectives_per_forward=c["calls"] / fwd,
+               staged_mb_per_forward=c["staged_bytes"] / fwd / 1e6,
+               comm_ms=1e3 * c["seconds"],
+               comm_ms_per_forward=1e3 * c["seconds"] / fwd,
+               launches_per_rank=[run["launches"]["bramac_matmul"]
+                                  for run in runs],
+               decode_launches_per_rank=[run["launches"][attn]
+                                         for run in runs], partings=swaps)
+    if totals is not None:
+        row["drafted"], row["accepted"] = totals
+    print(f"{label}: {r0['done']} requests, {r0['tokens']} tokens in "
+          f"{r0['wall']:.2f} s ({row['tok_s']:.2f} tok/s), mean TTFT "
+          f"{row['ttft_ms']:.1f} ms, peak memory per rank "
+          f"{', '.join(f'{g:.2f}' for g in row['peak_gb'])} GB, {fwd} serving "
+          f"forwards; per rank {c['calls']} collectives "
+          f"({row['collectives_per_forward']:.1f} a serving forward, as "
+          f"derived), {row['staged_mb_per_forward']:.3f} MB staged and "
+          f"{row['comm_ms_per_forward']:.2f} ms in collectives a forward "
+          f"({row['comm_ms']:.1f} ms of the serve); bramac_matmul "
+          f"{r0['launches']['bramac_matmul']} launches"
+          + (f", {attn} {r0['launches'][attn]}" if decode else "")
+          + " (as derived)"
+          + (f", drafted / accepted {totals[0]} / {totals[1]} (= meshless)"
+             if totals is not None else "")
+          + ("; streams == the meshless Engine's on every rank" if not swaps
+             else "; streams part from the meshless Engine's only at near "
+                  "ties: " + "; ".join(swaps)))
+    return row
+
+
+def _check_mixers(outs, report):
+    """Phase 15g's checks on the ranks' results (`_rank_mixers`)."""
+    from repro_torch.configs import get_config
+    rows = {"blocks": _check_mixer_blocks(outs, report)}
+    mc = get_config("minicpm3-4b")
+    rows["minicpm3"] = _check_mesh_serve(
+        f"phase 15g(b) minicpm3-4b ({mc.num_layers} layers) model=2",
+        [o["minicpm3"] for o in outs], report["minicpm3_streams"],
+        minicpm_traffic(mc.vocab_size)[0],
+        lambda run: (10 * mc.num_layers + 1) * run["forwards"],
+        lambda run: mesh_collectives(mc) * run["forwards"], 0, report)
+    xc = get_config("xlstm-1.3b")
+    rows["xlstm"] = _check_mesh_serve(
+        f"phase 15g(c) xlstm-1.3b ({xc.num_layers} layers) model=2",
+        [o["xlstm"] for o in outs], report["xlstm_streams"],
+        xlstm_traffic(xc.vocab_size)[0],
+        lambda run: _recurrent_launches(xc) * run["forwards"],
+        lambda run: mesh_collectives(xc) * run["forwards"], 0, report)
+    jc = get_config("jamba-1.5-large-398b", smoke=True).replace(
+        num_layers=16)
+    ref = report["recurrent_streams"]["jamba mesh reference"]
+    # EP: each rank's E/2 experts in each expert einsum
+    per_jamba = _recurrent_launches(jc) - jc.n_periods * sum(
+        3 * jc.num_experts // PAR_RANKS for s in jc.layer_pattern
+        if s.endswith("+moe"))
+    rows["jamba"] = _check_mesh_serve(
+        f"phase 15g(d) jamba-1.5-large-398b (2 periods of the smoke widths, "
+        f"8-bit, decode kernel on) model=2",
+        [o["jamba"] for o in outs], ref, ref["prompts"],
+        lambda run: per_jamba * run["forwards"],
+        lambda run: mesh_collectives(jc) * run["forwards"],
+        jc.n_periods, report)
+    gc_ = get_config("granite-8b").replace(num_layers=CUT_LAYERS)
+    d = 4
+    for key, layers, n_prompts in (("9a", CUT_LAYERS, 1), ("9b", 4, 8)):
+        want = report["spec_streams"][key]
+        draft = gc_.replace(num_layers=layers)
+        rows["spec_" + key] = _check_mesh_serve(
+            f"phase 15g(e) granite-8b ({CUT_LAYERS} layers) 2-bit model "
+            f"drafter over {layers} layers (phase {key}'s) model=2",
+            [o["spec_" + key] for o in outs], want,
+            [[1, 2, 3]] if key == "9a" else _phase5_prompts(gc_.vocab_size),
+            lambda run, L=layers: spec_matmul_launches(gc_, run, d, L),
+            lambda run, c=draft: mesh_collectives(gc_) * (
+                run["ticks"] + run["admits"]) + mesh_collectives(c) * (
+                (d + 1) * run["ticks"] + 2 * run["admits"]),
+            0, report, totals=(want["drafted"], want["accepted"]))
+    return rows
 
 
 def _gb(x) -> float:
@@ -4262,7 +4671,9 @@ def phase_dryrun(report):
     peak within 10% (or 0.5 GB) of the prediction, bramac_matmul launches
     equal to the counted kernel calls, ms beside the roofline terms, and
     the full decode_32k / prefill_32k cells' predictions (which do not fit
-    one card); (c) the model=2 serve_tp_q8 decode cell's 145 collectives,
+    one card); (c) the model=2 serve_tp_q8 decode cell's 145 collectives
+    (and minicpm3-4b's and xlstm-1.3b's against 15g's live counts,
+    jamba's against the derivation),
     beside phase 15c's staged bytes; (d) phase 15f's tensor-parallel
     training step on a dry model=2: the per-rank peak within 10% of each
     rank's measured one, collectives and kernel calls equal to 15f's.  The meta count leaves out the cuBLAS
@@ -4391,6 +4802,31 @@ def phase_dryrun(report):
           f"({rec['collective_bytes_total_per_dev'] / 1e6:.1f} MB at B=128); "
           f"phase 15c staged {staged:.3f} MB a forward through the host "
           f"(its own traffic, in and out, at its slots)")
+    # the mesh Engine's other mixers: the same cell of minicpm3-4b and
+    # xlstm-1.3b against 15g's live collectives a forward, and of
+    # jamba-1.5-large-398b (72 layers, not run live) against the
+    # derivation
+    mix = report["parallel"]["mixers"]
+    out["tp_decode_mixers"] = {}
+    for arch, live in (("minicpm3-4b", mix["minicpm3"]),
+                       ("xlstm-1.3b", mix["xlstm"]),
+                       ("jamba-1.5-large-398b", None)):
+        acfg = get_config(arch)
+        rec = dry_record(acfg, archs.SHAPES["decode_32k"], 8, mesh="model=2")
+        calls = rec["collective_calls_per_dev"]
+        want = mesh_collectives(acfg) if live is None \
+            else live["collectives_per_forward"]
+        need(sum(calls.values()) == want == mesh_collectives(acfg),
+             f"16c: {arch} model=2 decode collectives {calls} != "
+             f"{want} ({'derived' if live is None else 'phase 15g'})")
+        out["tp_decode_mixers"][arch] = dict(collectives=calls,
+                                             live=live is not None)
+        print(f"phase 16c {arch} serve_tp_q8 decode_32k on model=2 (dry): "
+              f"{sum(calls.values())} collectives a forward per rank "
+              f"{calls}, = " + ("derived (not run live at 72 layers)"
+                                if live is None else "phase 15g's live count")
+              + f"; {rec['kernel_calls_per_dev']['bramac_matmul']} "
+              f"bramac_matmul calls")
     # (d) tensor-parallel training: phase 15f's configuration, per rank
     tp = report["parallel"]["train"]
     rec = dry_record(cfg, {"kind": "train", "batch": TRAIN_B,
@@ -4455,18 +4891,18 @@ def main() -> int:
     print(f"  paged_decode_q: {paged_q_build()}")
     report: dict = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    phase_matmul(gen, report)
-    phase_paged(gen, report)
-    phase_mac2(gen, report)
-    phase_serve(report)
-    phase_minicpm(report)
-    phase_moe(report)
-    phase_recurrent(report)
-    phase_train(report)
-    phase_xattn(report)
-    phase_streams()
-    phase_parallel(report)
-    phase_dryrun(report)
+    walls = {}
+    for fn, args in ((phase_matmul, (gen, report)),
+                     (phase_paged, (gen, report)),
+                     (phase_mac2, (gen, report)), (phase_serve, (report,)),
+                     (phase_minicpm, (report,)), (phase_moe, (report,)),
+                     (phase_recurrent, (report,)), (phase_train, (report,)),
+                     (phase_xattn, (report,)), (phase_streams, ()),
+                     (phase_parallel, (report,)), (phase_dryrun, (report,))):
+        t0 = time.perf_counter()
+        fn(*args)
+        walls[fn.__name__] = round(time.perf_counter() - t0, 1)
+    print(f"wall time by phase function (s): {walls}")
     print(f"timing: {len(HOST_BOUND)} readings in which an enqueue outlasted "
           f"the device spin" + (f": {HOST_BOUND}" if HOST_BOUND else ""))
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")

@@ -118,6 +118,20 @@ class ModelConfig:
     def expert_d_ff(self) -> int:
         return self.moe_d_ff or self.d_ff
 
+    # the recurrent mixers' widths (a tensor-parallel rank's
+    # `parallel.sharding.RankConfig` divides them)
+    @property
+    def mamba_d_inner(self) -> int:
+        return self.mamba_expand * self.d_model
+
+    @property
+    def mlstm_width(self) -> int:
+        return int(self.mlstm_proj_factor * self.d_model)
+
+    @property
+    def slstm_width(self) -> int:
+        return int(self.slstm_proj_factor * self.d_model)
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 

@@ -40,13 +40,15 @@ What differs from the reference:
   (`model=2`, `data=2`, ...), built with no processes
   (`sharding.dry_mesh`); its collectives return meta results and count
   their result bytes by kind.  Prefill and decode run the mesh Engine's
-  rules and weights (serve rules, `shard_params`, `local_config`);
+  rules, weights and mixers (serve rules, `shard_params` with
+  `serve_whole`, `local_config`: every layer kind but xattn);
   training runs the Trainer's own layout (`trainer.TrainLayout`: train
   rules, each rank's blocks of the params and AdamW state, replicated over
   `data`), so the forward's and the backward's collectives are counted;
-  the layers the mesh path does not take and attn+moe training under a
-  model axis raise the port's own errors (`status: error`).  The 256/512-chip
-  production meshes mean nothing on one card and are not taken;
+  xattn under a mesh, and training a layer other than attn+dense under
+  a model axis, raise the port's own errors (`status: error`).  The
+  256/512-chip production meshes mean nothing on one card and are not
+  taken;
 - ranks share one card, so the roofline terms are the card's: every
   rank's FLOPs and bytes over its peaks.  Host-staged gloo has no
   data-sheet rate: `collective_s` is null, `dominant` is compute or memory.
@@ -71,7 +73,6 @@ from repro_torch.models import transformer as tf
 from repro_torch.optim import adamw
 from repro_torch.parallel import comm, sharding
 from repro_torch.runtime import trainer
-from repro_torch.runtime.serve import check_mesh_layers
 from repro_torch.tree import tree_items, tree_leaves
 
 OPT_CFG = adamw.AdamWConfig()
@@ -160,7 +161,13 @@ def count_step(cfg, info: dict, quant_bits: int = 0, mesh=None) -> dict:
         step = make_train_step(cfg, OPT_CFG, mark=counter.mark,
                                layout=layout)
     elif mesh is not None:
-        check_mesh_layers(cfg)
+        xattn = [s for s in cfg.layer_pattern if s.startswith("xattn+")]
+        if xattn:
+            # the Engine refuses such an arch (it feeds no vision inputs),
+            # so the mesh path has no split for its layers
+            raise NotImplementedError(
+                f"{cfg.name}: a {xattn[0]!r} layer under a mesh is not "
+                f"served (the Engine feeds no vision inputs)")
         ctx = sharding.activate(mesh, sharding.serve_rules(
             "pod" in mesh.axis_names))
     try:
@@ -173,7 +180,7 @@ def count_step(cfg, info: dict, quant_bits: int = 0, mesh=None) -> dict:
             args = (params, opt, batch)
         else:
             params = specs.rank_params(specs.param_specs(cfg, quant_bits),
-                                       ctx)
+                                       ctx, cfg)
             batch = specs.rank_batch(batch, mesh)
             b_rank = next(iter(batch.values())).shape[0]
             caches = specs.cache_specs(rcfg, b_rank, S)

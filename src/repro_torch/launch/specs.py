@@ -7,11 +7,12 @@ built by the port's own init functions (`models.model.init_params`,
 `optim.adamw.init`) on the `meta` device, so the dry run counts the
 tensors the runtime holds.  The reference's NamedSharding assembly
 becomes each rank's own shapes under the port's rules: the weights
-sliced as the mesh Engine slices them (`sharding.shard_params`, the
-embedding whole), the config of one rank (`sharding.local_config`: its
-query and KV heads and its d_ff), the batch split over `data`, the AdamW
-moments following their parameters; a training step's state is placed by
-the Trainer's own layout.
+sliced as the mesh Engine slices them (`sharding.shard_params`,
+`sharding.serve_whole` whole), the config of one rank
+(`sharding.local_config`: its query and KV heads, its d_ff and its
+recurrent mixers' widths), the batch split over `data`, the AdamW moments
+following their parameters; a training step's state is placed by the
+Trainer's own layout.
 """
 from __future__ import annotations
 
@@ -129,19 +130,22 @@ def input_specs(arch: str, shape_name: str = "train_4k",
 # ---------------------------------------------------------------------------
 
 def rank_config(cfg, mesh):
-    """The config one rank of `mesh` runs (its heads and d_ff)."""
+    """The config one rank of `mesh` runs (its heads, d_ff and recurrent
+    widths: `sharding.local_config`)."""
     if mesh is None:
         return cfg
     return sharding.local_config(cfg, mesh, "model")
 
 
-def rank_params(params, ctx):
-    """This rank's weights under a serving ctx, as the mesh Engine slices
-    them (the embedding whole); `params` itself without a ctx."""
+def rank_params(params, ctx, cfg):
+    """This rank's weights of `cfg` under a serving ctx, as the mesh
+    Engine slices them (`sharding.serve_whole` whole); `params` itself
+    without a ctx."""
     if ctx is None:
         return params
     with FastMeta():
-        return sharding.shard_params(params, ctx, whole=(r"embedding$",))
+        return sharding.shard_params(params, ctx,
+                                     whole=sharding.serve_whole(cfg))
 
 
 def rank_batch(batch, mesh):

@@ -385,9 +385,17 @@ def mla(p, x, cfg, positions, cache=None, cache_pos=None, paged=None):
     paged layout the up-projections run over the gathered (B, max_seq)
     view, as the dense path runs them over its whole reservation; masked
     rows of the view are zeros.  The bundle's `decode_kernel` flag is
-    ignored: MLA always reads through the gather."""
+    ignored: MLA always reads through the gather.
+
+    Under a tp-splitting mesh `cfg` is the rank's view (H/n heads): its
+    `w_uq`, `w_uk` and `w_uv` hold this rank's heads' columns (contiguous
+    head blocks, as each output reshapes to (..., H, .)), `wo` its rows
+    (`layers.dense_row`), and `w_dq`, `w_dkv`, `w_kr` and the norms stay
+    whole, so every rank writes the whole latent cache, which does not
+    depend on the heads, into its own pool."""
     B, S, _ = x.shape
     H = cfg.num_heads
+    x = column_input(x)
     nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     q = dense(rmsnorm(p["q_norm"], dense(x, p["w_dq"], cfg.quant),
                       cfg.norm_eps), p["w_uq"], cfg.quant)
@@ -422,7 +430,7 @@ def mla(p, x, cfg, positions, cache=None, cache_pos=None, paged=None):
         out = chunk_attention(q_full, k, v, positions)
     else:
         out = causal_attention(q_full, k[:, :S], v[:, :S])
-    return dense(out.reshape(B, S, H * vd), p["wo"], cfg.quant), cache
+    return dense_row(out.reshape(B, S, H * vd), p["wo"], cfg.quant), cache
 
 
 def init_mla_cache(cfg, batch, max_seq, dtype, num_pages=None, device=None):

@@ -11,7 +11,8 @@ linears (`wq`/`wk`/`wv`/`w_gate`/`w_up`) run on their local columns, their
 block's input passed once through `column_input` (identity forward, the
 gradient summed over the axis in backward), the row-parallel ones (`wo`,
 `w_down`) go through `dense_row`, and `unembed` gathers its vocab columns
-(in backward each rank keeps its own columns' gradient).
+(in backward each rank keeps its own columns' gradient).  The MLA, mamba
+and xLSTM mixers take their own collectives over `tp_line()`.
 """
 from __future__ import annotations
 
@@ -36,6 +37,17 @@ def column_input(x: torch.Tensor) -> torch.Tensor:
     if ax is None:
         return x
     return comm.copy_to(x, sharding.active().mesh.group(ax))
+
+
+def tp_line():
+    """(group, n, i) of the active ctx's tp axis line — its process group,
+    its size and this rank's index on it — or None when no ctx splits the
+    model: what a mixer with its own collectives reads."""
+    ax = sharding.tp_axis()
+    if ax is None:
+        return None
+    mesh = sharding.active().mesh
+    return mesh.group(ax), mesh.shape[ax], mesh.index(ax)
 
 
 def dense_row(x: torch.Tensor, w, quant: bl.QuantConfig | None

@@ -13,14 +13,29 @@ h step by step (the same combine, h ← dA_t·h + dBx_t, in time order).  That
 agrees with the reference's tree order within its own test tolerance.  A
 cumprod-and-divide rewrite would not: dA underflows and the division blows
 up.  The state is the tuple (h (B, d_in, N) f32, conv_tail (B, K-1, d_in)).
+
+Under a tp-splitting mesh (the mesh Engine) a rank holds d_in/n channels
+(`cfg.mamba_d_inner` of its `RankConfig`): its block of each of `w_in`'s
+two parts (`sharding._GROUPED`), of `conv_w`, `conv_b`, `dt_bias`,
+`d_skip` and `a_log`, and of the state h and the conv tail.  The B, C and
+dt projections mix every channel: the rank gathers the conv output `xc`
+over the axis once per call and runs them on the whole row through whole
+`w_bc`, `w_dt_down` and `w_dt_up` (`sharding.serve_whole`), then keeps its
+block of dt.  The reference splits `w_bc` and `w_dt_down` by rows, which
+would put a float partial sum on the path and break stream equality with
+the meshless Engine; whole, they give the meshless values bit for bit.
+`w_out` has no reference rule and stays whole: the rank gathers
+y·silu(z) before it.  Two collectives a layer, both all-gathers.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense, init_dense
+from repro_torch.models.layers import column_input, dense, init_dense, \
+    tp_line
 from repro_torch.models.xlstm import _chunk_len
+from repro_torch.parallel import comm
 
 
 def _dt_rank(cfg):
@@ -29,7 +44,7 @@ def _dt_rank(cfg):
 
 def init_mamba(gen, cfg, device):
     d = cfg.d_model
-    d_in = cfg.mamba_expand * d
+    d_in = cfg.mamba_d_inner
     N, K, R = cfg.mamba_d_state, cfg.mamba_d_conv, _dt_rank(cfg)
     dt = cfg.compute_dtype
     w_in = init_dense(gen, d, 2 * d_in, dt, device)
@@ -58,12 +73,18 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _ssm_inputs(p, xc):
-    """The common path after the conv: (dA, dBx, C), f32."""
-    bc = xc @ p["w_bc"]
+def _ssm_inputs(p, xc, xc_all=None, cols=None):
+    """The common path after the conv: (dA, dBx, C), f32.  Under tensor
+    parallelism `xc` is this rank's channel block, `xc_all` the gathered
+    row and `cols` this rank's slice of d_in: B, C and dt come from the
+    whole row, and dt is cut to the block."""
+    xa = xc if xc_all is None else xc_all
+    bc = xa @ p["w_bc"]
     Bm, Cm = torch.chunk(bc.to(torch.float32), 2, dim=-1)    # (..., N)
-    dt = softplus((xc @ p["w_dt_down"] @ p["w_dt_up"]).to(torch.float32)
-                  + p["dt_bias"])                            # (..., d_in)
+    dt = xa @ p["w_dt_down"] @ p["w_dt_up"]
+    if cols is not None:
+        dt = dt[..., cols]
+    dt = softplus(dt.to(torch.float32) + p["dt_bias"])      # (..., d_in)
     A = -torch.exp(p["a_log"])                               # (d_in, N)
     dA = torch.exp(dt[..., None] * A)                        # (..., d_in, N)
     dBx = (dt * xc.to(torch.float32))[..., None] * Bm[..., None, :]
@@ -77,10 +98,10 @@ def _read_out(h, c):
     return torch.bmm(h, c[..., None])[..., 0]
 
 
-def _chunk_scan(h, xc, p):
+def _chunk_scan(h, xc, p, xc_all=None, cols=None):
     """One chunk: h carried through its T steps.  h (B, d_in, N) f32,
     xc (B, T, d_in).  Returns (h_T, y (B, T, d_in) f32)."""
-    dA, dBx, Cm = _ssm_inputs(p, xc)            # (B,T,d_in,N) x2, (B,T,N)
+    dA, dBx, Cm = _ssm_inputs(p, xc, xc_all, cols)   # (B,T,d_in,N) x2, (B,T,N)
     ys = []
     for t in range(xc.shape[1]):
         h = dA[:, t] * h + dBx[:, t]
@@ -89,12 +110,33 @@ def _chunk_scan(h, xc, p):
     return h, y
 
 
+def _whole_row(xc, line):
+    """(the gathered row, this rank's d_in slice) under tensor
+    parallelism, else (None, None)."""
+    if line is None:
+        return None, None
+    group, _, i = line
+    d_loc = xc.shape[-1]
+    return comm.all_gather(xc, group, dim=-1), slice(i * d_loc,
+                                                     (i + 1) * d_loc)
+
+
+def _out_proj(p, y, z, cfg, line):
+    """w_out over y·silu(z), gathered to the whole d_in first under tensor
+    parallelism."""
+    yz = y * F.silu(z)
+    if line is not None:
+        yz = comm.all_gather(yz, line[0], dim=-1)
+    return dense(yz, p["w_out"], cfg.quant)
+
+
 def mamba_sequence(p, x, cfg, h0=None, conv0=None):
     """x: (B, S, d) → (out (B,S,d), (h_final, conv_tail))."""
     B, S, d = x.shape
-    d_in = cfg.mamba_expand * d
+    d_in = cfg.mamba_d_inner
     K = cfg.mamba_d_conv
-    xz = dense(x, p["w_in"], cfg.quant)
+    line = tp_line()
+    xz = dense(column_input(x), p["w_in"], cfg.quant)
     xr, z = torch.chunk(xz, 2, dim=-1)           # (B,S,d_in)
 
     # causal depthwise conv along S (with optional tail state from decode)
@@ -104,36 +146,39 @@ def mamba_sequence(p, x, cfg, h0=None, conv0=None):
     xc = sum(xpad[:, i:i + S] * p["conv_w"][i] for i in range(K))
     xc = F.silu(xc + p["conv_b"])
     conv_tail = xpad[:, -(K - 1):] if K > 1 else conv0
+    xc_all, cols = _whole_row(xc, line)
 
     h = h0 if h0 is not None else torch.zeros(
         (B, d_in, cfg.mamba_d_state), device=x.device)
     T = _chunk_len(cfg, S)
     ys = []
     for s in range(0, S, T):
-        h, y = _chunk_scan(h, xc[:, s:s + T], p)
+        h, y = _chunk_scan(h, xc[:, s:s + T], p,
+                           None if xc_all is None else xc_all[:, s:s + T],
+                           cols)
         ys.append(y)
     y = torch.cat(ys, dim=1)
-    out = dense(y.to(x.dtype) * F.silu(z), p["w_out"], cfg.quant)
-    return out, (h, conv_tail)
+    return _out_proj(p, y.to(x.dtype), z, cfg, line), (h, conv_tail)
 
 
 def mamba_step(p, x, cfg, state):
     """Single-token decode.  x: (B, 1, d); state: (h, conv_tail)."""
     h, conv_tail = state
-    xz = dense(x[:, 0], p["w_in"], cfg.quant)
+    line = tp_line()
+    xz = dense(column_input(x[:, 0]), p["w_in"], cfg.quant)
     xr, z = torch.chunk(xz, 2, dim=-1)           # (B, d_in)
     window = torch.cat([conv_tail, xr[:, None]], dim=1)      # (B,K,d_in)
     xc = torch.einsum("bkd,kd->bd", window, p["conv_w"])
     xc = F.silu(xc + p["conv_b"])
-    dA, dBx, Cm = _ssm_inputs(p, xc)             # (B,d_in,N), (B,N)
+    dA, dBx, Cm = _ssm_inputs(p, xc, *_whole_row(xc, line))
     h = dA * h + dBx
     y = _read_out(h, Cm) + p["d_skip"] * xc.to(torch.float32)
-    out = dense(y.to(x.dtype) * F.silu(z), p["w_out"], cfg.quant)
-    return out[:, None], (h, window[:, 1:])
+    return _out_proj(p, y.to(x.dtype), z, cfg, line)[:, None], \
+        (h, window[:, 1:])
 
 
 def init_mamba_state(cfg, batch, dtype, device=None):
-    d_in = cfg.mamba_expand * cfg.d_model
+    d_in = cfg.mamba_d_inner
     return (torch.zeros((batch, d_in, cfg.mamba_d_state), device=device),
             torch.zeros((batch, cfg.mamba_d_conv - 1, d_in), dtype=dtype,
                         device=device))

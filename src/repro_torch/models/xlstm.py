@@ -15,13 +15,37 @@ Decode is the O(1)-state recurrent step.  States are tuples, as in the
 reference: mLSTM (C, n, m), sLSTM (h, c, n, m), all f32; m starts at
 -1e30.  Mixed-dtype products promote as JAX's do (bf16 x f32 runs in f32),
 so a bf16 model keeps the reference's roundings.
+
+Under a tp-splitting mesh (the mesh Engine) `cfg` is the rank's
+`RankConfig`.  mLSTM: `w_up` splits in its two parts
+(`sharding._GROUPED`), so the rank holds its block of xm and of z; it
+gathers xm over the axis (one collective) and runs `wq`/`wk`/`wv`
+column-parallel on the whole xm, which gives its H/n heads; `w_if` and
+`b_if` stay whole, and it keeps its heads' gates.  The cell runs on the
+local heads.  The norm is over the whole projection width, so it gathers h
+(one collective), normalizes, and keeps its block; `w_down` is
+row-parallel (`layers.dense_row`: a max and a sum).  Four collectives a
+layer.  sLSTM: the recurrence needs the whole h at every step, so the cell
+(`w_gates`, `r_gates`, `b_gates` and the state) stays whole on every rank
+(`sharding.serve_whole`), where the reference's rules split `w_gates`
+and `r_gates` by columns.  Its FF keeps `w_up` whole too and computes
+gelu(a)·b over the whole width, laid out as the meshless block lays it
+out, then keeps the rank's block of it for the row-parallel `w_down`: an
+activation on a narrower row can round differently on the CPU, where
+ATen runs the lanes past the last full vector pair through a scalar tanh
+(one ulp apart at a 48-lane row).  Two collectives a layer.  Every rank's
+result equals the meshless one bit for bit where the linears are
+quantized (the row-parallel sum is exact in int32).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense, init_dense, init_rmsnorm, rmsnorm
+from repro_torch.models.layers import (column_input, dense, dense_row,
+                                       init_dense, init_rmsnorm, rmsnorm,
+                                       tp_line)
+from repro_torch.parallel import comm
 
 
 def _ein(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -37,7 +61,7 @@ def _ein(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def init_mlstm(gen, cfg, device):
     d = cfg.d_model
-    dp = int(cfg.mlstm_proj_factor * d)
+    dp = cfg.mlstm_width
     H = cfg.num_heads
     dt = cfg.compute_dtype
     return {
@@ -53,18 +77,47 @@ def init_mlstm(gen, cfg, device):
     }
 
 
-def _mlstm_gates(p, xm, H):
+def _mlstm_gates(p, xm, heads):
+    """(logi, logf) of the `heads` (a slice) from the whole xm: w_if is
+    whole, its columns [i gates of every head | f gates of every head]."""
+    H = p["w_if"].shape[-1] // 2
     gf = xm.to(torch.float32) @ p["w_if"] + p["b_if"]
-    return gf[..., :H], F.logsigmoid(gf[..., H:])          # (..., H) each
+    return gf[..., :H][..., heads], \
+        F.logsigmoid(gf[..., H:])[..., heads]               # (..., H) each
 
 
 def _qkv(p, xm, cfg, H):
-    B, T, dp = xm.shape
-    dh = dp // H
+    B, T, _ = xm.shape
+    dh = cfg.mlstm_width // H
     q = dense(xm, p["wq"], cfg.quant).reshape(B, T, H, dh)
     k = dense(xm, p["wk"], cfg.quant).reshape(B, T, H, dh) / (dh ** 0.5)
     v = dense(xm, p["wv"], cfg.quant).reshape(B, T, H, dh)
     return q, k, v
+
+
+def _mlstm_in(p, x, cfg, line):
+    """(xm the whole row, z this rank's block, this rank's heads) after the
+    up projection; xm gathered under tensor parallelism."""
+    up = dense(column_input(x), p["w_up"], cfg.quant)
+    xm, z = torch.chunk(up, 2, dim=-1)
+    H = cfg.num_heads
+    if line is None:
+        return xm, z, slice(0, H)
+    group, _, i = line
+    return comm.all_gather(xm, group, dim=-1), z, slice(i * H, (i + 1) * H)
+
+
+def _mlstm_out(p, h, z, cfg, line):
+    """norm over the whole projection width (h gathered under tensor
+    parallelism, this rank's block kept) → ·silu(z) → w_down."""
+    if line is None:
+        normed = rmsnorm(p["norm"], h, cfg.norm_eps)
+    else:
+        group, _, i = line
+        w = h.shape[-1]
+        normed = rmsnorm(p["norm"], comm.all_gather(h, group, dim=-1),
+                         cfg.norm_eps)[..., i * w:(i + 1) * w]
+    return dense_row(normed * F.silu(z), p["w_down"], cfg.quant)
 
 
 def _mlstm_chunk(carry, q, k, v, logi, logf):
@@ -124,11 +177,10 @@ def mlstm_sequence(p, x, cfg, state=None):
     """x: (B,S,d) → (out, state).  state: (C, n, m) per head."""
     B, S, d = x.shape
     H = cfg.num_heads
-    dp = int(cfg.mlstm_proj_factor * d)
-    up = dense(x, p["w_up"], cfg.quant)
-    xm, z = torch.chunk(up, 2, dim=-1)
+    line = tp_line()
+    xm, z, heads = _mlstm_in(p, x, cfg, line)
     q, k, v = _qkv(p, xm, cfg, H)
-    logi, logf = _mlstm_gates(p, xm, H)
+    logi, logf = _mlstm_gates(p, xm, heads)
     if state is None:
         state = init_mlstm_state(cfg, B, x.device)
     T = _chunk_len(cfg, S)
@@ -137,9 +189,8 @@ def mlstm_sequence(p, x, cfg, state=None):
         state, h = _mlstm_chunk(state, *(a[:, s:s + T]
                                          for a in (q, k, v, logi, logf)))
         hs.append(h)
-    h = torch.cat(hs, dim=1).reshape(B, S, dp).to(x.dtype)
-    out = rmsnorm(p["norm"], h, cfg.norm_eps) * F.silu(z)
-    return dense(out, p["w_down"], cfg.quant), state
+    h = torch.cat(hs, dim=1).reshape(B, S, cfg.mlstm_width).to(x.dtype)
+    return _mlstm_out(p, h, z, cfg, line), state
 
 
 def mlstm_step(p, x, cfg, state):
@@ -147,12 +198,11 @@ def mlstm_step(p, x, cfg, state):
     C, n, m = state
     B = x.shape[0]
     H = cfg.num_heads
-    dp = int(cfg.mlstm_proj_factor * cfg.d_model)
-    up = dense(x[:, 0], p["w_up"], cfg.quant)
-    xm, z = torch.chunk(up, 2, dim=-1)
+    line = tp_line()
+    xm, z, heads = _mlstm_in(p, x[:, 0], cfg, line)
     q, k, v = _qkv(p, xm[:, None], cfg, H)
     q, k, v = q[:, 0], k[:, 0], v[:, 0]                   # (B,H,dh)
-    logi, logf = _mlstm_gates(p, xm[:, None], H)
+    logi, logf = _mlstm_gates(p, xm[:, None], heads)
     logi, logf = logi[:, 0], logf[:, 0]                   # (B,H)
 
     m_new = torch.maximum(logf + m, logi)
@@ -164,14 +214,13 @@ def mlstm_step(p, x, cfg, state):
     num = _ein("bhd,bhde->bhe", q, C)
     den = torch.maximum(torch.abs(_ein("bhd,bhd->bh", q, n)),
                         torch.exp(-m_new))
-    h = (num / den[..., None]).reshape(B, dp).to(x.dtype)
-    out = rmsnorm(p["norm"], h, cfg.norm_eps) * F.silu(z)
-    return dense(out, p["w_down"], cfg.quant)[:, None], (C, n, m_new)
+    h = (num / den[..., None]).reshape(B, cfg.mlstm_width).to(x.dtype)
+    return _mlstm_out(p, h, z, cfg, line)[:, None], (C, n, m_new)
 
 
 def init_mlstm_state(cfg, batch, device=None):
     H = cfg.num_heads
-    dh = int(cfg.mlstm_proj_factor * cfg.d_model) // H
+    dh = cfg.mlstm_width // H
     return (torch.zeros((batch, H, dh, dh), device=device),
             torch.zeros((batch, H, dh), device=device),
             torch.full((batch, H), -1e30, device=device))
@@ -194,7 +243,7 @@ def mlstm_recurrent_ref(p, x, cfg):
 
 def init_slstm(gen, cfg, device):
     d = cfg.d_model
-    dp = int(cfg.slstm_proj_factor * d)
+    dp = cfg.slstm_width
     dt = cfg.compute_dtype
     return {
         "w_gates": init_dense(gen, d, 4 * d, dt, device),    # z, i, f, o
@@ -228,9 +277,15 @@ def _slstm_cell(p, wx_t, hcnm):
 def _slstm_out(p, h, cfg):
     """norm → up projection → gelu(a) · b → down projection.  jax.nn.gelu
     defaults to the tanh approximation."""
-    h = rmsnorm(p["norm"], h, cfg.norm_eps)
+    h = column_input(rmsnorm(p["norm"], h, cfg.norm_eps))
     a, b = torch.chunk(dense(h, p["w_up"], cfg.quant), 2, dim=-1)
-    return dense(F.gelu(a, approximate="tanh") * b, p["w_down"], cfg.quant)
+    ab = F.gelu(a, approximate="tanh") * b
+    line = tp_line()
+    if line is not None:                 # this rank's block of w_down's K
+        _, n, i = line
+        w = ab.shape[-1] // n
+        ab = ab[..., i * w:(i + 1) * w]
+    return dense_row(ab, p["w_down"], cfg.quant)
 
 
 def slstm_sequence(p, x, cfg, state=None):

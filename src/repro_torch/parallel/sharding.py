@@ -14,11 +14,20 @@ Parameter placement is name-based: `spec_for(path, ndim)` assigns (fsdp,
 tp) on the (in, out) dims of column-parallel weights, (tp, fsdp) on
 row-parallel ones, experts on (tp→EP, fsdp, ·), everything else
 replicated; stacked layer params get a leading None for the period axis.
-The rules cover the layers the mesh Engine serves (attention, the dense
-FF, MoE); the reference's MLA, mamba and xLSTM rules come with those
-layers' mesh paths.  `serve_rules` and `train_rules` map `fsdp` to
-nothing (weights split over `model` only); `leaf_splits` notes each
-leaf's `Split` for the training state's optimizer and checkpoints.
+The rules are the reference's: attention, the dense FF, MoE, MLA, mamba
+and xLSTM.  `serve_rules` and `train_rules` map `fsdp` to nothing
+(weights split over `model` only); `leaf_splits` notes each leaf's
+`Split` for the training state's optimizer and checkpoints.
+
+Three weights concatenate parts along their output columns: mamba's
+`w_in` ([x | z]), the mLSTM's and sLSTM's `w_up` ([xm | z], [a | b]) and
+the sLSTM's `w_gates` ([z, i, f, o]).  `shard_params` splits each part on
+its own (`_GROUPED`), so that rank r holds block r of every part and the
+model code chunks its local output as it chunks the whole one.  The mesh
+Engine keeps some leaves whole that the reference's rules split
+(`serve_whole`): the embedding, mamba's `w_bc` / `w_dt_down` /
+`w_dt_up`, the sLSTM's recurrent cell (`w_gates`, `r_gates`) and its
+`w_up`; the mixers' docstrings say why.
 
 What differs from the reference: a mesh here is a grid of
 `torch.distributed` ranks (processes), not of devices in one program.
@@ -41,6 +50,7 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.parallel.comm import DryGroup
 from repro_torch.tree import tree_map_with_path
 
@@ -309,7 +319,54 @@ _PARAM_RULES: list[tuple[str, tuple]] = [
     # MoE experts (E, d, f) / (E, f, d): EP on experts + FSDP on d
     (r"moe.*\b(w_gate|w_up)$",   ("expert", "fsdp", None)),
     (r"moe.*\bw_down$",          ("expert", None, "fsdp")),
+    # MLA
+    (r"\bw_dq$",                 ("fsdp", None)),
+    (r"\bw_uq$",                 (None, "tp")),
+    (r"\bw_dkv$",                ("fsdp", None)),
+    (r"\bw_kr$",                 (None, None)),
+    (r"\b(w_uk|w_uv)$",          (None, "tp")),
+    # mamba
+    (r"\bw_in$",                 ("fsdp", "tp")),
+    (r"\bconv_w$",               (None, "tp")),
+    (r"\b(conv_b|d_skip|dt_bias)$", ("tp",)),
+    (r"\ba_log$",                ("tp", None)),
+    (r"\bw_bc$",                 ("tp", None)),
+    (r"\bw_dt_down$",            ("tp", None)),
+    (r"\bw_dt_up$",              (None, "tp")),
+    # xlstm
+    (r"\bw_if$",                 (None, None)),
+    (r"\b(w_gates|r_gates)$",    ("fsdp", "tp")),
 ]
+
+# leaves whose output columns concatenate `parts` equal parts: each part
+# splits on its own along the column dim
+_GROUPED: list[tuple[str, int]] = [
+    (r"mixer/w_in$", 2),          # mamba [x | z]
+    (r"mixer/w_up$", 2),          # mLSTM [xm | z], sLSTM [a | b]
+    (r"mixer/w_gates$", 4),       # sLSTM [z, i, f, o]
+]
+
+# what the mesh Engine (and the dry run's serve cells) keep whole on every
+# rank, although the reference's rules split them: the embedding (a row
+# gather on a vocab-split table would cost a collective per forward);
+# mamba's B/C and dt projections (the reference splits w_bc and w_dt_down
+# by rows, which puts a float partial sum on the path: `models/mamba.py`
+# computes them on the gathered row); the sLSTM's recurrent cell, whose
+# every step needs the whole h (`models/xlstm.py`)
+SERVE_WHOLE = (r"embedding$", r"\b(w_bc|w_dt_down|w_dt_up)$",
+               r"\b(w_gates|r_gates)$")
+
+
+def serve_whole(cfg) -> tuple[str, ...]:
+    """`SERVE_WHOLE` and the sLSTM's `w_up` of `cfg`'s pattern: the rank
+    computes the sLSTM FF's gelu(a)·b over the whole width, as the
+    meshless block lays it out, and keeps its block of the product for the
+    row-parallel `w_down` (`models/xlstm.py`).  The path names the
+    pattern position, since the mLSTM's `w_up` has the same leaf name and
+    splits."""
+    return SERVE_WHOLE + tuple(
+        rf"\bpos{i}/mixer/w_up$" for i, spec in enumerate(cfg.layer_pattern)
+        if spec.startswith("slstm+"))
 
 
 def spec_for(path_str: str, ndim: int) -> tuple:
@@ -370,15 +427,35 @@ class Split:
         return j + a * (self.n - 1) * self.run + self.i * self.run
 
 
+def grouped_block(t: torch.Tensor, dim: int, n: int, i: int,
+                  parts: int = 1) -> torch.Tensor:
+    """Block i of each of `parts` equal parts of `t` along `dim`, split n
+    ways, concatenated in part order (a view when parts == 1)."""
+    if parts == 1:
+        return block(t, dim, n, i)
+    return torch.cat([block(p, dim, n, i) for p in t.chunk(parts, dim)],
+                     dim)
+
+
+def _stem(path: str) -> str:
+    """The weight's path: a QuantizedTensor's values and scale take their
+    parent's."""
+    return re.sub(r"/(values|scale)$", "", path)
+
+
 def _leaf_split(path: str, shape, ctx: ShardingCtx, whole) -> list:
-    """[(dim, n, i)] of the mesh blocks the leaf at `path` takes along each
-    dim its spec maps to mesh axes (a dim whose size the axes' product
-    does not divide stays whole, as `to_sharding` leaves it)."""
-    if any(re.search(p, re.sub(r"/(values|scale)$", "", path))
-           for p in whole):
+    """[(dim, n, i, parts)] of the mesh blocks the leaf at `path` takes
+    along each dim its spec maps to mesh axes; `parts` > 1 for the column
+    dim of a `_GROUPED` leaf.  A dim whose size the axes' product does not
+    divide stays whole, as `to_sharding` leaves it, except the stored rows
+    of a quantized row-parallel weight, which raise: that layer could not
+    run on its slice of the input."""
+    stem = _stem(path)
+    if any(re.search(p, stem) for p in whole):
         return []
     mesh, out = ctx.mesh, []
-    for dim, name in enumerate(spec_for(path, len(shape))):
+    ndim = len(shape)
+    for dim, name in enumerate(spec_for(path, ndim)):
         ax = ctx.rules.get(name) if name is not None else None
         if ax is None:
             continue
@@ -386,8 +463,22 @@ def _leaf_split(path: str, shape, ctx: ShardingCtx, whole) -> list:
         n, i = 1, 0
         for a in names:
             n, i = n * mesh.shape[a], i * mesh.shape[a] + mesh.index(a)
-        if n > 1 and shape[dim] % n == 0:
-            out.append((dim, n, i))
+        if n == 1:
+            continue
+        if shape[dim] % n == 0:
+            parts = next((g for p, g in _GROUPED if re.search(p, stem)), 1) \
+                if dim == ndim - 1 else 1
+            if shape[dim] % (n * parts):
+                raise ValueError(
+                    f"{stem}: {parts} column parts of {shape[dim] // parts} "
+                    f"do not split {n} ways over {ax!r}")
+            out.append((dim, n, i, parts))
+        elif name == "tp" and dim == ndim - 2 and path.endswith("/values"):
+            raise ValueError(
+                f"{stem}: its {shape[dim]} stored rows do not split {n} ways "
+                f"over {ax!r} (a row-parallel weight splits on its stored "
+                f"rows; with sub-byte values packed along K, K/{n} must be "
+                f"a multiple of the values per byte)")
     return out
 
 
@@ -395,19 +486,20 @@ def shard_params(params: Any, ctx: ShardingCtx | None = None, *,
                  whole: tuple[str, ...] = ()) -> Any:
     """This rank's blocks of `params` under `ctx` (default: the active
     one): every leaf sliced along the dims its spec maps to mesh axes, a
-    QuantizedTensor's values and scale alike, then copied so the full tree
-    can be freed.  Leaves whose path matches a regex of `whole` stay
-    replicated.  4-bit weights pair-packed along K split on the stored
-    rows, so a row-parallel split needs an even K/n (else they stay
-    whole, and the layer using them raises)."""
+    QuantizedTensor's values and scale alike, each part of a `_GROUPED`
+    leaf on its own, then copied so the full tree can be freed.  Leaves
+    whose path matches a regex of `whole` stay replicated.  Sub-byte
+    weights packed along K split on the stored rows, so a row-parallel
+    split needs K/n to be a multiple of the values per byte, else it
+    raises ValueError naming the leaf."""
     ctx = ctx or _ACTIVE
     if ctx is None:
         raise ValueError("shard_params needs a sharding ctx")
 
     def place(path, leaf):
         out = leaf
-        for dim, n, i in _leaf_split(path, leaf.shape, ctx, whole):
-            out = block(out, dim, n, i)
+        for dim, n, i, parts in _leaf_split(path, leaf.shape, ctx, whole):
+            out = grouped_block(out, dim, n, i, parts)
         return out if out is leaf else out.contiguous().clone()
     return tree_map_with_path(place, params)
 
@@ -415,38 +507,72 @@ def shard_params(params: Any, ctx: ShardingCtx | None = None, *,
 def leaf_splits(params: Any, ctx: ShardingCtx, *,
                 whole: tuple[str, ...] = ()) -> dict:
     """{path: Split or None} of every leaf of the whole tree `params` as
-    `shard_params` places it; a leaf split along more than one dim raises
-    (the training layouts split each along one)."""
+    `shard_params` places it; a leaf split along more than one dim, or in
+    column parts, raises (the training layouts split each leaf into one
+    contiguous block)."""
     out = {}
 
     def note(path, leaf):
         cuts = _leaf_split(path, leaf.shape, ctx, whole)
-        if len(cuts) > 1:
-            raise ValueError(f"{path}: split along dims {cuts}; a training "
-                             f"leaf splits along one")
-        out[path] = Split(tuple(leaf.shape), *cuts[0]) if cuts else None
+        if len(cuts) > 1 or any(c[3] > 1 for c in cuts):
+            raise ValueError(f"{path}: split {cuts}; a training leaf splits "
+                             f"into one contiguous block")
+        out[path] = Split(tuple(leaf.shape), *cuts[0][:3]) if cuts else None
         return leaf
     tree_map_with_path(note, params)
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class RankConfig(ModelConfig):
+    """The model config one rank of a `tp_ways`-way model axis runs: the
+    head and FF counts of `local_config`, and the recurrent mixers' widths
+    (mamba's d_inner, the mLSTM's and sLSTM's projection widths) divided
+    by `tp_ways`, so the mixers and their state builders size this rank's
+    block."""
+    tp_ways: int = 1
+
+    @property
+    def mamba_d_inner(self) -> int:
+        return super().mamba_d_inner // self.tp_ways
+
+    @property
+    def mlstm_width(self) -> int:
+        return super().mlstm_width // self.tp_ways
+
+    @property
+    def slstm_width(self) -> int:
+        return super().slstm_width // self.tp_ways
+
+
 def local_config(cfg, mesh: Mesh, axis: str = "model"):
     """The model config one rank of a `axis`-split mesh runs: H/n query
     heads and Hkv/n KV heads (contiguous, so rank r's `wo` rows are its
-    own heads) and d_ff/n of the dense FF; experts stay whole (they split
-    over the EP route instead).  Raises ValueError when n does not divide
-    them."""
+    own heads), d_ff/n of the dense FF, and a `RankConfig` with 1/n of the
+    width of each recurrent mixer the pattern has; experts stay whole
+    (they split over the EP route instead).  Raises ValueError naming the
+    count or width that n does not divide."""
     n = mesh.shape.get(axis, 1)
     if n == 1:
         return cfg
+    mixers = {s.split("+")[0] for s in cfg.layer_pattern}
     dense_ff = any(s.endswith("+dense") for s in cfg.layer_pattern)
-    for name, v in (("num_heads", cfg.num_heads),
-                    ("num_kv_heads", cfg.num_kv_heads)) + \
-            ((("d_ff", cfg.d_ff),) if dense_ff else ()):
+    checks = [("num_heads", cfg.num_heads),
+              ("num_kv_heads", cfg.num_kv_heads)]
+    if dense_ff:
+        checks.append(("d_ff", cfg.d_ff))
+    for mixer, width in (("mamba", "mamba_d_inner"),
+                         ("mlstm", "mlstm_width"),
+                         ("slstm", "slstm_width")):
+        if mixer in mixers:
+            checks.append((width, getattr(cfg, width)))
+    for name, v in checks:
         if v % n:
             raise ValueError(f"{cfg.name}: {name}={v} is not divisible by "
                              f"the {n}-way '{axis}' axis")
-    return cfg.replace(num_heads=cfg.num_heads // n,
-                       num_kv_heads=cfg.num_kv_heads // n,
-                       d_ff=cfg.d_ff // n if dense_ff else cfg.d_ff,
-                       moe_d_ff=cfg.expert_d_ff, head_dim=cfg.hd)
+    local = cfg.replace(num_heads=cfg.num_heads // n,
+                        num_kv_heads=cfg.num_kv_heads // n,
+                        d_ff=cfg.d_ff // n if dense_ff else cfg.d_ff,
+                        moe_d_ff=cfg.expert_d_ff, head_dim=cfg.hd)
+    return RankConfig(**{f.name: getattr(local, f.name)
+                         for f in dataclasses.fields(local)}, tp_ways=n)

@@ -84,12 +84,18 @@ or a `build_mesh` spec over the ranks of the default process group): every
 rank builds the Engine with the same weights and submissions.
 Construction activates the `serve_rules` sharding ctx (released by
 `close()`, also when construction fails) and keeps this rank's block of
-every weight (`sharding.shard_params`; the embedding stays whole).  Each
-rank runs H/n query heads and Hkv/n KV heads (its page pool holds its KV
-heads) and d_ff/n of the dense FF (`sharding.local_config`; `self.cfg` is
-that per-rank view): the column-parallel linears need no collective, the
+every weight (`sharding.shard_params`; `sharding.serve_whole` stays
+whole: the embedding, mamba's B/C/dt projections, the sLSTM's cell and
+its `w_up`).  Each rank runs H/n query heads and Hkv/n KV heads (its
+page pool holds its KV heads), d_ff/n of the dense FF and 1/n of each
+recurrent mixer's width (`sharding.local_config`; `self.cfg` is that
+per-rank view): the column-parallel linears need no collective, the
 row-parallel `wo` / `w_down` take one max and one sum over the `model`
-axis, the unembed one gather, and MoE experts go through the EP route.
+axis, the unembed one gather, MoE experts go through the EP route, and the MLA, mamba and xLSTM
+mixers take the collectives their modules describe (MLA: its `wo`; mamba:
+two gathers; mLSTM: two gathers and its `w_down`; sLSTM: its `w_down`).
+Every rank keeps MLA's whole latent cache in its own pool, its heads'
+mLSTM state, its channels' mamba state and the whole sLSTM state.
 Greedy tokens come from the gathered logits, so the deterministic
 scheduler makes the same decisions on every rank.  A `data` axis
 replicates the slots across its ranks (the reference splits the batch over
@@ -97,9 +103,11 @@ it; the tokens are the same).  The decode kernels run under a mesh as
 without one, each rank's over its own KV heads and pool: the reference
 turns its kernel off there because the kernel carries no partition
 annotations, and a rank here is a process with an ordinary local pool.
-As in the reference disaggregation with a mesh is a ValueError; layer
-kinds other than `attn` with a `dense`, `moe` or no FF, and the model
-drafter of speculation, raise NotImplementedError under a mesh.
+The model drafter is requantized from the whole serving tree before
+sharding, so a row-parallel draft weight keeps the whole leaf's column
+scales, then sharded like the serving tree; it runs under the same ctx,
+its private KV cache holding the rank's heads.  As in the reference
+disaggregation with a mesh is a ValueError.
 
 The engine runs on the card unless the caller asks for the CPU
 (`device="cpu"`); with no GPU and no explicit CPU request it raises.
@@ -139,19 +147,6 @@ def resolve_device(device=None) -> torch.device:
             "repro_torch serves on a CUDA device and none is available; "
             "pass device='cpu' to run the plain PyTorch versions on the CPU")
     return dev
-
-
-def check_mesh_layers(cfg) -> None:
-    """Raise NotImplementedError unless every layer of `cfg` is one the
-    mesh path serves: attn with a dense, moe or no FF (the rest is ROADMAP
-    queue 1 item 12)."""
-    for layer in cfg.layer_pattern:
-        mixer, ff = layer.split("+")
-        if mixer != "attn" or ff not in ("dense", "moe", "none"):
-            raise NotImplementedError(
-                f"{cfg.name}: a {layer!r} layer under a mesh is not "
-                f"ported to repro_torch yet (ROADMAP queue 1 item 12; the "
-                f"mesh path takes attn layers with a dense, moe or no FF)")
 
 
 class Engine:
@@ -221,8 +216,9 @@ class Engine:
             cfg = cfg.replace(moe_capacity_factor=float(par.capacity_factor))
         M.cache_pool_flags(cfg)         # rejects malformed layer specs
         mesh = par.mesh
+        whole_cfg, whole_params = cfg, params
         if mesh is not None:
-            cfg, params = self._shard(cfg, params, options, mesh)
+            cfg, params = self._shard(cfg, params, mesh)
         self.cfg = cfg
         self.params = tree_map(lambda a: a.to(device), params)
         self.num_slots, self.max_seq = sch.num_slots, sch.max_seq
@@ -274,10 +270,24 @@ class Engine:
             self.drafter = None
         elif self.drafter_kind == "model":
             # the 2-bit BRAMAC draft model: the engine's own weights
-            # requantized, with a private per-slot draft KV cache (A6)
-            self.drafter = spc.QuantDrafter.build(
-                cfg, self.params, self.max_seq, bits=spec.draft_bits,
-                draft_layers=spec.draft_layers)
+            # requantized, with a private per-slot draft KV cache (A6);
+            # under a mesh from the whole tree, then sharded
+            if mesh is None:
+                self.drafter = spc.QuantDrafter.build(
+                    cfg, self.params, self.max_seq, bits=spec.draft_bits,
+                    draft_layers=spec.draft_layers)
+            else:
+                whole = spc.QuantDrafter.build(
+                    whole_cfg, whole_params, self.max_seq,
+                    bits=spec.draft_bits, draft_layers=spec.draft_layers)
+                self.drafter = spc.QuantDrafter(
+                    cfg=shd.local_config(whole.cfg, self.mesh,
+                                         self._tp_axis),
+                    params=tree_map(lambda a: a.to(device), shd.shard_params(
+                        whole.params, self._ctx,
+                        whole=shd.serve_whole(whole.cfg))),
+                    max_seq=self.max_seq)
+                del whole
         else:
             self.drafter = spc.NGramDrafter(spec.ngram, spec.table)
         # dense speculative rollback zeroes the KV leaves, paged the pool's
@@ -356,16 +366,9 @@ class Engine:
         self.kv_read_steps = 0
         self._kv_row_bytes = pk.kv_row_bytes(cfg)
 
-    def _shard(self, cfg, params, options: EngineOptions, mesh):
-        """Under a mesh: refuse what the mesh path does not serve, activate
-        the serve rules, and return this rank's config and weights."""
-        check_mesh_layers(cfg)
-        spec = options.speculation
-        if spec.draft_len and spec.drafter == "model":
-            raise NotImplementedError(
-                "speculation's model drafter under a mesh is not ported to "
-                "repro_torch yet (its requantized weights would take "
-                "row-parallel scales from one rank's rows)")
+    def _shard(self, cfg, params, mesh):
+        """Under a mesh: activate the serve rules and return this rank's
+        config and weights."""
         if not isinstance(mesh, shd.Mesh):
             mesh = shd.build_mesh(mesh)
         if mesh.coords is None:
@@ -373,12 +376,9 @@ class Engine:
         self.mesh = mesh
         self._ctx = shd.activate(mesh,
                                  shd.serve_rules("pod" in mesh.axis_names))
-        local = shd.local_config(cfg, mesh,
-                                 self._ctx.phys_axis("tp") or "model")
-        # the embedding stays whole: a row gather on a vocab-split table
-        # would cost a collective per forward
-        return local, shd.shard_params(params, self._ctx,
-                                       whole=(r"embedding$",))
+        self._tp_axis = self._ctx.phys_axis("tp") or "model"
+        return shd.local_config(cfg, mesh, self._tp_axis), \
+            shd.shard_params(params, self._ctx, whole=shd.serve_whole(cfg))
 
     # ------------------------------------------------------------------
     @property

@@ -49,7 +49,6 @@ from repro_torch.models import model as M
 from repro_torch.optim import adamw
 from repro_torch.parallel import comm, sharding
 from repro_torch.runtime import dp_trainer
-from repro_torch.runtime.serve import check_mesh_layers
 from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
 
 # leaves that stay whole on a model axis: a row gather on a vocab-split
@@ -70,9 +69,11 @@ class TrainerConfig:
 
 def check_mesh(cfg, mesh) -> None:
     """Raise NotImplementedError for what training on `mesh` does not take
-    yet: an axis other than `data` and `model`; under a `model` axis, an
-    attn+moe layer (ROADMAP queue 1 item 17) or any layer the mesh Engine
-    refuses (`serve.check_mesh_layers`, item 12)."""
+    yet: an axis other than `data` and `model`; under a `model` axis, a
+    layer whose mixer is not `attn` (ROADMAP queue 1 item 18: the grouped
+    column splits of mamba's and the xLSTM's weights, and the mixers' own
+    collectives, have no training layout) or an attn+moe layer (item
+    17)."""
     if mesh is None:
         return
     other = {a: n for a, n in mesh.shape.items()
@@ -83,7 +84,13 @@ def check_mesh(cfg, mesh) -> None:
             f"(its meshes are data x model)")
     if mesh.shape.get("model", 1) == 1:
         return
-    check_mesh_layers(cfg)
+    mixers = [s for s in cfg.layer_pattern if not s.startswith("attn+")]
+    if mixers:
+        raise NotImplementedError(
+            f"{cfg.name}: training a {mixers[0]!r} layer under a model axis "
+            f"is not ported to repro_torch yet (ROADMAP queue 1 item 18: "
+            f"tensor-parallel training of mla, mamba, mlstm and slstm "
+            f"layers; the tensor-parallel Trainer takes attn layers)")
     moe = [s for s in cfg.layer_pattern if s.endswith("+moe")]
     if moe:
         raise NotImplementedError(

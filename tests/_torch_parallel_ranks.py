@@ -324,3 +324,111 @@ def tp_trainer_body(mesh, cfg, params, batches, dirs):
     out["restored"] = t2.restore_latest()
     out["restored_state"] = _whole_np(t2.layout, t2.state_tree())
     return out
+
+
+# ---------------------------------------------------------------------------
+# the mesh Engine's MLA, mamba and xLSTM mixers and the model drafter
+# ---------------------------------------------------------------------------
+
+def _block_run(kind, p, x, cfg, S):
+    """One block of `kind` on `x` (B, S + 1, d): the sequence on the first
+    S positions, then one step on the last from the sequence's state (MLA:
+    a prefill into a dense cache, then a decode step).  Returns (sequence
+    out, step out, state leaves)."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import mamba as mb
+    from repro_torch.models import xlstm as xl
+
+    B = x.shape[0]
+    if kind == "mla":
+        pos = torch.arange(S, dtype=torch.int32)[None].expand(B, S)
+        seq, _ = attn.mla(p, x[:, :S], cfg, pos)
+        cache = attn.init_mla_cache(cfg, B, S + 1, x.dtype)
+        attn.mla(p, x[:, :S], cfg, pos, cache,
+                 torch.zeros((B,), dtype=torch.int32))
+        step, cache = attn.mla(p, x[:, S:], cfg,
+                               torch.full((B, 1), S, dtype=torch.int32),
+                               cache, torch.full((B,), S, dtype=torch.int32))
+        return seq, step, [cache["c_kv"], cache["k_rope"]]
+    fns = {"mamba": (mb.mamba_sequence, mb.mamba_step),
+           "mlstm": (xl.mlstm_sequence, xl.mlstm_step),
+           "slstm": (xl.slstm_sequence, xl.slstm_step)}[kind]
+    seq, state = fns[0](p, x[:, :S], cfg)
+    step, state = fns[1](p, x[:, S:], cfg, state)
+    return seq, step, list(state)
+
+
+def _reassemble(t, like, group):
+    """A state leaf gathered over `group` along the one dim where this
+    rank's block is smaller than the meshless leaf `like` (as is when the
+    rank holds it whole)."""
+    from repro_torch.parallel import comm
+
+    dims = [d for d, (a, b) in enumerate(zip(t.shape, like.shape)) if a != b]
+    return comm.all_gather(t, group, dim=dims[0]) if dims else t
+
+
+def _block_pair(kind, cfg, seed, mesh, S=16):
+    """The meshless block and its model-axis shards on the same 8-bit
+    weights and input: {"seq", "step", "state"} -> (meshless, mesh)."""
+    from repro_torch.core.bramac_linear import tree_prepare_serving
+    from repro_torch.models import transformer as tf
+
+    gen = torch.Generator().manual_seed(seed)
+    pos, spec = next((i, s) for i, s in enumerate(cfg.layer_pattern)
+                     if s.startswith(kind + "+"))
+    p = tree_prepare_serving(tf.init_block(gen, cfg, spec, "cpu")["mixer"],
+                             cfg.quant)
+    x = torch.randn((2, S + 1, cfg.d_model), generator=gen)
+    want = _block_run(kind, p, x, cfg, S)
+    ctx = shd.ShardingCtx(mesh, shd.serve_rules(False))
+    local = shd.local_config(cfg, mesh)
+    path = {f"pos{pos}": {"mixer": p}}
+    mine = shd.shard_params(path, ctx, whole=shd.serve_whole(cfg))[
+        f"pos{pos}"]["mixer"]
+    with shd.use(ctx):
+        got = _block_run(kind, mine, x, local, S)
+    group = mesh.group("model")
+    return {"seq": (_np(want[0]), _np(got[0])),
+            "step": (_np(want[1]), _np(got[1])),
+            "state": [(_np(a), _np(_reassemble(b, a, group)))
+                      for a, b in zip(want[2], got[2])]}
+
+
+def mixers_rank(rank, world, device, runs, blocks):
+    """On 4 ranks: each run (cfg, params, waves, Engine kwargs, mesh spec)
+    through the mesh Engine, on "data=1,model=2" (ranks 0 and 1; ranks 2
+    and 3 sit outside it) or "data=2,model=2" (all four); each block case
+    (kind, cfg, seed) on model=2; whether each Engine left a ctx behind,
+    and its rank's widths."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")      # "uses 2 of 4 devices"
+        meshes = {"model=2": shd.build_mesh("data=1,model=2"),
+                  "data=2,model=2": shd.build_mesh("data=2,model=2")}
+    out = {"runs": {}, "blocks": {}, "ctx_after": {}, "widths": {}}
+    for name, (cfg, params, waves, kw, spec) in runs.items():
+        mesh = meshes[spec]
+        if mesh.coords is None:
+            continue
+        out["runs"][name] = serve_streams(cfg, params, waves, device,
+                                          mesh=mesh, **kw)
+        out["ctx_after"][name] = shd.active() is not None
+    mesh = meshes["model=2"]
+    if mesh.coords is None:
+        return out
+    for name, (kind, cfg, seed) in blocks.items():
+        out["blocks"][name] = _block_pair(kind, cfg, seed, mesh)
+    from repro_torch.runtime.serve import Engine
+    for name, (cfg, params, _, kw, _) in runs.items():
+        with Engine(cfg, params, num_slots=1, max_seq=16, mesh=mesh,
+                    device=device, **kw) as eng:
+            c = eng.cfg
+            draft = eng.drafter.cfg if eng.drafter_kind == "model" else None
+            out["widths"][name] = dict(
+                heads=c.num_heads, mamba=c.mamba_d_inner,
+                mlstm=c.mlstm_width, slstm=c.slstm_width,
+                draft_heads=None if draft is None else draft.num_heads,
+                draft_bits=None if draft is None else draft.quant.bits_w)
+    return out

@@ -21,8 +21,10 @@ port's meshless streams are held to the reference's for the other cases
 in tests/test_torch_serve.py and tests/test_torch_moe.py; qwen3-moe's
 weights are the port's own draw, so no JAX model is built for them).
 Refusals: `close()` releases the sharding ctx (also after a construction
-that raises), non-dividing head counts raise ValueError, and the layer
-kinds the mesh path does not serve raise NotImplementedError."""
+that raises) and non-dividing head counts raise ValueError.  The MLA,
+mamba and xLSTM layer kinds and the model drafter, which the mesh Engine
+refused until it took them, build and close on a one-rank mesh here;
+their streams on model=2 are tests/test_torch_parallel_mixers.py's."""
 import jax
 import numpy as np
 import pytest
@@ -154,20 +156,34 @@ def test_mesh_engine_shards_heads_and_releases_ctx(ranks):
     ("minicpm3-4b", "mla"), ("xlstm-1.3b", "mlstm"),
     ("jamba-1.5-large-398b", "mamba")])
 def test_mesh_refuses_unported_layer_kinds(arch, kind):
-    """Layer kinds the mesh path does not serve raise NotImplementedError
-    naming the kind, and leave no sharding ctx active."""
+    """The layer kinds the mesh Engine refused until it served them (mla,
+    mlstm and slstm, mamba) build under a mesh, hold the ctx while open,
+    serve a request, and leave no sharding ctx after close()."""
     _, tc = smoke_pair(arch)
-    with pytest.raises(NotImplementedError, match=kind):
-        TEngine(tc, {}, num_slots=1, max_seq=16, mesh="model=1",
-                device="cpu")
+    assert any(s.startswith(kind + "+") for s in tc.layer_pattern)
+    params = TM.init_params(tc, torch.Generator().manual_seed(0), "cpu")
+    with TEngine(tc, params, num_slots=1, max_seq=16, mesh="model=1",
+                 device="cpu") as eng:
+        assert shd.active() is not None and eng.mesh.shape["model"] == 1
+        req = eng.submit([1, 2, 3], 2)
+        eng.run()
+        assert req.done and len(req.out_tokens) == 2
     assert shd.active() is None
 
 
 def test_mesh_refuses_model_drafter():
+    """The model drafter, refused under a mesh until it was ported, builds
+    under one: a 2-bit draft of the serving tree that drafts, and no ctx
+    is left after close()."""
     _, tc = smoke_pair()
-    with pytest.raises(NotImplementedError, match="drafter"):
-        TEngine(tc, {}, num_slots=1, max_seq=16, mesh="model=1",
-                draft_len=2, drafter="model", device="cpu")
+    params = TM.init_params(tc, torch.Generator().manual_seed(0), "cpu")
+    with TEngine(tc, params, num_slots=1, max_seq=16, mesh="model=1",
+                 draft_len=2, drafter="model", device="cpu") as eng:
+        assert eng.drafter_kind == "model"
+        assert eng.drafter.cfg.quant.bits_w == 2
+        req = eng.submit([1, 2, 3], 4)
+        eng.run()
+        assert req.done and eng.spec_stats()["drafted"] > 0
     assert shd.active() is None
 
 

@@ -14,6 +14,7 @@ import torch
 from repro.core import bramac_linear as jbl
 from repro.models import model as JM
 from repro_torch.core import bramac_linear as tbl
+from repro_torch.parallel import sharding as shd
 from repro_torch.runtime.options import EngineOptions, SamplingConfig
 from repro_torch.runtime.serve import Engine, resolve_device
 from test_serving_engine import reference_greedy
@@ -116,9 +117,17 @@ def test_unported_options_raise(base, option):
     """Speculation, disaggregation in this process and a mesh are served
     (tests/test_torch_speculate.py, tests/test_torch_disagg.py,
     tests/test_torch_parallel_engine.py); the multi-process roles of
-    disaggregation and the model drafter under a mesh still raise."""
+    disaggregation still raise.  The model drafter under a mesh raised
+    until it was ported: it now builds, and close() leaves no sharding
+    ctx (its streams are tests/test_torch_parallel_mixers.py's)."""
     _, tp, _ = base
     _, tc = smoke_pair()
+    if "mesh" in option:
+        with Engine(tc, tp, device="cpu", prefix_cache=False,
+                    **option) as eng:
+            assert eng.drafter_kind == "model"
+        assert shd.active() is None
+        return
     with pytest.raises(NotImplementedError):
         Engine(tc, tp, device="cpu", prefix_cache=False, **option)
 
