@@ -64,8 +64,8 @@ and (d) qwen3-moe-30b-a3b at full width, 8 of 48 layers, through
 `Engine(mesh="model=2")` with the decode kernels on each rank's KV heads,
 streams equal to the meshless serves of that cut and of phase 11c,
 matmul and decode kernel launches and collectives per forward equal to
-their derivation; (e) `launch/serve.py --shard 2` and `launch/train.py
---data 2` and `--model 2`; (f) granite-8b trained at full width on
+their derivation; (e) `launch/serve.py --shard 2` and `--shard data=2` and
+`launch/train.py --data 2` and `--model 2`; (f) granite-8b trained at full width on
 model=2 (each rank its half of every split weight and of its AdamW
 state), 4 steps: losses finite, step 1's within 1e-3 relative of phase
 13b's, 253 `bramac_matmul` launches and 291 collectives per rank and
@@ -78,7 +78,16 @@ width on phases 10d's and 12c's traffic against their streams (249
 and 181 collectives per forward); jamba-1.5-large-398b at two periods of
 its smoke widths (8-bit, the decode kernel on each rank's KV heads)
 against 12e's; the 2-bit model drafter on phase 9's 6-layer cut
-against 9a's and 9b's streams and drafted / accepted totals. Phase 16
+against 9a's and 9b's streams and drafted / accepted totals; (h) the
+slot split over `data` on 4 ranks: granite-8b's 6-layer cut on data=2
+(bf16 and int8 KV against the cut's streams; phase 8's prefix serve, 9a's
+structured stream with the model drafter on 2 slots, 9b's n-gram serve
+and 8c's top-p serve, each against its phase) and on data=2,model=2,
+qwen3-moe-30b-a3b at 8 layers against 11c's streams and MoE drops,
+minicpm3-4b at 8 layers and xlstm-1.3b's first period against 10d's and
+12c's cut streams; each rank's forwards at 2 of the 4 slots, launches as
+meshless, collectives by axis as derived, the data ranks' pools
+bit-equal. Phase 16
 holds the dry run (`launch.dryrun`, counted on the
 CPU's meta device) to live runs of the same step functions: granite-8b
 training's predicted peak within 10% of phase 13b's measured one, a q8
@@ -1182,13 +1191,15 @@ def xlstm_traffic(vocab):
 
 
 def serve(cfg, params, prompts, new_tokens, *, decode_kernel=True,
-          num_slots=4, max_seq=256, top2=None, routes=None, **kw):
+          num_slots=4, max_seq=256, top2=None, routes=None, digest=False,
+          **kw):
     """Serve `prompts` on a fresh Engine and return the run's readings.
     `top2` (a dict) collects, per (request uid, position), the top two
     tokens and their logit gap of every logits row the decode ticks
     computed from the request's own emitted context (`_log_top2`);
     `routes` (a list) collects every decode tick's router probabilities
-    (`_log_routes`)."""
+    (`_log_routes`); `digest` adds a hash of the page pool's bytes after
+    the run (`pool_digest`)."""
     from repro_torch.runtime.serve import Engine
     kw.setdefault("prefix_cache", False)
     with Engine(cfg, params, num_slots=num_slots, max_seq=max_seq,
@@ -1220,12 +1231,31 @@ def serve(cfg, params, prompts, new_tokens, *, decode_kernel=True,
             eng.pages_in_use == 0 and eng.sched.pool.pages_in_use == 0)
         kernel = eng.decode_kernel
         chunk, prefix_on = eng.prefill_chunk, eng.prefix is not None
+        rank_slots = eng.rank_slots
+        pool = pool_digest(eng) if digest else None
     return dict(streams=streams, done=done, wall=wall, steps=steps,
                 forwards=forwards, ttft=ttft, spec=spec, ticks=ticks,
                 admits=admits, reasons=reasons, disagg=disagg, checks=checks,
                 transfer_checks=i7, drained=drained, decode_kernel=kernel,
                 prefill_chunk=chunk, prefix_on=prefix_on,
-                tokens=sum(len(s) for s in streams))
+                tokens=sum(len(s) for s in streams), rank_slots=rank_slots,
+                digest=pool)
+
+
+def pool_digest(eng) -> str:
+    """blake2b of the bytes of every page-pool leaf of `eng` (read back to
+    the host once; empty under the dense layout)."""
+    import hashlib
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves
+    h = hashlib.blake2b(digest_size=16)
+    if eng.kv_layout == "paged":
+        for leaf, is_pool in zip(tree_leaves(eng.caches),
+                                 tree_leaves(M.cache_pool_flags(eng.cfg))):
+            if is_pool:
+                h.update(leaf.contiguous().view(torch.uint8).cpu().numpy()
+                         .tobytes())
+    return h.hexdigest()
 
 
 def _log_top2(eng, out):
@@ -1611,15 +1641,15 @@ def _check_launches(cfg, eng, got, what):
 
 
 def prefix_serve(cfg, params, prompts, *, prefix_cache=True, abort=False,
-                 device="cuda"):
+                 device="cuda", digest=False, **kw):
     """The producer (prompts[0]) runs to completion, then the other
     prompts arrive in one wave; with `abort`, one running request (after
     the wave's first tick) and the last queued one are aborted.  Returns
-    the run's readings."""
+    the run's readings (`digest`: with the pool's hash)."""
     from repro_torch.runtime.serve import Engine
     with Engine(cfg, params, num_slots=4, max_seq=256, prefix_chunk=8,
                 prefix_cache=prefix_cache, check_invariants=True,
-                decode_kernel=True, device=device) as eng:
+                decode_kernel=True, device=device, **kw) as eng:
         _zero_counts()
         if device == "cuda":
             torch.cuda.synchronize()
@@ -1654,17 +1684,18 @@ def prefix_serve(cfg, params, prompts, *, prefix_cache=True, abort=False,
         return dict(reqs=reqs, streams=[list(r.out_tokens) for r in reqs],
                     wall=wall, steps=steps, forwards=forwards, launches=got,
                     stats=eng.prefix_stats(), checks=eng.n_invariant_checks,
-                    aborted=aborted,
+                    aborted=aborted, rank_slots=eng.rank_slots,
+                    digest=pool_digest(eng) if digest else None,
                     tokens=sum(len(r.out_tokens) for r in reqs),
                     ttft_warm=float(np.mean([r.result.ttft for r in wave
                                              if r.result.ttft is not None])))
 
 
-def sampled_serve(cfg, params, prompts, seeds, order, decode_steps=1):
+def sampled_serve(cfg, params, prompts, seeds, order, decode_steps=1, **kw):
     from repro_torch.runtime.serve import Engine
     with Engine(cfg, params, num_slots=4, max_seq=256, sampling="top_p",
                 top_p=0.9, temperature=0.8, decode_steps=decode_steps,
-                decode_kernel=True, device="cuda") as eng:
+                decode_kernel=True, device="cuda", **kw) as eng:
         _zero_counts()
         reqs = {i: eng.submit(prompts[i], 16, seed=seeds[i]) for i in order}
         eng.run()
@@ -1711,6 +1742,9 @@ def phase_engine(cfg, params, prompts5, report):
                  for s in on["streams"]), "prefix serve streams malformed")
         if not quant_kv:
             bf16_on = on
+            # phase 15h(b)'s meshless reference
+            report["prefix_ref"] = dict(prompts=prompts, streams=on["streams"],
+                                        stats=st)
         # every hit matched all 104 tokens (728 = 7 x 104), which end 8
         # rows into page 7: one copy-on-write split per warm admission
         cow = st["hits"] if SYS_LEN % cfg.page_size else 0
@@ -1758,6 +1792,7 @@ def phase_engine(cfg, params, prompts5, report):
                           decode_steps=4)
     need(fwd == rev == fused, "sampled streams depend on order, slot or "
          "decode_steps")
+    report["sampled_ref"] = fwd             # phase 15h(b)'s
     other = sampled_serve(cfg, params, prompts5, [s + 100 for s in seeds],
                           range(8))
     changed = sum(other[s + 100] != fwd[s] for s in seeds)
@@ -1924,10 +1959,9 @@ def phase_spec(cfg, params, prompts, streams5, report):
         ttft = 1e3 * float(np.mean([r.result.ttft for r in reqs]))
         tokens = sum(len(x) for x in streams)
         forwards = run["ticks"] + run["admits"]
-        if kind == "model":
-            spec_streams["9b"] = dict(streams=streams,
-                                      drafted=st["drafted"],
-                                      accepted=st["accepted"])
+        # the model drafter's: phase 15g(e)'s; the n-gram's: 15h(b)'s
+        spec_streams["9b" if kind == "model" else "9b_ngram"] = dict(
+            streams=streams, drafted=st["drafted"], accepted=st["accepted"])
         rows[kind] = dict(acceptance=st["acceptance_rate"],
                           drafted=st["drafted"], accepted=st["accepted"],
                           tok_s=tokens / wall, ttft_ms=ttft,
@@ -2168,9 +2202,10 @@ def phase_minicpm(report):
                for w in ("colocated", "disaggregated"))
     need(co == dis, f"phase 10d: minicpm3-4b disaggregated streams != "
          f"colocated at {MLA_CUT_LAYERS} layers")
-    # phase 15g(b)'s meshless reference
+    # phase 15g(b)'s meshless reference, and 15h(e)'s
     report["minicpm3_streams"] = dict(streams=runs["colocated"]["streams"],
                                       top2=top2)
+    report["minicpm3_cut_streams"] = co
     prof = profile_serve(cfg, params, prompts[:4], new_tokens=4,
                          label="phase 10d profile minicpm3-4b")
     for r in runs.values():
@@ -2389,9 +2424,12 @@ def phase_moe_serve(cfg, q8, report):
         other = "paged_decode" if quant_kv else "paged_decode_q"
         _zero_counts()
         torch.cuda.reset_peak_memory_stats()
-        run = serve(c, params, prompts, 8)
+        with watch(rows=False, ms=False) as seen:
+            run = serve(c, params, prompts, 8)
         got = _read_counts()
         peak = torch.cuda.max_memory_allocated() / 1e9
+        if not quant_kv:
+            report["qwen3_drops"] = int(seen["drops"])   # phase 15h(d)'s
         need(run["done"] == 4 and all(
             len(s) == 8 and all(0 <= t < cfg.vocab_size for t in s)
             for s in run["streams"]), f"phase 11c ({kv} KV): streams")
@@ -2789,6 +2827,7 @@ def phase_xlstm_serve(report):
     # layers: views), against a paged serve of the same cut
     one, pone = depth_cut(cfg, params, 1)
     base = serve(one, pone, prompts, new)
+    report["xlstm_cut_streams"] = base["streams"]     # phase 15h(e)'s
     same = {"paged": base["tokens"] / base["wall"]}
     for what, extra in {"dense layout": dict(kv_layout="dense"),
                         "prefix cache and speculation requested": dict(
@@ -4145,6 +4184,10 @@ def phase_parallel_launchers():
                 ("serve", ["repro_torch.launch.serve", "--arch",
                            "granite-8b", "--smoke", "--shard", "2"],
                  r"^8/8 requests done, .*mesh=\{'data': 1, 'model': 2\}\)$"),
+                ("serve_data", ["repro_torch.launch.serve", "--arch",
+                                "granite-8b", "--smoke", "--shard",
+                                "data=2"],
+                 r"^8/8 requests done, .*mesh=\{'data': 2, 'model': 1\}\)$"),
                 ("train", ["repro_torch.launch.train", "--arch",
                            "granite-8b", "--smoke", "--steps", "4", "--data",
                            "2", "--ckpt-dir", ckpt],
@@ -4173,8 +4216,11 @@ def phase_parallel_launchers():
         for (name, args, want, _, proc), (stdout, stderr, wall) in zip(
                 procs, results):
             lines = stdout.strip().splitlines()
-            line = lines[0 if name == "serve" else -1] if lines else ""
-            need(proc.returncode == 0 and re.match(want, line),
+            line = lines[0 if name.startswith("serve") else -1] \
+                if lines else ""
+            need(proc.returncode == 0 and re.match(want, line) and (
+                name != "serve_data" or lines[-1].endswith(
+                    "forwards run 2 of the 4 slots")),
                  f"15e launcher {name}: rc {proc.returncode}, "
                  f"{line!r}\n{stderr[-2000:]}")
             out[name] = dict(wall_s=wall, line=line)
@@ -4613,6 +4659,342 @@ def _check_mixers(outs, report):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 15h: the mesh Engine's slot split over `data`
+# ---------------------------------------------------------------------------
+
+DATA_RANKS = 4          # 15h: data=2 on ranks 0 and 1, data=2,model=2 on all
+
+
+@contextlib.contextmanager
+def watch(rows=True, ms=True):
+    """Inside the block: the batch rows of every `model.forward` (`rows`:
+    the serving model's and the drafter's), the M of every `bramac_matmul`
+    call through `ops` and the expert einsum (`ms`), and the MoE
+    assignments each capacity dispatch dropped (summed on the device, read
+    once after the block), counted in the dict it yields."""
+    import collections
+    from repro_torch.core import bramac_linear as bl
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.parallel import ep
+    seen = {"rows": collections.Counter(), "m": collections.Counter(),
+            "drops": 0}
+    saved = (M.forward, moe.dispatch_buffer, ep.dispatch_buffer,
+             ops.bramac_matmul, bl.bramac_matmul)
+    forward, dispatch, _, kernel, _ = saved
+
+    def rows_of(params, batch, *a, **k):
+        seen["rows"][int(next(iter(batch.values())).shape[0])] += 1
+        return forward(params, batch, *a, **k)
+
+    def drops_of(E, C, a, pos_c, keep, xk):
+        seen["drops"] = seen["drops"] + (~keep).sum()
+        return dispatch(E, C, a, pos_c, keep, xk)
+
+    def m_of(x_q, *a, **k):
+        seen["m"][x_q.numel() // x_q.shape[-1]] += 1
+        return kernel(x_q, *a, **k)
+
+    moe.dispatch_buffer = ep.dispatch_buffer = drops_of
+    if rows:
+        M.forward = rows_of
+    if ms:
+        ops.bramac_matmul = bl.bramac_matmul = m_of
+    try:
+        yield seen
+    finally:
+        (M.forward, moe.dispatch_buffer, ep.dispatch_buffer,
+         ops.bramac_matmul, bl.bramac_matmul) = saved
+        seen["drops"] = int(seen["drops"])
+
+
+def _data_serve(cfg, params, prompts, new_tokens, mesh, warm=None,
+                fn=None, **kw):
+    """One serve of 15h on this rank (`fn`: `serve`, or another serve
+    function taking `mesh`), after a warm-up serve of the `warm` prompts
+    at 2 tokens when given: its readings with its launches, collectives
+    by kind and by axis, peak memory, the rows of its forwards, the M of
+    its matmul calls, its MoE drops and its pool's hash."""
+    from repro_torch.parallel import comm
+    if warm is not None:
+        serve(cfg, params, warm, 2, mesh=mesh, **kw)
+    _zero_counts()
+    comm.stats.reset()
+    torch.cuda.reset_peak_memory_stats()
+    with watch() as seen:
+        if fn is None:
+            run = serve(cfg, params, prompts, new_tokens, mesh=mesh,
+                        digest=True, **kw)
+        else:
+            run = fn(cfg, params, prompts, mesh=mesh, digest=True, **kw)
+            run.pop("reqs", None)
+    torch.cuda.synchronize()
+    run.update(launches=_read_counts(), comm=comm.stats.snapshot(),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               rows=dict(seen["rows"]), m=dict(seen["m"]),
+               drops=seen["drops"], top2=None)
+    return run
+
+
+def data_rank(rank, world, device, jobs):
+    """Phase 15h on one of DATA_RANKS ranks sharing the card: (c)
+    granite-8b at full width on phases 8-10's 6-layer cut through
+    `Engine(mesh="data=2,model=2")` on all four; then on "data=2" (ranks
+    0 and 1): (a) the cut, bf16 and int8 KV; (b) phase 8's prefix serve,
+    9a's structured stream with the 2-bit model drafter (2 slots), 9b's
+    n-gram serve and 8c's top-p serve; (d) qwen3-moe-30b-a3b at 11c's 8
+    of 48 layers; (e) minicpm3-4b at 10d's 8 layers and xlstm-1.3b's
+    first period (8 of 48 layers, 12c's identity cut).  `jobs`: phase 8's
+    prompts."""
+    import warnings
+    from repro_torch.configs import get_config
+    from repro_torch.core.bramac_linear import QuantConfig
+    from repro_torch.kernels import build
+    from repro_torch.models import model as M
+    from repro_torch.parallel import comm, sharding
+    for name in build.SOURCES:
+        build.library(name)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")      # "uses 2 of 4 devices"
+        mesh2 = sharding.build_mesh("data=2")
+    mesh4 = sharding.build_mesh("data=2,model=2")
+    q8 = QuantConfig(enabled=True, bits_w=8, bits_a=8)
+
+    def draw(cfg, seed=0):
+        t0 = time.perf_counter()
+        p = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            seed), "cuda", serving=q8)
+        torch.cuda.synchronize()
+        return p, time.perf_counter() - t0
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    out = {}
+    cfg = get_config("granite-8b").replace(quant=q8, num_layers=CUT_LAYERS)
+    params, out["granite_draw_s"] = draw(cfg)
+    prompts = _phase5_prompts(cfg.vocab_size)
+    t0 = time.perf_counter()
+    out["c"] = _data_serve(cfg, params, prompts, 16, mesh4,
+                           warm=prompts[:2])
+    out["c_s"] = time.perf_counter() - t0
+    if mesh2.coords is None:
+        del params
+        free()
+        comm.barrier()
+        return out
+    t0 = time.perf_counter()
+    for kv in ("bf16", "int8"):
+        out["a_" + kv] = _data_serve(
+            cfg.replace(quant_kv=kv == "int8"), params, prompts, 16, mesh2,
+            warm=prompts[:2] if kv == "bf16" else None)
+    out["a_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["prefix"] = _data_serve(cfg, params, jobs["prefix_prompts"], None,
+                                mesh2, fn=prefix_serve)
+    sparams = structured_params(cfg, params, q8)
+    out["spec_9a"] = _data_serve(cfg, sparams, [[1, 2, 3]], 32, mesh2,
+                                 num_slots=2, max_seq=64, draft_len=4,
+                                 drafter="model", draft_bits=2)
+    del sparams
+    out["spec_9b_ngram"] = _data_serve(
+        cfg, params, prompts, 16, mesh2, draft_len=4, drafter="ngram",
+        prefix_cache=True, check_invariants=True)
+    out["sampled"] = sampled_serve(cfg, params, prompts, list(range(8)),
+                                   range(8), mesh=mesh2)
+    out["b_s"] = time.perf_counter() - t0
+    del params
+    free()
+    t0 = time.perf_counter()
+    cfg, _ = _qwen3_cfg(num_layers=MOE_CUT_LAYERS)
+    params, out["qwen3_draw_s"] = draw(cfg)
+    out["qwen3"] = _data_serve(cfg, params,
+                               _phase5_prompts(cfg.vocab_size)[:4], 8, mesh2)
+    del params
+    free()
+    out["d_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg = get_config("minicpm3-4b").replace(quant=q8,
+                                            num_layers=MLA_CUT_LAYERS)
+    params, _ = draw(cfg)
+    out["minicpm3"] = _data_serve(cfg, params,
+                                  _phase5_prompts(cfg.vocab_size), 16, mesh2)
+    del params
+    free()
+    # xlstm-1.3b's draw is position-major: its first period is a cut of
+    # the whole draw, as in 12c
+    cfg = get_config("xlstm-1.3b").replace(quant=q8)
+    params, _ = draw(cfg)
+    one, pone = depth_cut(cfg, params, 1)
+    prompts, new = xlstm_traffic(cfg.vocab_size)
+    out["xlstm"] = _data_serve(one, pone, prompts, new, mesh2)
+    del params, pone
+    free()
+    out["e_s"] = time.perf_counter() - t0
+    comm.barrier()
+    return out
+
+
+def _check_data_serve(label, runs, want, prompts, per_fwd, coll, decode,
+                      report, split=2, mesh="data=2", **kw):
+    """`_check_mesh_serve`'s checks and readings for one 15h serve, and
+    the split's own: on every rank `rank_slots` and the rows of every
+    forward are S/split (4 slots unless the run has another count), the
+    pools of a data line are bit-equal; the readings gain the rows, the
+    M of the matmul calls and the collectives by axis."""
+    slots = kw.pop("slots", 4)
+    row = _check_mesh_serve(label, runs, want, prompts, per_fwd, coll,
+                            decode, report, **kw)
+    lines = {}
+    for r, run in enumerate(runs):
+        need(run["rank_slots"] == slots // split and
+             set(run["rows"]) == {slots // split},
+             f"{label}: rank {r} ran {run['rank_slots']} slots, forward rows "
+             f"{run['rows']} (want {slots // split})")
+        # data=2 over ranks 0-1: one line; data=2,model=2: rank r is
+        # (data r // 2, model r % 2), its data line the ranks of its model
+        lines.setdefault(r % 2 if mesh != "data=2" else 0, set()).add(
+            run["digest"])
+    need(all(len(d) == 1 for d in lines.values()),
+         f"{label}: the data ranks' pools differ: {lines}")
+    r0 = runs[0]
+    row.update(rows=r0["rows"], m=r0["m"], axis_calls=r0["comm"]["axis_calls"],
+               rank_slots=r0["rank_slots"], drops=r0["drops"])
+    decode_m = sorted(m for m in r0["m"] if m <= slots)
+    per_fwd = {a: round(n / r0["forwards"], 2)
+               for a, n in r0["comm"]["axis_calls"].items()}
+    print(f"  {label}: each rank's forwards ran {slots // split} of {slots} "
+          f"slots (rows {r0['rows']}), bramac_matmul M at decode "
+          f"{decode_m} (all M {sorted(r0['m'])}); collectives by axis per "
+          f"rank {r0['comm']['axis_calls']} ({per_fwd} a forward); the "
+          f"{len(runs)} ranks' pools bit-equal along data")
+    return row
+
+
+def phase_data_split(report):
+    """Phase 15h: the mesh Engine's slot split over `data` on DATA_RANKS
+    ranks sharing the card (`data_rank`), every stream and total against
+    its meshless phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.parallel import comm
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    outs = comm.spawn(data_rank, DATA_RANKS,
+                      {"prefix_prompts": report["prefix_ref"]["prompts"]})
+    two = outs[:2]
+    gcfg = get_config("granite-8b").replace(num_layers=CUT_LAYERS)
+    L = gcfg.num_layers
+    prompts5 = _phase5_prompts(gcfg.vocab_size)
+    rows = {}
+    streams = report["granite_cut_streams"]
+    for kv in ("bf16", "int8"):
+        rows["a_" + kv] = _check_data_serve(
+            f"phase 15h(a) granite-8b ({L} of 36 layers) data=2, {kv} KV",
+            [o["a_" + kv] for o in two], {"streams": streams[kv]}, prompts5,
+            lambda run: (7 * L + 1) * run["forwards"],
+            lambda run: run["forwards"], L, report, kv=kv)
+    # (b): phase 8's prefix serve, 9a, 9b's n-gram serve, 8c's top-p
+    ref = report["prefix_ref"]
+    for r, o in enumerate(two):
+        run = o["prefix"]
+        keys = ("hits", "misses", "tokens_skipped", "chunks_skipped")
+        need(run["streams"] == ref["streams"] and all(
+            run["stats"][k] == ref["stats"][k] for k in keys)
+             and run["checks"] > 0 and run["rank_slots"] == 2
+             and set(run["rows"]) == {2}
+             and run["comm"]["calls"] == run["forwards"],
+             f"phase 15h(b) prefix serve: rank {r} streams / stats "
+             f"{run['stats']} / checks {run['checks']} / rows {run['rows']} "
+             f"/ collectives {run['comm']['calls']} for {run['forwards']} "
+             f"forwards vs phase 8's {ref['stats']}")
+        for k in ("bramac_matmul", "paged_decode"):
+            report[k]["launches"] += run["launches"][k]
+    need(two[0]["prefix"]["digest"] == two[1]["prefix"]["digest"],
+         "phase 15h(b) prefix serve: the data ranks' pools differ")
+    st = two[0]["prefix"]["stats"]
+    print(f"phase 15h(b) prefix serve granite-8b data=2 (phase 8's 104-token "
+          f"shared prefix): hits {st['hits']}, misses {st['misses']}, "
+          f"tokens skipped {st['tokens_skipped']} ({st['chunks_skipped']} "
+          f"chunks) and streams == phase 8's on both ranks; "
+          f"{two[0]['prefix']['checks']} invariant checks a rank; "
+          f"{two[0]['prefix']['forwards']} forwards, one data collective "
+          f"each; pools bit-equal")
+    rows["prefix"] = dict(stats=st, forwards=two[0]["prefix"]["forwards"],
+                          tok_s=two[0]["prefix"]["tokens"]
+                          / two[0]["prefix"]["wall"])
+    d = 4
+    for key, layers, ps, slots in (("9a", L, [[1, 2, 3]], 2),
+                                   ("9b_ngram", None, prompts5, 4)):
+        want = report["spec_streams"][key]
+        rows["spec_" + key] = _check_data_serve(
+            f"phase 15h(b) granite-8b ({L} layers) "
+            + ("9a's structured stream, 2-bit model drafter, 2 slots"
+               if key == "9a" else "9b's n-gram drafter, prefix cache on")
+            + " data=2", [o["spec_" + key] for o in two], want, ps,
+            lambda run, ly=layers: spec_matmul_launches(gcfg, run, d, ly),
+            lambda run: run["forwards"], 0, report,
+            totals=(want["drafted"], want["accepted"]), slots=slots)
+    need(all(o["sampled"] == report["sampled_ref"] for o in two),
+         "phase 15h(b): top-p streams on data=2 != phase 8c's")
+    print("phase 15h(b) top-p serve (0.9, temperature 0.8, seeds 0-7) "
+          "data=2: streams == phase 8c's on both ranks")
+    # (c): data=2,model=2 on all four ranks
+    rows["c"] = _check_data_serve(
+        f"phase 15h(c) granite-8b ({L} layers) data=2,model=2, bf16 KV",
+        [o["c"] for o in outs], {"streams": streams["bf16"]}, prompts5,
+        lambda run: (7 * L + 1) * run["forwards"],
+        lambda run: (mesh_collectives(gcfg) + 1) * run["forwards"], L,
+        report, mesh="data=2,model=2")
+    need(all(o["c"]["comm"]["axis_calls"] == {
+        "model": mesh_collectives(gcfg) * o["c"]["forwards"],
+        "data": o["c"]["forwards"]} for o in outs),
+        "phase 15h(c): collectives by axis")
+    # (d): qwen3-moe, one pool exchange and one MoE gather a layer
+    qc, _ = _qwen3_cfg(num_layers=MOE_CUT_LAYERS)
+    rows["qwen3"] = _check_data_serve(
+        f"phase 15h(d) qwen3-moe-30b-a3b ({qc.num_layers} of 48 layers) "
+        f"data=2, bf16 KV", [o["qwen3"] for o in two],
+        {"streams": report["qwen3_streams"]},
+        _phase5_prompts(qc.vocab_size)[:4],
+        lambda run: _moe_matmul_launches(qc) * run["forwards"],
+        lambda run: (2 * qc.num_layers + 1) * run["forwards"],
+        qc.num_layers, report)
+    need(all(o["qwen3"]["drops"] == report["qwen3_drops"] for o in two),
+         f"phase 15h(d): MoE drops {[o['qwen3']['drops'] for o in two]} != "
+         f"11c's {report['qwen3_drops']}")
+    print(f"  phase 15h(d): {report['qwen3_drops']} MoE assignments dropped "
+          f"on each rank, as in 11c")
+    # (e): minicpm3-4b's 8 layers and xlstm-1.3b's first period
+    mc = get_config("minicpm3-4b").replace(num_layers=MLA_CUT_LAYERS)
+    rows["minicpm3"] = _check_data_serve(
+        f"phase 15h(e) minicpm3-4b ({mc.num_layers} of 62 layers) data=2",
+        [o["minicpm3"] for o in two],
+        {"streams": report["minicpm3_cut_streams"]},
+        _phase5_prompts(mc.vocab_size),
+        lambda run: (10 * mc.num_layers + 1) * run["forwards"],
+        lambda run: run["forwards"], 0, report)
+    xc = get_config("xlstm-1.3b")
+    xc = xc.replace(num_layers=len(xc.layer_pattern))
+    rows["xlstm"] = _check_data_serve(
+        f"phase 15h(e) xlstm-1.3b (first period, {xc.num_layers} of 48 "
+        f"layers) data=2", [o["xlstm"] for o in two],
+        {"streams": report["xlstm_cut_streams"]},
+        xlstm_traffic(xc.vocab_size)[0],
+        lambda run: _recurrent_launches(xc) * run["forwards"],
+        lambda run: run["forwards"], 0, report)
+    parts = {k: [round(o[k], 1) for o in outs if k in o]
+             for k in ("c_s", "a_s", "b_s", "d_s", "e_s")}
+    spent = time.perf_counter() - t_phase
+    rows["parts_s"] = parts
+    report["data_split"] = rows
+    print(f"phase 15h took {spent:.1f} s on {DATA_RANKS} ranks (per rank, "
+          f"s: {parts}); card {smi_line()}")
+
+
 def _gb(x) -> float:
     return x / 1e9
 
@@ -4898,7 +5280,8 @@ def main() -> int:
                      (phase_minicpm, (report,)), (phase_moe, (report,)),
                      (phase_recurrent, (report,)), (phase_train, (report,)),
                      (phase_xattn, (report,)), (phase_streams, ()),
-                     (phase_parallel, (report,)), (phase_dryrun, (report,))):
+                     (phase_parallel, (report,)),
+                     (phase_data_split, (report,)), (phase_dryrun, (report,))):
         t0 = time.perf_counter()
         fn(*args)
         walls[fn.__name__] = round(time.perf_counter() - t0, 1)

@@ -183,6 +183,9 @@ def count_step(cfg, info: dict, quant_bits: int = 0, mesh=None) -> dict:
                                        ctx, cfg)
             batch = specs.rank_batch(batch, mesh)
             b_rank = next(iter(batch.values())).shape[0]
+            if ctx is not None:
+                # the mesh Engine's slot split: MoE gathers over `data`
+                ctx.split_batch = b_rank < info["batch"]
             caches = specs.cache_specs(rcfg, b_rank, S)
             if kind == "prefill":
                 step, args = make_prefill_step(rcfg), (params, batch, caches)
@@ -312,6 +315,7 @@ def record(cfg, info: dict, c: dict, counted: str, ranks: int,
         memory["fits_card"] = ranks * c["peak_rounded"] <= card.memory_bytes
     rec = {
         "cost_probe": counted, "n_periods": cfg.n_periods,
+        "batch_per_dev": rank_batch or info["batch"],
         "card": {"name": card.name, "power_limit_w": card.power_limit_w},
         "memory": memory,
         "flops_per_dev": float(sum(c["flops"].values())),
@@ -381,9 +385,8 @@ def predict(cfg, info: dict, quant_bits: int = 0, mesh: str | None = None,
     m = None if mesh in (None, ONE_CARD) else sharding.dry_mesh(mesh)
     sizes = {} if m is None else m.shape
     ranks = math.prod(sizes.values())
-    data = sizes.get("data", 1)
-    b_rank = info["batch"] // data if info["batch"] % data == 0 \
-        else info["batch"]
+    lo, hi = sharding.data_rows(info["batch"], m)
+    b_rank = hi - lo
     t0 = time.perf_counter()
     c, counted = count(cfg, info, quant_bits, m, probe)
     rec = {"mesh": mesh_tag(mesh), "ranks": ranks,

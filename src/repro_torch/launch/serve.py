@@ -28,7 +28,9 @@ process; "prefill" / "decode" raise, as the reference's do; without a mesh
 such as `data=2,model=2`) spawns one rank per mesh cell
 (`parallel.comm.spawn`: gloo, every rank on the card, all on cuda:0 on one
 H100, with host staging); each rank draws the same weights, keeps its
-shard and serves the same requests, and rank 0 prints the report.  The
+shard and serves the same requests, and rank 0 prints the report, with a
+last line naming the mesh and the slots each rank's forwards run (a
+`data` axis splits them: `--shard data=2` runs 2 of 4 slots a rank).  The
 report lines keep the reference's wording: requests done and
 tok/s, syncs and finish reasons, speculation's acceptance and tokens per
 tick, the kv pool, the page transfer of disaggregation, the prefix
@@ -305,6 +307,9 @@ def _serve(args, device, mesh=None, report=True):
         else:
             print(f"  kv dense: {eng.num_slots} slots x {eng.max_seq} rows "
                   f"reserved up front ({eng.num_slots * eng.max_seq} rows)")
+        if mesh is not None:
+            print(f"  mesh {mesh.shape}: each rank's forwards run "
+                  f"{eng.rank_slots} of the {eng.num_slots} slots")
 
 
 if __name__ == "__main__":

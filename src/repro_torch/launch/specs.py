@@ -149,11 +149,13 @@ def rank_params(params, ctx, cfg):
 
 
 def rank_batch(batch, mesh):
-    """Each leaf's rows split over the `data` axis (whole when they do not
-    divide, as the reference's `batch_shardings` leaves them)."""
-    n = 1 if mesh is None else mesh.shape.get("data", 1)
-    if n == 1:
-        return batch
-    return tree_map(lambda t: t if t.shape[0] % n else
-                    _meta((t.shape[0] // n,) + tuple(t.shape[1:]), t.dtype),
-                    batch)
+    """Each leaf's rows that a data rank of `mesh` takes
+    (`sharding.data_rows`, the mesh Engine's rule: a block of rows/n, or
+    all of them when n does not divide, as the reference's
+    `batch_shardings` leave them)."""
+    def take(t):
+        lo, hi = sharding.data_rows(t.shape[0], mesh)
+        if hi - lo == t.shape[0]:
+            return t
+        return _meta((hi - lo,) + tuple(t.shape[1:]), t.dtype)
+    return tree_map(take, batch)

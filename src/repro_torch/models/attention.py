@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any
 
 import torch
 
@@ -58,6 +59,10 @@ class PagedKV:
                (None: every allocated entry is writable).
     bound      (B,) i32 or None — writes at positions >= bound drop.
     decode_kernel — route Sq=1 reads through the paged-decode kernels.
+    sync       callable or None — called with a layer's cache dict after
+               the layer wrote its rows and before it reads: the mesh
+               Engine's data ranks land each other's rows there when a
+               row's result reaches other rows (MoE routing).
     """
     tables: torch.Tensor
     n_pages: torch.Tensor
@@ -67,6 +72,7 @@ class PagedKV:
     owned: torch.Tensor | None = None
     bound: torch.Tensor | None = None
     decode_kernel: bool = False
+    sync: Any = None
 
 
 @dataclasses.dataclass
@@ -127,6 +133,16 @@ def paged_update(pool, new, positions, pv: PagedKV):
     stray padding row would land inside a live page.
 
     Dropping goes through `_scatter_drop`: no host sync, no extra page."""
+    page, row, ok = paged_targets(positions, pv)
+    vals = new.reshape((ok.shape[0],) + tuple(pool.shape[2:])).to(pool.dtype)
+    return _scatter_drop(pool, (page, row), vals, ok)
+
+
+def paged_targets(positions, pv: PagedKV):
+    """(page, row, ok), each (B·S,) sequence-major: the pool row that each
+    of the rows at `positions` (B, S) is written to through `pv`, and
+    whether the write keeps it (`paged_update`'s rule).  The mesh Engine
+    reads the rows a data rank wrote back through the same targets."""
     ps, mp = pv.page_size, pv.tables.shape[1]
     pg_idx = torch.div(positions, ps, rounding_mode="floor")
     ok = pv.write_mask[:, None] & (pg_idx < pv.n_pages[:, None]) \
@@ -138,9 +154,14 @@ def paged_update(pool, new, positions, pv: PagedKV):
         ok = ok & (positions < pv.bound[:, None])
     page = torch.gather(pv.tables, 1, entry).reshape(-1).long()
     row = torch.remainder(positions, ps).reshape(-1).long()
-    ok = ok.reshape(-1)
-    vals = new.reshape((ok.shape[0],) + tuple(pool.shape[2:])).to(pool.dtype)
-    return _scatter_drop(pool, (page, row), vals, ok)
+    return page, row, ok.reshape(-1)
+
+
+def _synced(cache, paged) -> None:
+    """A paged layer's writes are done: hand its cache to the bundle's
+    `sync` hook, if any."""
+    if isinstance(paged, PagedKV) and paged.sync is not None:
+        paged.sync(cache)
 
 
 def paged_view(pool, pv: PagedKV):
@@ -234,6 +255,7 @@ def gqa(p, x, cfg, positions, cache=None, cache_pos=None, paged=None):
         out = causal_attention(q, k, v)
     elif "ks" in cache:                          # int8 KV cache (quant_kv)
         _update_cache_q(cache, k, v, cache_pos, paged, positions)
+        _synced(cache, paged)
         if paged_kernel:
             # page-bounded decode kernel: the pool is read as stored int8
             # (q row-quantized exactly as decode_attention_q would)
@@ -254,6 +276,7 @@ def gqa(p, x, cfg, positions, cache=None, cache_pos=None, paged=None):
     elif paged is not None:
         paged_update(cache["k"], k, positions, paged)
         paged_update(cache["v"], v, positions, paged)
+        _synced(cache, paged)
         if paged_kernel:
             out = pk.paged_decode(q[:, 0].contiguous(), cache["k"],
                                   cache["v"], paged.tables, paged.n_pages,
@@ -414,6 +437,7 @@ def mla(p, x, cfg, positions, cache=None, cache_pos=None, paged=None):
     elif cache is not None and paged is not None:
         paged_update(cache["c_kv"], c_kv, positions, paged)
         paged_update(cache["k_rope"], k_rope, positions, paged)
+        _synced(cache, paged)
         c_kv = paged_view(cache["c_kv"], paged)
         k_rope = paged_view(cache["k_rope"], paged)
     elif cache is not None:

@@ -13,11 +13,17 @@ weights run each expert einsum as one `bramac_matmul` per expert
 Router math is f32; a Switch-style load-balancing aux loss is returned.
 Tokens overflowing an expert's capacity are dropped; every row of the call
 routes and takes capacity, inactive slots and padded chunk positions
-included, as in the reference.  Nothing here reads a device value on the
+included, as in the reference.  Under a ctx whose forwards run a data
+rank's block of the batch (`sharding.ShardingCtx.split_batch`, the mesh
+Engine's slot split) the layer gathers its input over `data` first, runs
+on the whole batch and keeps its block's rows: the reference takes the
+expert einsum's input replicated over `data`, so routing and capacity see
+every row of the call.  Nothing here reads a device value on the
 host: the scatter adds zeros for dropped rows instead of masking them out.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -30,7 +36,7 @@ from repro_torch.models.routing import (_one_hot, _rank_in_expert_cumsum,
                                         _rank_in_expert_sort, _top_k,
                                         dispatch_buffer, moe_capacity,
                                         router_top_k)
-from repro_torch.parallel import ep, sharding
+from repro_torch.parallel import comm, ep, sharding
 
 
 def _expert_matmul(x, w):
@@ -101,6 +107,16 @@ def moe(p, x, cfg, capacity_factor: float | None = None,
     it, forwarding the caller's `capacity_factor`; without one it is the
     dense path below, as in the reference (per-source semantics at one
     shard)."""
+    group = sharding.batch_group()
+    if group is not None:
+        # a data rank's block of the batch: route the whole batch
+        n = x.shape[0]
+        i = sharding.active().mesh.index("data")
+        whole = comm.all_gather(x, group, dim=0)
+        with sharding.use(dataclasses.replace(sharding.active(),
+                                              split_batch=False)):
+            out, aux = moe(p, whole, cfg, capacity_factor, dispatch)
+        return out[i * n:(i + 1) * n], aux
     if capacity_factor is None:
         capacity_factor = cfg.moe_capacity_factor
     if dispatch is None:

@@ -14,7 +14,10 @@ the meta result of the right shape and exchanges nothing.
 
 Every collective counts its calls and its result bytes by kind in `stats`
 (the reference dry run's convention for collective traffic: the bytes of
-each collective's result, per rank).
+each collective's result, per rank), and its calls by the mesh axis of its
+group (`name_group`).  `all_gather_many` gathers several tensors of any
+dtypes in one collective: the mesh Engine's one exchange over `data` a
+forward (the pool rows a rank wrote and the tokens it sampled).
 
 The collectives above detach their input: serving and the dry run's
 forwards need no gradient through them.  Training a `model`-split model
@@ -65,16 +68,19 @@ class CommStats:
     seconds: float = 0.0
     kind_calls: dict = dataclasses.field(default_factory=dict)
     kind_bytes: dict = dataclasses.field(default_factory=dict)
+    axis_calls: dict = dataclasses.field(default_factory=dict)
 
     def reset(self) -> None:
         self.calls, self.staged_bytes, self.seconds = 0, 0, 0.0
-        self.kind_calls, self.kind_bytes = {}, {}
+        self.kind_calls, self.kind_bytes, self.axis_calls = {}, {}, {}
 
-    def count(self, kind: str, out: torch.Tensor) -> None:
+    def count(self, kind: str, out: torch.Tensor, group=None) -> None:
         self.calls += 1
         self.kind_calls[kind] = self.kind_calls.get(kind, 0) + 1
         self.kind_bytes[kind] = self.kind_bytes.get(kind, 0) + \
             out.numel() * out.element_size()
+        axis = axis_of(group)
+        self.axis_calls[axis] = self.axis_calls.get(axis, 0) + 1
 
     def snapshot(self) -> dict:
         return dataclasses.asdict(self)
@@ -85,28 +91,47 @@ stats = CommStats()
 
 @dataclasses.dataclass(frozen=True)
 class DryGroup:
-    """The group of a dry-run mesh axis line: `size` ranks, no processes."""
+    """The group of a dry-run mesh axis line: `size` ranks, no processes,
+    along the mesh axis `axis`."""
     size: int
+    axis: str | None = None
 
 
-def _dry(t: torch.Tensor, kind: str, shape) -> torch.Tensor:
+# the mesh axis of each process group a mesh made (`sharding.Mesh`)
+_AXES: dict = {}
+
+
+def name_group(group, axis: str):
+    """Note `group` as a line along mesh axis `axis`; returns the group."""
+    _AXES[id(group)] = axis
+    return group
+
+
+def axis_of(group) -> str | None:
+    """The mesh axis `group` runs along (None for an unnamed group)."""
+    if isinstance(group, DryGroup):
+        return group.axis
+    return _AXES.get(id(group))
+
+
+def _dry(t: torch.Tensor, kind: str, shape, group=None) -> torch.Tensor:
     """A collective over a DryGroup: the meta result, counted."""
     if not t.is_meta:
         raise ValueError(f"a dry-run mesh's {kind} takes meta tensors, got "
                          f"one on {t.device}")
     out = torch.empty(shape, dtype=t.dtype, device="meta")
-    stats.count(kind, out)
+    stats.count(kind, out, group)
     return out
 
 
-def _collect(t: torch.Tensor, kind: str, run) -> torch.Tensor:
+def _collect(t: torch.Tensor, kind: str, run, group=None) -> torch.Tensor:
     """Stage `t` on the host (a copy), `run(host)` -> the host result,
     bring it back to `t`'s device; counted in `stats`."""
     t0 = time.perf_counter()
     src = t.detach().contiguous()
     host = src.cpu() if src.is_cuda else src.clone()
     out = run(host)
-    stats.count(kind, out)
+    stats.count(kind, out, group)
     if src.is_cuda:
         out = out.to(t.device)
         stats.staged_bytes += host.numel() * host.element_size() \
@@ -121,12 +146,12 @@ def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     if group is None:
         return t
     if isinstance(group, DryGroup):
-        return _dry(t, "all-reduce", t.shape)
+        return _dry(t, "all-reduce", t.shape, group)
 
     def run(h):
         dist.all_reduce(h, op=_OPS[op], group=group)
         return h
-    return _collect(t, "all-reduce", run)
+    return _collect(t, "all-reduce", run, group)
 
 
 def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
@@ -137,14 +162,40 @@ def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     if isinstance(group, DryGroup):
         shape = list(t.shape)
         shape[dim] *= group.size
-        return _dry(t, "all-gather", shape)
+        return _dry(t, "all-gather", shape, group)
 
     def run(h):
         parts = [torch.empty_like(h)
                  for _ in range(dist.get_world_size(group))]
         dist.all_gather(parts, h, group=group)
         return torch.cat(parts, dim=dim)
-    return _collect(t, "all-gather", run)
+    return _collect(t, "all-gather", run, group)
+
+
+def all_gather_many(tensors, group) -> list:
+    """`all_gather` along dim 0 of each of `tensors` (any dtypes, equal
+    shapes across the group's ranks), in ONE collective: their bytes are
+    packed into one buffer, gathered, and cut back into each tensor's
+    ranks' parts.  Counted as one all-gather."""
+    tensors = list(tensors)
+    if group is None:
+        return tensors
+    if isinstance(group, DryGroup):
+        n = sum(t.numel() * t.element_size() for t in tensors)
+        _dry(torch.empty((n,), dtype=torch.uint8, device="meta"),
+             "all-gather", (n * group.size,), group)
+        return [torch.empty((t.shape[0] * group.size,) + tuple(t.shape[1:]),
+                            dtype=t.dtype, device="meta") for t in tensors]
+    flat = [t.detach().contiguous().reshape(-1).view(torch.uint8)
+            for t in tensors]
+    sizes = [f.numel() for f in flat]
+    whole = all_gather(torch.cat(flat), group).reshape(-1, sum(sizes))
+    out, at = [], 0
+    for t, n in zip(tensors, sizes):
+        part = whole[:, at:at + n].contiguous().view(t.dtype)
+        out.append(part.reshape((-1,) + tuple(t.shape[1:])))
+        at += n
+    return out
 
 
 def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
@@ -155,13 +206,13 @@ def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     if group is None:
         return t
     if isinstance(group, DryGroup):
-        return _dry(t, "all-to-all", t.shape)
+        return _dry(t, "all-to-all", t.shape, group)
 
     def run(h):
         out = torch.empty_like(h)
         dist.all_to_all_single(out, h, group=group)
         return out
-    return _collect(t, "all-to-all", run)
+    return _collect(t, "all-to-all", run, group)
 
 
 # ---------------------------------------------------------------------------

@@ -36,7 +36,10 @@ it sits on; `shard_params` slices each leaf to this rank's block (the
 counterpart of `param_shardings` + `jax.device_put`).  `constrain` has no
 counterpart: the port partitions explicitly — the model code calls the
 collectives of `parallel.tp` / `parallel.ep` where the reference lets
-GSPMD insert them.
+GSPMD insert them.  The batch rule's one placement that the port keeps is
+`data_rows`: the block of batch rows (the Engine's slots) a rank of the
+`data` axis computes, or all of them where `constrain` would leave the
+dim whole; a ctx with `split_batch` set runs its forwards on that block.
 """
 from __future__ import annotations
 
@@ -51,6 +54,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel import comm
 from repro_torch.parallel.comm import DryGroup
 from repro_torch.tree import tree_map_with_path
 
@@ -108,14 +112,19 @@ def _make_mesh(axes, sizes) -> Mesh:
         for key in sorted(lines):
             g = dist.new_group(lines[key])
             if coords is not None and coords[:a] + coords[a + 1:] == key:
-                groups[axis] = g
+                groups[axis] = comm.name_group(g, axis)
     return Mesh(tuple(axes), tuple(sizes), coords, groups)
 
 
 @dataclasses.dataclass
 class ShardingCtx:
+    """A mesh and its rules.  `split_batch`: the forwards under this ctx
+    run on this rank's `data_rows` block of the batch (the mesh Engine's
+    slot split), so a layer whose result depends on every row of the call
+    (MoE routing and capacity) gathers its input over `data` first."""
     mesh: Mesh
     rules: dict
+    split_batch: bool = False
 
     def resolve(self, *logical) -> tuple:
         """The physical axes (or None) of each logical axis name."""
@@ -245,17 +254,19 @@ def dry_mesh(spec: str | int | None = None) -> Mesh:
     """A dry-run mesh (the counterpart of the reference's
     `make_production_mesh`): the grid a `build_mesh` spec names, with
     sizes and no processes.  It is rank 0's view, every axis line a
-    `comm.DryGroup`; an omitted `data` is 1.  Collectives over it take
-    meta tensors and exchange nothing (`parallel.comm`)."""
+    `comm.DryGroup`; an omitted `data` or `model` is 1 (as `build_mesh`
+    always has a model axis).  Collectives over it take meta tensors and
+    exchange nothing (`parallel.comm`)."""
     named = _parse(spec) if spec is not None else {}
     for name, val in named.items():
         if val < 1:
             raise ValueError(f"mesh axis {name}={val} must be >= 1")
     named.setdefault("data", 1)
+    named.setdefault("model", 1)
     axes = tuple(a for a in _AXIS_ORDER if a in named)
     sizes = tuple(named[a] for a in axes)
     return Mesh(axes, sizes, (0,) * len(axes),
-                {a: DryGroup(n) for a, n in zip(axes, sizes) if n > 1})
+                {a: DryGroup(n, a) for a, n in zip(axes, sizes) if n > 1})
 
 
 def activate(mesh: Mesh, rules: dict | None = None) -> ShardingCtx:
@@ -287,6 +298,29 @@ def use(ctx: ShardingCtx | None):
         yield ctx
     finally:
         _ACTIVE = before
+
+
+def data_rows(rows: int, mesh: Mesh | None) -> tuple[int, int]:
+    """[lo, hi) of the `rows` batch rows (the Engine's slots) that this
+    rank of `mesh` computes: its block of rows/n along the `data` axis
+    when n divides `rows`, else all of them, as the reference's
+    `constrain` leaves a dim that does not divide whole.  The mesh Engine,
+    `launch/specs.rank_batch` and the dry run's per-rank batch take it
+    from here."""
+    n = 1 if mesh is None else mesh.shape.get("data", 1)
+    if n == 1 or rows % n:
+        return 0, rows
+    b = rows // n
+    i = mesh.index("data")
+    return i * b, (i + 1) * b
+
+
+def batch_group():
+    """The `data` group the active ctx's forwards split their batch over
+    (`ShardingCtx.split_batch`), else None."""
+    if _ACTIVE is None or not _ACTIVE.split_batch:
+        return None
+    return _ACTIVE.mesh.group("data")
 
 
 def tp_axis() -> str | None:

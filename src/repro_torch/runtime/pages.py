@@ -16,7 +16,10 @@ cross-pool page transfer of disaggregated serving (port of
   Transfer    — `export_pages` gathers a request's page tiles from every
                 pool leaf, `import_pages` writes them into another pool's
                 pages: the prefill→decode handoff of a disaggregated
-                engine, at page granularity.
+                engine, at page granularity.  `rows_of` / `put_rows` move
+                rows instead: the mesh Engine's data ranks exchange the
+                rows their slots wrote in a forward, so that every rank's
+                pool is the same replica.
   HostPool    — the host-side numpy mirror replaying the same rules, so the
                 engine knows every granted page id without a device sync.
   PrefixCache — the host-side prefix registry: chunk-incremental blake2b
@@ -204,6 +207,23 @@ def rollback(caches, pool_flags, pv, positions):
 
     tree_map(zero, caches, pool_flags)
     return caches
+
+
+def rows_of(leaves, page, row) -> list:
+    """Each (n_periods, P, ps, …) pool leaf's rows at (`page`, `row`)
+    (1-D long), as an (R, n_periods, …) tensor: what a data rank of the
+    mesh Engine hands its peers."""
+    return [leaf[:, page, row].movedim(1, 0) for leaf in leaves]
+
+
+def put_rows(leaves, page, row, ok, rows) -> None:
+    """Write `rows` (`rows_of`'s layout, over every slot's targets) into
+    the pool `leaves` at (`page`, `row`) where `ok`, in place; the others
+    drop.  The mesh Engine's data ranks thereby land each other's rows
+    through the same block tables, ownership bits and bounds the writes
+    used, and every rank's pool stays a bit-equal replica."""
+    for leaf, r in zip(leaves, rows):
+        attn._scatter_drop(leaf.movedim(0, 2), (page, row), r, ok)
 
 
 def release(pool: PagePool, dead) -> PagePool:

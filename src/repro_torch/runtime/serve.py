@@ -97,10 +97,26 @@ two gathers; mLSTM: two gathers and its `w_down`; sLSTM: its `w_down`).
 Every rank keeps MLA's whole latent cache in its own pool, its heads'
 mLSTM state, its channels' mamba state and the whole sLSTM state.
 Greedy tokens come from the gathered logits, so the deterministic
-scheduler makes the same decisions on every rank.  A `data` axis
-replicates the slots across its ranks (the reference splits the batch over
-it; the tokens are the same).  The decode kernels run under a mesh as
-without one, each rank's over its own KV heads and pool: the reference
+scheduler makes the same decisions on every rank.  A `data` axis of n
+ranks splits the slots as the reference's `serve_rules` split the batch
+(`sharding.data_rows`): when n divides `num_slots`, data index i runs the
+forwards of slots [i·S/n, (i+1)·S/n) only (`rank_slots` of them) and holds
+only their per-slot caches (dense KV, recurrent state) and drafter state;
+otherwise every data rank keeps every slot.  Each rank keeps every slot's
+scalars and block tables and the whole page pool, which the prefix cache
+and copy-on-write share across slots: after each forward one all-gather
+over `data` brings the tokens the other ranks sampled and the pool rows
+they wrote, which land through the same block tables (`workers.SlotBlock`),
+so the pools stay bit-equal and the replicated scheduler decides alike.
+MoE gathers its input over `data` before routing, so routing and capacity
+drops see the whole batch, as in the reference; in an arch with a MoE
+layer the pool rows are exchanged in each paged layer instead, before it
+reads (a free slot's padding row reads through its stale block table,
+and MoE routes it with the real rows).  Counters (`n_syncs`,
+`kv_bytes_read`, the page high-water marks, `prefix_stats`, `spec_stats`)
+are the whole Engine's, equal to the meshless Engine's.  The decode
+kernels run under a mesh as without one, each rank's over its own KV
+heads and pool: the reference
 turns its kernel off there because the kernel carries no partition
 annotations, and a rank here is a process with an ordinary local pool.
 The model drafter is requantized from the whole serving tree before
@@ -132,7 +148,7 @@ from repro_torch.runtime import speculate as spc
 from repro_torch.runtime.options import EngineOptions, RequestResult
 from repro_torch.runtime.scheduler import Request, Scheduler
 from repro_torch.runtime.workers import (DecodeWorker, PrefillWorker,
-                                         SlotState, _upload,
+                                         SlotBlock, SlotState, _upload,
                                          init_slot_state)
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -222,6 +238,15 @@ class Engine:
         self.cfg = cfg
         self.params = tree_map(lambda a: a.to(device), params)
         self.num_slots, self.max_seq = sch.num_slots, sch.max_seq
+        # the slots this rank's forwards run: its data block, or all
+        lo, hi = shd.data_rows(self.num_slots, self.mesh)
+        self.rank_slots = hi - lo
+        split = self.rank_slots < self.num_slots
+        if split:
+            self._ctx.split_batch = True
+        block = SlotBlock(lo, hi, self.mesh.group("data") if split else None,
+                          per_layer=split and any(
+                              s.endswith("+moe") for s in cfg.layer_pattern))
         self.stop_tokens = sch.stop_tokens
         self.eos_id = sch.stop_tokens[0] if len(sch.stop_tokens) == 1 \
             else None
@@ -323,18 +348,19 @@ class Engine:
             cfg=cfg, num_slots=self.prefill_slots, max_seq=self.max_seq,
             prefill_chunk=self.prefill_chunk, stop_cap=self._stop_cap,
             sampling=self.sampling, paged=paged, base_seed=sch.seed,
-            draft_len=self.draft_len, drafter=self.drafter)
+            draft_len=self.draft_len, drafter=self.drafter, block=block)
         self.decode = DecodeWorker(
             cfg=cfg, max_seq=self.max_seq, decode_steps=self.decode_steps,
             sampling=self.sampling, paged=paged,
             decode_kernel=self.decode_kernel, draft_len=self.draft_len,
-            drafter=self.drafter, kv_flags=kv_flags)
-        draft0 = self.drafter.init_state(self.num_slots, device) \
-            if self.draft_len else spc.empty_state(self.num_slots, device)
+            drafter=self.drafter, kv_flags=kv_flags, block=block)
+        # per-slot caches and drafter state: this rank's slots only
+        draft0 = self.drafter.init_state(self.rank_slots, device) \
+            if self.draft_len else spc.empty_state(self.rank_slots, device)
         self.state = init_slot_state(self.num_slots, self._stop_cap,
                                      self.pages_per_slot if paged else 0,
                                      self.num_pages, device, draft0)
-        self.caches = M.init_cache(cfg, self.num_slots, self.max_seq,
+        self.caches = M.init_cache(cfg, self.rank_slots, self.max_seq,
                                    num_pages=self.num_pages if paged
                                    else None, device=device)
         if self.disagg:
@@ -364,7 +390,8 @@ class Engine:
         # KV cache, from the tick-start slot lengths
         self.kv_bytes_read = 0
         self.kv_read_steps = 0
-        self._kv_row_bytes = pk.kv_row_bytes(cfg)
+        # the whole Engine's reads, whatever the mesh: every KV head
+        self._kv_row_bytes = pk.kv_row_bytes(whole_cfg)
 
     def _shard(self, cfg, params, mesh):
         """Under a mesh: activate the serve rules and return this rank's

@@ -30,9 +30,23 @@ paged or dense, plain or speculative, colocated or disaggregated).
 Both run eagerly on device tensors and never read a device value back: the
 Engine syncs once per tick and once per admission round.  The host arrays
 of a whole admission round are uploaded in one copy.
+
+Under the mesh Engine's data split (`SlotBlock`) a worker holds every
+slot's scalars, stop rows and block tables, and the whole page pool, but
+runs each forward on its block of slots only, against per-slot caches
+and drafter state of that block.  One all-gather over `data` after each
+forward (decode step, verify window, admission chunk) brings the tokens
+the other blocks sampled and the pool rows they wrote, which land
+through the same targets; every rank then updates the slot state and the
+allocator over all slots alike, so the replicated Scheduler decides the
+same thing everywhere and the pools stay bit-equal (in an arch with a
+MoE layer the pool rows travel in each paged layer instead, before it
+reads: `SlotBlock.per_layer`).  A slot's sampling generator draws on the
+rank that owns the slot only.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, NamedTuple
 
@@ -41,6 +55,7 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import model as M
+from repro_torch.parallel import comm
 from repro_torch.tree import tree_leaves
 from repro_torch.runtime import pages as pg
 from repro_torch.runtime import sampling as smp
@@ -77,6 +92,80 @@ def init_slot_state(num_slots: int, stop_cap: int, table_len: int,
         pages=pg.init_pool(num_slots, table_len, num_pages, device),
         gens=(None,) * num_slots, draft=draft, n_drafted=z.clone(),
         n_accepted=z.clone())
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotBlock:
+    """The slots [lo, hi) this rank's forwards run and the `data` group
+    (None: no split, every slot here) that exchanges their results; see
+    the module docstring.  `per_layer` (an arch with a MoE layer): the
+    pool rows are exchanged in each paged layer, after its writes and
+    before its reads, not once after the forward.  A free slot's stale
+    block table may name a page that another rank's slot writes in the
+    same forward; the meshless Engine's padding row for it reads that
+    write, and MoE routes padding rows with the real ones, so capacity
+    drops would differ unless the write has landed."""
+    lo: int
+    hi: int
+    group: Any = None
+    per_layer: bool = False
+
+    def take(self, t):
+        """This block's rows of a per-slot tensor (or tuple)."""
+        return t[self.lo:self.hi] if self.group is not None else t
+
+    def _share(self, leaves, pv, positions, tensors) -> list:
+        """ONE all-gather over `data` of `tensors` (the block's rows) and
+        of the rows the block wrote into the pool `leaves` (each with a
+        leading period axis) through `pv` at `positions` (S, L); every
+        slot's rows then land in `leaves` through `pv`'s targets.
+        Returns `tensors` over every slot."""
+        rows = []
+        if leaves:
+            page, row, ok = attn.paged_targets(positions, pv)
+            L = positions.shape[1]
+            mine = slice(self.lo * L, self.hi * L)
+            rows = pg.rows_of(leaves, page[mine], row[mine])
+        got = comm.all_gather_many(rows + list(tensors), self.group)
+        if rows:
+            pg.put_rows(leaves, page, row, ok, got[:len(rows)])
+        return got[len(rows):]
+
+    def kv(self, pv, positions):
+        """The block's rows of a PagedKV / DenseKV bundle over every slot
+        that writes at `positions` (S, L); under `per_layer` the PagedKV
+        carries the layer exchange (`attention.PagedKV.sync`)."""
+        if self.group is None or pv is None:
+            return pv
+        if isinstance(pv, attn.DenseKV):
+            return dataclasses.replace(
+                pv, write_mask=self.take(pv.write_mask),
+                bound=None if pv.bound is None else self.take(pv.bound))
+        sync = None
+        if self.per_layer:
+            def sync(cache):
+                self._share([cache[k][None] for k in sorted(cache)], pv,
+                            positions, ())
+        return dataclasses.replace(
+            pv, tables=self.take(pv.tables), n_pages=self.take(pv.n_pages),
+            write_mask=self.take(pv.write_mask),
+            owned=None if pv.owned is None else self.take(pv.owned),
+            bound=None if pv.bound is None else self.take(pv.bound),
+            sync=sync)
+
+    def exchange(self, caches, pool_flags, pv, positions, *tensors):
+        """After a forward on the block, in ONE all-gather over `data`:
+        `tensors` (the block's rows) come back over every slot, and,
+        when `pv` is a PagedKV bundle over every slot (and the layers did
+        not exchange them), the pool rows each block wrote at `positions`
+        (S, L) land in this rank's pool through `pv`'s targets."""
+        if self.group is None:
+            return list(tensors)
+        leaves = [leaf for leaf, is_pool in zip(tree_leaves(caches),
+                                                tree_leaves(pool_flags))
+                  if is_pool] \
+            if isinstance(pv, attn.PagedKV) and not self.per_layer else []
+        return self._share(leaves, pv, positions, tensors)
 
 
 def _bundle(pool: pg.PagePool, max_seq: int, page_size: int, write_mask,
@@ -122,8 +211,9 @@ class DecodeWorker:
 
     def __init__(self, *, cfg, max_seq: int, decode_steps: int, sampling,
                  paged: bool, decode_kernel: bool, draft_len: int = 0,
-                 drafter=None, kv_flags=None):
+                 block: SlotBlock, drafter=None, kv_flags=None):
         self.cfg = cfg
+        self.block = block
         self.max_seq = max_seq
         self.page_size = cfg.page_size
         self.decode_steps = decode_steps
@@ -134,7 +224,7 @@ class DecodeWorker:
         self.drafter = drafter
         # pool leaves (paged) or KV leaves (dense) that rollback zeroes
         self.kv_flags = kv_flags
-        # pool leaves a transfer writes
+        # pool leaves a transfer (or a data rank's exchange) writes
         self.pool_flags = M.cache_pool_flags(cfg) if paged else None
 
     def tick(self, params, state: SlotState, caches):
@@ -144,7 +234,7 @@ class DecodeWorker:
         under speculation."""
         if self.draft_len:
             return self._spec_tick(params, state, caches)
-        max_seq = self.max_seq
+        max_seq, blk = self.max_seq, self.block
         pre_active = state.active
         toks, emits = [], []
         for _ in range(self.decode_steps):
@@ -153,13 +243,15 @@ class DecodeWorker:
             # Dense slots own their rows, so their writes need no mask
             pv = _bundle(state.pages, max_seq, self.page_size, state.active,
                          self.decode_kernel) if self.paged else None
-            logits, caches = M.decode_step(params, state.last_tok[:, None],
-                                           self.cfg, caches, state.pos,
-                                           paged=pv)
+            logits, caches = M.decode_step(
+                params, blk.take(state.last_tok)[:, None], self.cfg, caches,
+                blk.take(state.pos), paged=blk.kv(pv, state.pos[:, None]))
             # a slot whose request ended earlier in this tick still draws
             # from that request's generator; its stream is over, so the
             # extra draw changes nothing any request emits
-            sampled = smp.sample(logits, self.sampling, state.gens)
+            sampled = smp.sample(logits, self.sampling, blk.take(state.gens))
+            sampled, = blk.exchange(caches, self.pool_flags, pv,
+                                    state.pos[:, None], sampled)
             emit = state.active
             tok = torch.where(emit, sampled, state.last_tok)
             pos = torch.where(emit, state.pos + 1, state.pos)
@@ -184,7 +276,7 @@ class DecodeWorker:
         tokens / budget / max_seq as the sequential loop would (A3).
         Rejected draft rows are rolled back before the step ends (A4), and
         the drafter observes only the emitted tokens."""
-        max_seq, d = self.max_seq, self.draft_len
+        max_seq, d, blk = self.max_seq, self.draft_len, self.block
         L = d + 1
         dev = state.pos.device
         idx = torch.arange(L, dtype=torch.int32, device=dev)[None]
@@ -192,8 +284,10 @@ class DecodeWorker:
         toks, emits = [], []
         for _ in range(self.decode_steps):
             active = state.active
-            drafts = self.drafter.propose(state.draft, d)         # (S, d)
-            chunk = torch.cat([state.last_tok[:, None], drafts], dim=1)
+            # the block's drafts from the block's drafter state: (S/n, d)
+            drafts = self.drafter.propose(state.draft, d)
+            chunk = torch.cat([blk.take(state.last_tok)[:, None], drafts],
+                              dim=1)
             win = state.pos[:, None] + idx
             # rows a non-speculative run could never reach drop at write
             # time (the per-slot accepted-length bound)
@@ -203,10 +297,13 @@ class DecodeWorker:
                 else attn.DenseKV(write_mask=active, max_seq=max_seq,
                                   bound=bound)
             logits, _, caches = M.forward(params, {"tokens": chunk}, self.cfg,
-                                          caches=caches, cache_pos=state.pos,
-                                          paged=pv)
+                                          caches=caches,
+                                          cache_pos=blk.take(state.pos),
+                                          paged=blk.kv(pv, win))
             out, n_acc = smp.spec_verify(logits, drafts, self.sampling,
-                                         state.gens)
+                                         blk.take(state.gens))
+            out, n_acc = blk.exchange(caches, self.pool_flags, pv, win, out,
+                                      n_acc)
             is_stop = (out[..., None] == state.stop[:, None, :]).any(dim=-1)
             stop_at = torch.where(is_stop, idx, L).amin(dim=1)
             # accepted drafts + the correction/bonus, clamped per token as
@@ -221,15 +318,16 @@ class DecodeWorker:
             if self.paged:
                 pg.rollback(caches, self.kv_flags, pv, rej)
             else:
-                spc.rollback_dense(caches, self.kv_flags, rej, active,
-                                   max_seq)
+                spc.rollback_dense(caches, self.kv_flags, blk.take(rej),
+                                   blk.take(active), max_seq)
             last = torch.gather(out, 1, (n_emit - 1).clamp(0, L - 1)
                                 .long()[:, None])[:, 0]
             pos = state.pos + n_emit
             budget = state.budget - n_emit
             stopped = (is_stop & emit).any(dim=1)
             # the drafter learns only VERIFIED emissions, in order
-            ds = self.drafter.observe(state.draft, out, emit)
+            ds = self.drafter.observe(state.draft, blk.take(out),
+                                      blk.take(emit))
             state = state._replace(
                 last_tok=torch.where(active, last, state.last_tok),
                 pos=pos, budget=budget,
@@ -274,8 +372,10 @@ class PrefillWorker:
 
     def __init__(self, *, cfg, num_slots: int, max_seq: int,
                  prefill_chunk: int, stop_cap: int, sampling, paged: bool,
-                 base_seed: int, draft_len: int = 0, drafter=None):
+                 base_seed: int, block: SlotBlock, draft_len: int = 0,
+                 drafter=None):
         self.cfg = cfg
+        self.block = block
         self.num_slots = num_slots
         self.max_seq = max_seq
         self.page_size = cfg.page_size
@@ -311,7 +411,7 @@ class PrefillWorker:
         slots (the bundle's write_mask); the others, mid-decode or done
         with their prompt, keep theirs."""
         ns, C = tokens.shape
-        max_seq = self.max_seq
+        max_seq, blk = self.max_seq, self.block
         if txn is not None:
             admitting, shared, n_shared, new_pages, cow_src, ev, rg = txn
             pool = pg.admit_update(state.pages, admitting, shared, n_shared,
@@ -329,16 +429,21 @@ class PrefillWorker:
         states = [leaf for leaf, own in zip(tree_leaves(caches),
                                             self.per_slot) if own]
         for leaf, fill in zip(states, self.fills):
-            leaf.masked_fill_(_by_slot(first, leaf), fill)
+            leaf.masked_fill_(_by_slot(blk.take(first), leaf), fill)
         # unembed only each slot's true last prompt row
         idx = (true_lens - 1 - offsets).clamp(0, C - 1)
         pv = _bundle(state.pages, max_seq, self.page_size, valid) \
             if self.paged else attn.DenseKV(write_mask=valid, max_seq=max_seq)
-        logits, _, caches = M.forward(params, {"tokens": tokens}, self.cfg,
-                                      caches=caches, cache_pos=offsets,
-                                      gather_pos=idx, paged=pv)
+        positions = offsets[:, None] + torch.arange(
+            C, dtype=offsets.dtype, device=offsets.device)[None]
+        logits, _, caches = M.forward(params, {"tokens": blk.take(tokens)},
+                                      self.cfg, caches=caches,
+                                      cache_pos=blk.take(offsets),
+                                      gather_pos=blk.take(idx),
+                                      paged=blk.kv(pv, positions))
         final = valid & (offsets + C >= true_lens)
-        toks = smp.sample(logits[:, 0], self.sampling, gens)
+        toks = smp.sample(logits[:, 0], self.sampling, blk.take(gens))
+        toks, = blk.exchange(caches, self.pool_flags, pv, positions, toks)
         hit_stop = final & (toks[:, None] == stops).any(dim=1)
         act = final & (budgets0 > 0) & ~hit_stop & (true_lens < max_seq - 1)
         state = state._replace(
@@ -354,12 +459,11 @@ class PrefillWorker:
             # chunk, observe this chunk's real tokens in order, then the
             # sampled first token on the final chunk, so tick-time
             # proposals draft from the prompt (prompt-lookup decoding)
-            ds = self.drafter.reset(state.draft, first)
-            cmask = valid[:, None] & (
-                offsets[:, None] + torch.arange(C, device=tokens.device)[None]
-                < true_lens[:, None])
-            ds = self.drafter.observe(ds, tokens, cmask)
-            ds = self.drafter.observe(ds, toks[:, None], final[:, None])
+            ds = self.drafter.reset(state.draft, blk.take(first))
+            cmask = valid[:, None] & (positions < true_lens[:, None])
+            ds = self.drafter.observe(ds, blk.take(tokens), blk.take(cmask))
+            ds = self.drafter.observe(ds, blk.take(toks)[:, None],
+                                      blk.take(final)[:, None])
             state = state._replace(
                 draft=ds, n_drafted=torch.where(first, 0, state.n_drafted),
                 n_accepted=torch.where(first, 0, state.n_accepted))

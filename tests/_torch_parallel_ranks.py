@@ -9,6 +9,9 @@ This module imports torch and the port only, so a rank never loads JAX.
 """
 from __future__ import annotations
 
+import contextlib
+import time
+
 import torch
 
 from repro_torch.parallel import sharding as shd
@@ -153,16 +156,114 @@ def serve_streams(cfg, params, waves, device, **kw):
     return outs
 
 
-def engine_rank(rank, world, device, runs):
-    """Each run (cfg, params, waves, Engine kwargs) under its mesh; and the
-    refusals that need a mesh of more than one rank: ctx released after a
-    construction that raises, non-dividing heads."""
+def engine_snapshot(eng, results) -> dict:
+    """What the host of an Engine (the port's or the reference's) decided:
+    results without their times, telemetry and counters."""
+    snap = {"results": [(r.uid, tuple(int(t) for t in r.tokens),
+                         r.finish_reason, r.prefill_tokens, r.drafted_tokens,
+                         r.accepted_tokens, r.pages_shared) for r in results],
+            "prefix": eng.prefix_stats(), "n_syncs": eng.n_syncs,
+            "n_ticks": eng.n_ticks, "n_admit_calls": eng.n_admit_calls,
+            "kv_bytes_read": eng.kv_bytes_read}
+    spec = eng.spec_stats()
+    snap["spec"] = (spec["drafted"], spec["accepted"])
+    if eng.kv_layout == "paged":
+        snap.update(high_water=eng.pages_high_water,
+                    shared_high_water=eng.pages_shared_high_water,
+                    in_use=eng.pages_in_use)
+    return snap
+
+
+def pool_digest(eng) -> str | None:
+    """blake2b of every page-pool leaf's bytes (None under the dense
+    layout, which has no pool)."""
+    import hashlib
+
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves
+
+    if eng.kv_layout != "paged":
+        return None
+    h = hashlib.blake2b(digest_size=16)
+    for leaf, is_pool in zip(tree_leaves(eng.caches),
+                             tree_leaves(M.cache_pool_flags(eng.cfg))):
+        if is_pool:
+            h.update(leaf.contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def watched():
+    """Inside the block: the batch rows of every `model.forward` (the
+    serving model's and the drafter's) and the MoE assignments each
+    capacity dispatch dropped, collected in the dict it yields."""
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.parallel import ep
+
+    seen = {"rows": set(), "drops": 0}
+    forward, dispatch = M.forward, moe.dispatch_buffer
+
+    def rows_of(params, batch, *a, **k):
+        seen["rows"].add(int(batch["tokens"].shape[0]))
+        return forward(params, batch, *a, **k)
+
+    def drops_of(E, C, a, pos_c, keep, xk):
+        seen["drops"] += int((~keep).sum())
+        return dispatch(E, C, a, pos_c, keep, xk)
+
+    M.forward, moe.dispatch_buffer, ep.dispatch_buffer = \
+        rows_of, drops_of, drops_of
+    try:
+        yield seen
+    finally:
+        M.forward, moe.dispatch_buffer, ep.dispatch_buffer = \
+            forward, dispatch, dispatch
+
+
+def split_serve(cfg, params, waves, device, **kw) -> dict:
+    """`waves` through a fresh Engine (each wave submitted together, the
+    next after it drains) with every invariant check on: the streams, the
+    host's snapshot, the rows each forward ran, the MoE drops, this
+    rank's `rank_slots` and its pool's digest."""
+    from repro_torch.runtime.serve import Engine
+
+    t0 = time.perf_counter()
+    results, streams = [], []
+    with watched() as seen, Engine(cfg, params, device=device,
+                                   check_invariants=True, **kw) as eng:
+        for wave in waves:
+            reqs = [eng.submit(p, n) for p, n in wave]
+            results += eng.run()
+            streams += [list(r.out_tokens) for r in reqs]
+        return {"streams": streams, "snap": engine_snapshot(eng, results),
+                "rows": sorted(seen["rows"]), "drops": seen["drops"],
+                "rank_slots": eng.rank_slots, "digest": pool_digest(eng),
+                "checks": eng.n_invariant_checks,
+                "coords": {} if eng.mesh is None else
+                dict(zip(eng.mesh.axis_names, eng.mesh.coords)),
+                "seconds": time.perf_counter() - t0}
+
+
+def engine_rank(rank, world, device, runs, split_runs=None):
+    """Each run (cfg, params, waves, Engine kwargs) under its mesh; each
+    data-split run (cfg, params, waves, Engine kwargs, mesh spec) through
+    `split_serve`; and the refusals that need a mesh of more than one
+    rank: ctx released after a construction that raises, non-dividing
+    heads."""
     from repro_torch.runtime.serve import Engine
 
     out = {}
     for name, (cfg, params, waves, kw) in runs.items():
         out[name] = serve_streams(cfg, params, waves, device, **kw)
         out[name + "_ctx_after"] = shd.active() is not None
+    meshes = {"data=2,model=2": shd.build_mesh("data=2,model=2"),
+              "data=4": shd.build_mesh("data=4")}
+    out["split"] = {
+        name: split_serve(cfg, params, waves, device, mesh=meshes[spec],
+                          **kw)
+        for name, (cfg, params, waves, kw, spec) in (split_runs
+                                                     or {}).items()}
     cfg, params, _, _ = runs["granite"]
     eng = Engine(cfg, params, num_slots=1, max_seq=16, mesh="model=2",
                  decode_kernel=True, device=device)
