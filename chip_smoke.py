@@ -87,15 +87,21 @@ qwen3-moe-30b-a3b at 8 layers against 11c's streams and MoE drops,
 minicpm3-4b at 8 layers and xlstm-1.3b's first period against 10d's and
 12c's cut streams; each rank's forwards at 2 of the 4 slots, launches as
 meshless, collectives by axis as derived, the data ranks' pools
-bit-equal. Phase 16
+bit-equal; (i) ZeRO-3 training over `data` on the same ranks: granite-8b
+at full width and depth on data=2 (each rank 1/2 of every weight, of its
+int8 m and of its v, the weights gathered per use, gradients
+reduce-scattered), 2 steps, step 1's loss within 1e-3 relative of phase
+13b's, 253 launches and 763 collectives a rank and step as derived, the
+per-rank state and peak beside 13b's; and one step of the 6-layer cut
+on data=2,model=2 against its meshless loss. Phase 16
 holds the dry run (`launch.dryrun`, counted on the
 CPU's meta device) to live runs of the same step functions: granite-8b
 training's predicted peak within 10% of phase 13b's measured one, a q8
 decode step (B=8, 4096-row dense cache) and prefill (B=1, S=4096) on the
 card with their peaks within 10% (or 0.5 GB) of the prediction and their
 `bramac_matmul` launches equal to the counted calls, the 145
-collectives of the model=2 decode cell, and 15f's per-rank peak within
-10% of its prediction with its collectives as counted. Phase 2 also times the speculative shapes (the verify window at
+collectives of the model=2 decode cell, and 15f's and 15i(a)'s per-rank
+peaks within 10% of their predictions with their collectives as counted. Phase 2 also times the speculative shapes (the verify window at
 M=20; 2-bit at M=4 with the unpack of the packed weights), every
 minicpm3-4b linear and qwen3-moe-30b-a3b's attention linears and unembed;
 phases 3-4 also hold both decode kernels at qwen3-moe-30b-a3b's heads
@@ -3997,14 +4003,14 @@ def _rank_serve(cfg, params, prompts, new_tokens, mesh, warm=None,
     return run
 
 
-def _rank_train(mesh):
-    """15f on one rank: granite-8b at full width (36 layers, bf16, QAT
-    8/8, int8 m / bf16 v) trained on `mesh` as phase 13b trains it
-    meshless: 4 `Trainer.run_step`s on the same seeded weights and
-    batches, no checkpoint.  Each rank draws the whole weights and keeps
-    its blocks; the peak is read from the Trainer's construction on (the
-    whole draw freed), its residue (what the rank held before the draw)
-    beside it."""
+def _rank_train(mesh, layers=None, steps=4):
+    """15f and 15i on one rank: granite-8b at full width (bf16, QAT 8/8,
+    int8 m / bf16 v; `layers` of its 36, all by default) trained on `mesh`
+    as phase 13b trains it meshless: `steps` `Trainer.run_step`s on the
+    same seeded weights and batches, no checkpoint.  Each rank draws the
+    whole weights and keeps its blocks; the state is read once the draw is
+    freed and the peak from then on, each above the residue (what the
+    rank held before the draw)."""
     import tempfile
     from repro_torch.configs import get_config
     from repro_torch.core.bramac_linear import QuantConfig
@@ -4018,6 +4024,8 @@ def _rank_train(mesh):
     residue = torch.cuda.memory_allocated()
     q8 = QuantConfig(enabled=True, bits_w=8, bits_a=8)
     cfg = get_config("granite-8b").replace(quant=q8)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
     t0 = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                            "cuda")
@@ -4033,7 +4041,7 @@ def _rank_train(mesh):
         torch.cuda.reset_peak_memory_stats()
         pipe = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B))
         hist, times, launches, comms = [], [], [], []
-        for step in range(4):
+        for step in range(steps):
             batch = pipe.batch(step, "cuda")
             _zero_counts()
             comm.stats.reset()
@@ -4045,7 +4053,7 @@ def _rank_train(mesh):
             launches.append(_read_counts())
             comms.append(comm.stats.snapshot())
         peak = torch.cuda.max_memory_allocated()
-        layers = trainer.layout.cfg.num_layers
+        layers = cfg.num_layers
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -4746,7 +4754,11 @@ def data_rank(rank, world, device, jobs):
     9a's structured stream with the 2-bit model drafter (2 slots), 9b's
     n-gram serve and 8c's top-p serve; (d) qwen3-moe-30b-a3b at 11c's 8
     of 48 layers; (e) minicpm3-4b at 10d's 8 layers and xlstm-1.3b's
-    first period (8 of 48 layers, 12c's identity cut).  `jobs`: phase 8's
+    first period (8 of 48 layers, 12c's identity cut).  Phase 15i on the
+    same ranks: (b) the 6-layer cut trained ZeRO-3 on "data=2,model=2"
+    after (c), on all four; (a) granite-8b at full width and depth
+    trained ZeRO-3 on "data=2" last, on ranks 0 and 1 (ranks 2 and 3
+    wait, holding nothing but their context).  `jobs`: phase 8's
     prompts."""
     import warnings
     from repro_torch.configs import get_config
@@ -4781,6 +4793,11 @@ def data_rank(rank, world, device, jobs):
     out["c"] = _data_serve(cfg, params, prompts, 16, mesh4,
                            warm=prompts[:2])
     out["c_s"] = time.perf_counter() - t0
+    # 15i(b): ZeRO-3 training of the 6-layer cut on data=2,model=2
+    t0 = time.perf_counter()
+    out["zero_b"] = _rank_train(mesh4, layers=CUT_LAYERS,
+                                steps=ZERO_STEPS["b"])
+    out["zero_b_s"] = time.perf_counter() - t0
     if mesh2.coords is None:
         del params
         free()
@@ -4834,8 +4851,129 @@ def data_rank(rank, world, device, jobs):
     del params, pone
     free()
     out["e_s"] = time.perf_counter() - t0
+    # 15i(a): granite-8b at full width and depth, ZeRO-3 on data=2
+    t0 = time.perf_counter()
+    out["zero_a"] = _rank_train(mesh2, steps=ZERO_STEPS["a"])
+    out["zero_a_s"] = time.perf_counter() - t0
     comm.barrier()
     return out
+
+
+# 15i's steps a rank: granite-8b's full-width ZeRO-3 step on data=2 stages
+# ~74 GB a rank through the host (its gathers, re-gathers and
+# reduce-scatters: 25.5 s a step on an H100 80GB HBM3 at 700 W), so
+# (a) runs two steps, the first a warm-up, and (b), whose one step holds
+# the two-axis split, AdamW's reduce over both axes and the peak, one;
+# 13b and 15f run 4
+ZERO_STEPS = {"a": 2, "b": 1}
+
+
+def zero_train_collectives(layers: int, model: int = 1) -> dict:
+    """Per rank and step of granite-8b's QAT training at full width, ZeRO-3
+    on data=2 (and `model` > 1: tensor-parallel too): forward, one gather
+    of each layer's 7 linears, of the embedding and of the unembed;
+    backward, one re-gather of each whose weight autograd saved (all but
+    the embedding: its lookup saves the indices) and one reduce-scatter
+    of each's gradient; one mean of the loss and the norms' gradients;
+    AdamW's norm one sum an axis (at full width every 128-block lies on
+    one rank: no spread maxima).  Under model=2 also 15f's collectives
+    (`tp_train_collectives`, its norm sum included)."""
+    L = layers
+    out = {"all-gather": (7 * L + 2) + (7 * L + 1),
+           "reduce-scatter": 7 * L + 2, "all-reduce": 1 + 1}
+    if model > 1:
+        tp = tp_train_collectives(L)
+        out["all-gather"] += tp["all-gather"]
+        out["all-reduce"] += tp["all-reduce"]
+    return out
+
+
+def zero_cut_reference() -> float:
+    """15i(b)'s reference: step 1's loss of granite-8b's 6-layer cut
+    (phase 13b's draw, config and first batch, cut as phases 8-10 cut it)
+    meshless on the card, through the Trainer's own loss."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.bramac_linear import QuantConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import model as M
+    q8 = QuantConfig(enabled=True, bits_w=8, bits_a=8)
+    cfg = get_config("granite-8b").replace(quant=q8, num_layers=CUT_LAYERS)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    batch = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B)).batch(
+        0, "cuda")
+    with torch.no_grad():
+        loss = float(M.loss_fn(params, batch, cfg)[0])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return loss
+
+
+def _check_zero_train(label, runs, ref_loss, ref_what, model, report,
+                      replicated_gb=None):
+    """15i: the ranks' ZeRO-3 steps against the derivation (collectives by
+    kind, `bramac_matmul` launches, no decode launch) and step 1's loss
+    against `ref_loss` (1e-3 relative); every loss finite and equal on
+    every rank.  Returns the readings: ms a step (the steps after the
+    first; the one step of a one-step run), ms in collectives and bytes
+    staged through the host a step, state and peak GB a rank."""
+    L = runs[0]["layers"]
+    per_step = 7 * L + 1
+    want_calls = zero_train_collectives(L, model)
+    for r, run in enumerate(runs):
+        need(all(np.isfinite(x) for x in run["losses"] + run["grad_norms"]),
+             f"{label}: rank {r} non-finite losses {run['losses']} or grad "
+             f"norms {run['grad_norms']}")
+        need(run["losses"] == runs[0]["losses"],
+             f"{label}: rank {r}'s losses {run['losses']} != rank 0's")
+        for step, (got, c) in enumerate(zip(run["launches"], run["comm"])):
+            need(got["bramac_matmul"] == per_step and got["paged_decode"] ==
+                 0 == got["paged_decode_q"],
+                 f"{label}: rank {r} step {step} launches {got}")
+            need(c["kind_calls"] == want_calls,
+                 f"{label}: rank {r} step {step} collectives "
+                 f"{c['kind_calls']} != {want_calls}")
+            report["bramac_matmul"]["launches"] += got["bramac_matmul"]
+    mine = runs[0]["losses"][0]
+    rel = abs(mine - ref_loss) / abs(ref_loss)
+    need(rel <= 1e-3, f"{label}: step 1's loss {mine!r} is not within 1e-3 "
+         f"relative of {ref_what}'s {ref_loss!r}")
+    r0 = runs[0]
+    later = r0["times"][1:] or r0["times"]
+    step_ms = 1e3 * float(np.mean(later))
+    comm_ms = 1e3 * float(np.mean([c["seconds"] for c in
+                                   r0["comm"][1:] or r0["comm"]]))
+    staged = float(np.mean([c["staged_bytes"] for c in
+                            r0["comm"][1:] or r0["comm"]]))
+    peaks = [run["peak_gb"] - run["residue_gb"] for run in runs]
+    row = dict(losses=r0["losses"], grad_norms=r0["grad_norms"],
+               ref_loss=ref_loss, loss_rel=rel, step_ms=step_ms,
+               first_step_ms=1e3 * r0["times"][0],
+               tok_s=TRAIN_B * TRAIN_S / (step_ms / 1e3), comm_ms=comm_ms,
+               comm_share=comm_ms / step_ms, staged_gb=staged / 1e9,
+               peak_gb=peaks, state_gb=[run["state_gb"] for run in runs],
+               build_s=[run["build_s"] for run in runs],
+               collectives=want_calls, launches_per_step=per_step,
+               steps=len(r0["times"]))
+    beside = "" if replicated_gb is None else \
+        f" (13b's meshless step, the replicated layout's need: " \
+        f"{replicated_gb:.2f} GB)"
+    print(f"{label}: losses {[round(x, 4) for x in r0['losses']]}, grad "
+          f"norms {[round(x, 3) for x in r0['grad_norms']]}; step 1's loss "
+          f"{mine!r} vs {ref_what}'s {ref_loss!r} (relative difference "
+          f"{rel:.3e}); {step_ms:.1f} ms a step (step 1 "
+          f"{row['first_step_ms']:.1f} ms), {row['tok_s']:.1f} training "
+          f"tokens/s; per rank and step {per_step} bramac_matmul launches "
+          f"and {sum(want_calls.values())} collectives {want_calls} (as "
+          f"derived), {comm_ms:.1f} ms in collectives "
+          f"({100 * row['comm_share']:.1f}% of the step), "
+          f"{row['staged_gb']:.2f} GB staged through the host; state per "
+          f"rank {', '.join(f'{g:.2f}' for g in row['state_gb'])} GB, peak "
+          f"per rank {', '.join(f'{g:.2f}' for g in peaks)} GB{beside} "
+          f"(drawn and placed in "
+          f"{', '.join(f'{t:.1f}' for t in row['build_s'])} s)")
+    return row
 
 
 def _check_data_serve(label, runs, want, prompts, per_fwd, coll, decode,
@@ -4877,12 +5015,14 @@ def _check_data_serve(label, runs, want, prompts, per_fwd, coll, decode,
 def phase_data_split(report):
     """Phase 15h: the mesh Engine's slot split over `data` on DATA_RANKS
     ranks sharing the card (`data_rank`), every stream and total against
-    its meshless phase."""
+    its meshless phase; phase 15i: ZeRO-3 training on the same ranks,
+    against phase 13b and the 6-layer cut's meshless loss."""
     from repro_torch.configs import get_config
     from repro_torch.parallel import comm
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
+    cut_loss = zero_cut_reference()
     outs = comm.spawn(data_rank, DATA_RANKS,
                       {"prefix_prompts": report["prefix_ref"]["prompts"]})
     two = outs[:2]
@@ -4986,13 +5126,28 @@ def phase_data_split(report):
         xlstm_traffic(xc.vocab_size)[0],
         lambda run: _recurrent_launches(xc) * run["forwards"],
         lambda run: run["forwards"], 0, report)
+    # 15i: ZeRO-3 training, (a) at full depth on data=2 against 13b,
+    # (b) the 6-layer cut on data=2,model=2 against its meshless loss
+    tr = report["train"]
+    zero = {"a": _check_zero_train(
+        "phase 15i(a) train granite-8b full width (36 layers, QAT 8/8, "
+        f"int8 m / bf16 v, B={TRAIN_B} S={TRAIN_S}) ZeRO-3 on data=2, 2 "
+        "ranks on the card", [o["zero_a"] for o in two], tr["losses"][0],
+        "13b", 1, report, replicated_gb=tr["peak_gb"] - tr["residue_gb"])}
+    zero["b"] = _check_zero_train(
+        f"phase 15i(b) train granite-8b full width ({L} of 36 layers, QAT "
+        f"8/8) ZeRO-3 on data=2,model=2, 4 ranks on the card",
+        [o["zero_b"] for o in outs], cut_loss, "the cut's meshless step",
+        2, report)
+    rows["zero"] = zero
     parts = {k: [round(o[k], 1) for o in outs if k in o]
-             for k in ("c_s", "a_s", "b_s", "d_s", "e_s")}
+             for k in ("c_s", "zero_b_s", "a_s", "b_s", "d_s", "e_s",
+                       "zero_a_s")}
     spent = time.perf_counter() - t_phase
     rows["parts_s"] = parts
     report["data_split"] = rows
-    print(f"phase 15h took {spent:.1f} s on {DATA_RANKS} ranks (per rank, "
-          f"s: {parts}); card {smi_line()}")
+    print(f"phase 15h-i took {spent:.1f} s on {DATA_RANKS} ranks (per "
+          f"rank, s: {parts}); card {smi_line()}")
 
 
 def _gb(x) -> float:
@@ -5058,7 +5213,9 @@ def phase_dryrun(report):
     jamba's against the derivation),
     beside phase 15c's staged bytes; (d) phase 15f's tensor-parallel
     training step on a dry model=2: the per-rank peak within 10% of each
-    rank's measured one, collectives and kernel calls equal to 15f's.  The meta count leaves out the cuBLAS
+    rank's measured one, collectives and kernel calls equal to 15f's;
+    (e) phase 15i(a)'s ZeRO-3 training step on a dry data=2, the same
+    three checks against 15i(a)'s.  The meta count leaves out the cuBLAS
     workspace (CUBLAS_WORKSPACE_CONFIG :4096:8, 32 MiB) and the
     allocator's segments; it rounds each storage to the allocator's
     512-byte granule (`peak_rounded`)."""
@@ -5236,6 +5393,38 @@ def phase_dryrun(report):
           f"{sum(calls.values())} collectives {calls} and "
           f"{rec['kernel_calls_per_dev']['bramac_matmul']} bramac_matmul "
           f"calls a step, as 15f counted them")
+    # (e) ZeRO-3 training: phase 15i(a)'s configuration on a dry data=2
+    zero = report["data_split"]["zero"]["a"]
+    rec = dry_record(cfg, {"kind": "train", "batch": TRAIN_B,
+                           "seq": TRAIN_S}, mesh="data=2")
+    print("  " + _dry_line(f"16e granite-8b train B={TRAIN_B} S={TRAIN_S} "
+                           f"data=2 (per rank; {rec['placement']})", rec))
+    pred = _gb(rec["memory"]["peak_rounded_bytes_per_dev"])
+    calls = rec["collective_calls_per_dev"]
+    for r, meas in enumerate(zero["peak_gb"]):
+        need(within(meas, pred, 0.10),
+             f"16e: predicted per-rank training peak {pred:.2f} GB is not "
+             f"within 10% of 15i(a) rank {r}'s measured {meas:.2f} GB")
+    need(calls == zero["collectives"],
+         f"16e: counted collectives {calls} != 15i(a)'s {zero['collectives']}")
+    need(rec["kernel_calls_per_dev"]["bramac_matmul"] ==
+         zero["launches_per_step"], f"16e: counted kernel calls "
+         f"{rec['kernel_calls_per_dev']} != 15i(a)'s "
+         f"{zero['launches_per_step']}")
+    out["zero_train"] = dict(
+        predicted_peak_gb=pred, measured_peak_gb=zero["peak_gb"],
+        collectives=calls, bytes=rec["collective_bytes_per_dev"],
+        roofline=rec["roofline"],
+        args_gb=_gb(rec["memory"]["args_bytes_per_dev"]))
+    print(f"phase 16e granite-8b train on data=2 (ZeRO-3): predicted "
+          f"per-rank peak {pred:.2f} GB vs 15i(a)'s measured "
+          f"{', '.join(f'{g:.2f}' for g in zero['peak_gb'])} GB "
+          f"({', '.join(f'{100 * (pred - g) / g:+.2f}%' for g in zero['peak_gb'])}); "
+          f"state {out['zero_train']['args_gb']:.2f} GB a rank; "
+          f"{sum(calls.values())} collectives {calls} (result bytes "
+          f"{rec['collective_bytes_per_dev']}) and "
+          f"{rec['kernel_calls_per_dev']['bramac_matmul']} bramac_matmul "
+          f"calls a step, as 15i(a) counted them")
     report["dryrun"] = out
     spent = time.perf_counter() - t_phase
     report["phase16_s"] = spent

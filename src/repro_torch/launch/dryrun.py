@@ -43,8 +43,11 @@ What differs from the reference:
   rules, weights and mixers (serve rules, `shard_params` with
   `serve_whole`, `local_config`: every layer kind but xattn);
   training runs the Trainer's own layout (`trainer.TrainLayout`: train
-  rules, each rank's blocks of the params and AdamW state, replicated over
-  `data`), so the forward's and the backward's collectives are counted;
+  rules, each rank's blocks of the params and AdamW state; a `data` axis
+  is ZeRO-3, every leaf the rules cut on its `fsdp` dim held 1/n and
+  gathered per use), so the forward's gathers, the backward's re-gathers
+  and reduce-scatters and the tensor-parallel collectives are counted; a
+  training record says which placement it counted (`placement`);
   xattn under a mesh, and training a layer other than attn+dense under
   a model axis, raise the port's own errors (`status: error`).  The
   256/512-chip production meshes mean nothing on one card and are not
@@ -89,10 +92,10 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig = OPT_CFG,
                     mark=lambda: None, layout=None):
     """The Trainer's step (`trainer.TrainLayout.step`, which
     `Trainer.run_step` runs), with `mark()` called between its phases:
-    `model.loss_fn`, its backward, `adamw.apply` with the gradients
-    released (under a `data` axis the averaged gradients come in one
-    phase).  `layout` (default: `cfg` on one card) holds the mesh and the
-    parameters' splits, which `specs.state_specs` notes on it."""
+    `model.loss_fn`, its backward with the data-parallel mean,
+    `adamw.apply` with the gradients released.  `layout` (default: `cfg`
+    on one card) holds the mesh and the parameters' splits, which
+    `specs.state_specs` notes on it."""
     layout = layout or trainer.TrainLayout(cfg)
 
     def train_step(params, opt_state, batch):
@@ -391,8 +394,22 @@ def predict(cfg, info: dict, quant_bits: int = 0, mesh: str | None = None,
     c, counted = count(cfg, info, quant_bits, m, probe)
     rec = {"mesh": mesh_tag(mesh), "ranks": ranks,
            "count_s": round(time.perf_counter() - t0, 2)}
+    if info["kind"] == "train":
+        rec["placement"] = placement(sizes)
     rec.update(record(cfg, info, c, counted, ranks, dev.card(), b_rank))
     return rec
+
+
+def placement(sizes: dict) -> str:
+    """The training placement a mesh of `sizes` counts, in words."""
+    parts = []
+    if sizes.get("data", 1) > 1:
+        parts.append(f"ZeRO-3 over data={sizes['data']} (params, int8 m "
+                     f"and v cut on the fsdp dims, gathered per use, "
+                     f"gradients reduce-scattered)")
+    if sizes.get("model", 1) > 1:
+        parts.append(f"tensor-parallel over model={sizes['model']}")
+    return "; ".join(parts) or "whole state on one card"
 
 
 def run_cell(arch: str, shape: str, variant: str = "baseline",

@@ -12,7 +12,8 @@ sliced as the mesh Engine slices them (`sharding.shard_params`,
 (`sharding.local_config`: its query and KV heads, its d_ff and its
 recurrent mixers' widths), the batch split over `data`, the AdamW moments
 following their parameters; a training step's state is placed by the
-Trainer's own layout.
+Trainer's own layout (ZeRO-3 over `data`: each rank's block of every leaf
+the rules cut on its `fsdp` dim).
 """
 from __future__ import annotations
 
@@ -86,8 +87,8 @@ def param_specs(cfg, quant_bits: int = 0) -> dict:
 def state_specs(cfg, opt_cfg: adamw.AdamWConfig, layout=None):
     """(params, opt_state) on meta: the whole tree, or one rank's under a
     training `layout` (`trainer.TrainLayout`: its blocks of the params, as
-    the Trainer places them, replicated over `data`, and the AdamW state
-    of those blocks; the layout notes the splits)."""
+    the Trainer places them, cut over `model` and, ZeRO-3, over `data`,
+    and the AdamW state of those blocks; the layout notes the splits)."""
     params = param_specs(cfg)
     with FastMeta():
         if layout is not None:

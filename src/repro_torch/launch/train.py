@@ -13,10 +13,12 @@ with the BRAMAC fake-quant forward (QAT, straight-through gradients).
 The flags are the reference launcher's.  `--data D` and `--model N`
 train on a data x model mesh of D·N ranks (`parallel.comm.spawn`: gloo,
 every rank on the card, all on cuda:0 on one H100, with host staging):
-each rank draws the same whole weights and keeps its `model` blocks of
-them, takes B/D rows of each batch, and the gradients are averaged over
-`data` before AdamW (`runtime.trainer`); rank 0 prints and writes the
-checkpoints, which hold whole leaves.  A `model` axis trains attn+dense
+each rank draws the same whole weights and keeps its blocks of them (its
+`model` blocks and, ZeRO-3, 1/D of every leaf cut on its `fsdp` dim, the
+AdamW state alike), takes B/D rows of each batch, gathers each block's
+weights per use, and gets its gradients reduce-scattered over `data`
+(`runtime.trainer`); every rank joins a checkpoint's gather and rank 0
+prints and writes them, whole leaves.  A `model` axis trains attn+dense
 archs; an attn+moe arch or a layer the mesh Engine does not serve raises
 NotImplementedError before any rank starts.  The last line reads as the
 reference's: `loss a -> b over n steps; straggler events: k`.
@@ -93,7 +95,7 @@ def _train(args, device, mesh=None, report=True):
     tcfg = TrainerConfig(ckpt_dir=args.ckpt_dir, ckpt_every=25,
                          opt=adamw.AdamWConfig(lr=args.lr))
     trainer = Trainer(cfg, tcfg, params, mesh=mesh)
-    del params                          # a model axis keeps its blocks only
+    del params                          # a mesh rank keeps its blocks only
     trainer.restore_latest()
     pipe = SyntheticLM(DataConfig(cfg.vocab_size, args.seq, args.batch))
     hist = trainer.train(pipe, args.steps)

@@ -23,6 +23,7 @@ from repro_torch.core.bramac_linear import QuantConfig, tree_prepare_serving
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import cross_entropy, embed, init_embed, \
     init_rmsnorm, rmsnorm, unembed
+from repro_torch.parallel import sharding
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -52,7 +53,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 def _inputs_to_hidden(params, batch, cfg):
     if "frame_embeds" in batch:                      # audio stub frontend
         return batch["frame_embeds"].to(cfg.compute_dtype)
-    return embed(params["embed"], batch["tokens"])
+    emb = params["embed"]
+    return embed({"embedding": sharding.gather_leaf(
+        emb["embedding"], "embed/embedding")}, batch["tokens"])
 
 
 def forward(params, batch, cfg: ModelConfig, caches=None, cache_pos=None,
@@ -64,7 +67,10 @@ def forward(params, batch, cfg: ModelConfig, caches=None, cache_pos=None,
     returns (B, 1, vocab) logits like last_only.
     paged: an attention.PagedKV bundle — caches hold shared page pools and
     attention reads/writes KV rows through its block tables; with
-    decode_kernel set, S=1 reads go through the paged-decode kernels."""
+    decode_kernel set, S=1 reads go through the paged-decode kernels.
+    Under a ZeRO-3 training ctx the embedding, each block's weights and
+    the unembed are gathered whole right before their use
+    (`sharding.gather_leaf`)."""
     x = _inputs_to_hidden(params, batch, cfg)
     B, S = x.shape[:2]
     ar = torch.arange(S, dtype=torch.int32, device=x.device)[None]
@@ -85,7 +91,10 @@ def forward(params, batch, cfg: ModelConfig, caches=None, cache_pos=None,
         idx = gather_pos.long()[:, None, None].expand(B, 1, x.shape[-1])
         x = torch.gather(x, 1, idx)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(params["embed"], x, cfg.quant), aux, caches
+    emb = params["embed"]
+    emb = {**emb, "unembed": sharding.gather_leaf(emb["unembed"],
+                                                   "embed/unembed")}
+    return unembed(emb, x, cfg.quant), aux, caches
 
 
 def loss_fn(params, batch, cfg: ModelConfig, aux_weight: float = 0.01):

@@ -18,8 +18,10 @@ rank's block of the batch (`sharding.ShardingCtx.split_batch`, the mesh
 Engine's slot split) the layer gathers its input over `data` first, runs
 on the whole batch and keeps its block's rows: the reference takes the
 expert einsum's input replicated over `data`, so routing and capacity see
-every row of the call.  Nothing here reads a device value on the
-host: the scatter adds zeros for dropped rows instead of masking them out.
+every row of the call (a ZeRO-3 training rank too: the gather's backward
+sums every rank's gradient of its rows, `comm.all_gather_grad`).
+Nothing here reads a device value on the host: the scatter adds zeros
+for dropped rows instead of masking them out.
 """
 from __future__ import annotations
 
@@ -112,7 +114,7 @@ def moe(p, x, cfg, capacity_factor: float | None = None,
         # a data rank's block of the batch: route the whole batch
         n = x.shape[0]
         i = sharding.active().mesh.index("data")
-        whole = comm.all_gather(x, group, dim=0)
+        whole = comm.all_gather_grad(x, group, dim=0)
         with sharding.use(dataclasses.replace(sharding.active(),
                                               split_batch=False)):
             out, aux = moe(p, whole, cfg, capacity_factor, dispatch)

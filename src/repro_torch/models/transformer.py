@@ -8,9 +8,13 @@ pattern position i are stacked over `n_periods` as in the reference
 (`params["pos{i}"][leaf]` with a leading period axis); `stack_apply` walks
 the periods in a Python loop over period views, each stacked leaf unbound
 once (so autograd gathers one stacked gradient per leaf, not one
-full-size gradient per period), and sums the MoE aux losses.  Attention
-caches are written in place; a recurrent mixer's state (a tuple, as in
-the reference) is copied into its cache slice after each call.
+full-size gradient per period), and sums the MoE aux losses.  Under a
+ZeRO-3 training ctx each period's view of a leaf cut over `data` is
+gathered whole right before its block runs (`sharding.gather_uses`), so
+no more than one period's whole weights are gathered at a time.
+Attention caches are written in place; a recurrent mixer's state (a
+tuple, as in the reference) is copied into its cache slice after each
+call.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import init_mlp, init_rmsnorm, mlp, rmsnorm
+from repro_torch.parallel import sharding
 from repro_torch.tree import tree_map
 
 MIXERS = ("attn", "mla", "xattn", "mamba", "mlstm", "slstm")
@@ -235,7 +240,9 @@ def unstack(tree, n: int) -> list:
 def stack_apply(params, x, cfg, *, positions, vision_embeds=None,
                 caches=None, cache_pos=None, paged=None):
     """Walk the periods in order.  Returns (x, aux_total, caches); caches
-    are updated in place through per-period views."""
+    are updated in place through per-period views.  Each block's weights
+    are gathered for its use under a ZeRO-3 ctx (`sharding.gather_uses`;
+    nothing without one)."""
     n = cfg.n_periods
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     p_views = [unstack(params[f"pos{i}"], n)
@@ -244,7 +251,9 @@ def stack_apply(params, x, cfg, *, positions, vision_embeds=None,
         for i, spec in enumerate(cfg.layer_pattern):
             cache_i = None if caches is None else \
                 tree_map(lambda a: a[period], caches[f"pos{i}"])
-            x, aux, _ = block_apply(p_views[i][period], x, cfg, spec,
+            p = sharding.gather_uses(p_views[i][period], f"layers/pos{i}",
+                                     drop=1)
+            x, aux, _ = block_apply(p, x, cfg, spec,
                                     positions=positions,
                                     vision_embeds=vision_embeds,
                                     cache=cache_i, cache_pos=cache_pos,

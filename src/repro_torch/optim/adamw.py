@@ -13,21 +13,23 @@ one slice's, not the tree's: granite-8b's stacked w_gate alone
 is elementwise and every slice boundary is a block boundary, so the
 result is the same bit for bit whatever the slice size.
 
-On a tensor-parallel mesh each rank updates its own block of every
-`model`-split leaf (`splits`: {path: `sharding.Split`}).  The global
-norm sums the split leaves' squares over the axis (one `all_reduce`) and
-counts the replicated ones once.  The int8 first moment keeps the whole
-leaf's block grid, so the update equals the meshless one bit for bit and
-a checkpoint holds the reference's layout whatever the mesh:
+On a training mesh each rank updates its own block of every split leaf
+(`splits`: {path: `sharding.Split`}, cut over `model`, over `data` by
+ZeRO-3, or both; `groups`: {mesh axis: process group}).  The global norm
+sums each leaf's squares over every axis it is cut over (one `all_reduce`
+an axis, for all the leaves cut over it) and counts a leaf once along the
+axes it is whole on.  The int8 first moment keeps the whole leaf's block
+grid, so the update equals the meshless one bit for bit and a checkpoint
+holds the reference's layout whatever the mesh:
   * a block whose 128 values all lie on one rank (every block of a leaf
     whose runs, `Split.run`, are whole blocks: granite-8b at full width
-    on model=2) is updated locally, and the rank's Q8 is the ordinary
-    one of its block, whose blocks are the whole leaf's;
+    on model=2, data=2 or both) is updated locally, and the rank's Q8 is
+    the ordinary one of its block, whose blocks are the whole leaf's;
   * otherwise (the smoke widths: wq's 32 local columns of 64) the rank
     keeps its values in its own flat order, (ceil(local/128), 128), and
     the whole leaf's scales, (n_blocks, 1); each step's new block absmax
-    is the max of every rank's partial one: one `all_reduce` max over the
-    axis for all such leaves together.
+    is the max of every rank's partial one: one `all_reduce` max an axis
+    for all such leaves cut over it.
 `gather_q` / `gather_scale` and `take_q` / `take_scale` convert a rank's
 Q8 to the whole leaf's and back (checkpoints).
 """
@@ -130,26 +132,43 @@ def init(params: Any, cfg: AdamWConfig, splits: dict | None = None) -> dict:
             "v": tree_map_with_path(lambda _, p: zeros_v(p), params)}
 
 
-def global_norm(grads, splits: dict | None = None, group=None
+def _over_axes(parts: dict, groups, op: str) -> dict:
+    """{axes: tensor} with each tensor reduced (`op`) over every mesh axis
+    of its key: one `all_reduce` an axis, of all the tensors whose key
+    holds it, packed."""
+    for axis in sorted({a for key in parts for a in key}):
+        keys = [k for k in parts if axis in k]
+        red = comm.all_reduce(torch.cat([parts[k].reshape(-1) for k in keys]),
+                              (groups or {}).get(axis), op)
+        for k, r in zip(keys, torch.split(red, [parts[k].numel()
+                                                for k in keys])):
+            parts[k] = r.reshape(parts[k].shape)
+    return parts
+
+
+def global_norm(grads, splits: dict | None = None, groups=None
                 ) -> torch.Tensor:
     """sqrt of the sum of squares of every gradient, in f32; each leaf is
     summed in fixed flat chunks, so no full-size f32 copy is made.  With
-    `splits`, the split leaves' sum is reduced over `group` (one
-    `all_reduce`) and the replicated leaves are counted once."""
+    `splits`, the sums of the leaves cut over some mesh axes are reduced
+    over those axes (`groups`: {axis: group}) and every leaf is counted
+    once along the axes it is whole on."""
     splits = splits or {}
-    total = {False: None, True: None}          # by: the leaf is split
+    total = {}                      # by: the axes the leaf is cut over
     for path, g in tree_items(grads):
-        key = splits.get(path) is not None
+        s = splits.get(path)
+        key = () if s is None else s.axes
         flat = g.reshape(-1)
-        for s in range(0, flat.numel(), NORM_CHUNK):
+        for c in range(0, flat.numel(), NORM_CHUNK):
             part = torch.sum(torch.square(
-                flat[s:s + NORM_CHUNK].to(torch.float32)))
-            total[key] = part if total[key] is None else total[key] + part
-    whole, split = total[False], total[True]
-    if split is not None:
-        split = comm.all_reduce(split, group, "sum")
-        whole = split if whole is None else whole + split
-    return torch.sqrt(whole)
+                flat[c:c + NORM_CHUNK].to(torch.float32)))
+            total[key] = part if key not in total else total[key] + part
+    total = _over_axes({k: total[k].reshape(1) for k in sorted(total)},
+                       groups, "sum")
+    out = None
+    for k in sorted(total):
+        out = total[k][0] if out is None else out + total[k][0]
+    return torch.sqrt(out)
 
 
 def _m_run(cfg, m: Q8, gs, s, e, blk):
@@ -172,12 +191,13 @@ def _blocks_of(split, s, e, device) -> torch.Tensor:
     return torch.div(split.whole_index(j), BLOCK, rounding_mode="floor")
 
 
-def _spread_amax(cfg, leaves, clip, group) -> list:
+def _spread_amax(cfg, leaves, clip, groups) -> list:
     """For each leaf (g, m, split) whose blocks span ranks: the whole
-    leaf's new block absmax, each rank's partial maxima reduced in one
-    `all_reduce` max for all of them."""
-    parts = []
-    for g, m, split in leaves:
+    leaf's new block absmax, each rank's partial maxima reduced over the
+    axes the leaf is cut over (one `all_reduce` max an axis for all the
+    leaves cut over it)."""
+    parts = {}
+    for j, (g, m, split) in enumerate(leaves):
         gf = g.reshape(-1)
         amax = torch.zeros(_n_blocks(math.prod(split.whole)),
                            dtype=torch.float32, device=g.device)
@@ -187,24 +207,29 @@ def _spread_amax(cfg, leaves, clip, group) -> list:
             ms = _m_run(cfg, m, gf[s:e].to(torch.float32) * clip, s, e,
                         blk)
             amax.scatter_reduce_(0, blk, torch.abs(ms), "amax")
-        parts.append(amax)
-    if not parts:
-        return []
-    red = comm.all_reduce(torch.cat(parts), group, "max")
-    return list(torch.split(red, [p.numel() for p in parts]))
+        parts.setdefault(split.axes, []).append((j, amax))
+    packed = _over_axes({k: torch.cat([a for _, a in v])
+                         for k, v in parts.items()}, groups, "max")
+    out = [None] * len(leaves)
+    for k, v in parts.items():
+        for (j, _), a in zip(v, torch.split(packed[k],
+                                            [a.numel() for _, a in v])):
+            out[j] = a
+    return out
 
 
 @torch.no_grad()
 def apply(params: Any, state: dict, grads: Any, cfg: AdamWConfig,
-          splits: dict | None = None, group=None):
+          splits: dict | None = None, groups=None):
     """One AdamW step, in place on `params` and `state`.  Returns
-    (params, state, {"grad_norm"}).  `splits` ({path: Split}) and `group`
-    (the `model` axis line) describe a tensor-parallel rank's tree."""
+    (params, state, {"grad_norm"}).  `splits` ({path: Split}) and `groups`
+    ({mesh axis: process group}, a mesh's `groups`) describe a training
+    rank's tree."""
     splits = splits or {}
     slice_elems = SLICE_ELEMS
     state["step"] += 1
     step = state["step"].to(torch.float32)
-    gnorm = global_norm(grads, splits, group)
+    gnorm = global_norm(grads, splits, groups)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     bc1 = 1 - torch.pow(torch.full_like(step, cfg.b1), step)
     bc2 = 1 - torch.pow(torch.full_like(step, cfg.b2), step)
@@ -225,7 +250,7 @@ def apply(params: Any, state: dict, grads: Any, cfg: AdamWConfig,
                 f"blocks span ranks, so it keeps the whole leaf's grid "
                 f"(adamw.init with the splits)")
         spread.append((g, m, split))
-    amaxes = iter(_spread_amax(cfg, spread, clip, group))
+    amaxes = iter(_spread_amax(cfg, spread, clip, groups))
     for (path, p), g, m, v in rows:
         decay = p.ndim >= 2                       # matrices only
         split = splits.get(path)
@@ -263,23 +288,24 @@ def apply(params: Any, state: dict, grads: Any, cfg: AdamWConfig,
 
 
 # ---------------------------------------------------------------------------
-# a tensor-parallel rank's first moment <-> the whole leaf's
+# a training rank's first moment <-> the whole leaf's
 # ---------------------------------------------------------------------------
 
 def gather_q(q: torch.Tensor, split, gather) -> torch.Tensor:
     """The whole leaf's int8 blocks from this rank's: its values in its
-    block's shape, joined along the split dim by `gather(t, dim)`."""
+    block's shape, joined cut by cut by `gather(t, cut)`."""
     local = q.reshape(-1)[:math.prod(split.local)].reshape(split.local)
-    return _blocked(gather(local, split.dim).reshape(-1))
+    return _blocked(split.join(local, gather).reshape(-1))
 
 
 def gather_scale(scale: torch.Tensor, split, gather) -> torch.Tensor:
     """The whole leaf's block scales: a rank whose blocks are the whole
-    leaf's holds `runs` rows of run/128 of them, joined across ranks; a
-    rank of a spread leaf holds them all."""
+    leaf's holds its block of the leaf's block grid (`Split.grid`), joined
+    across ranks; a rank of a spread leaf holds them all."""
     if _spread(split):
         return scale
-    return gather(scale.reshape(split.runs, -1), 1).reshape(-1, 1)
+    grid = split.grid(BLOCK)
+    return grid.join(scale.reshape(grid.local), gather).reshape(-1, 1)
 
 
 def take_q(q: torch.Tensor, split) -> torch.Tensor:
@@ -290,9 +316,8 @@ def take_q(q: torch.Tensor, split) -> torch.Tensor:
 def take_scale(scale: torch.Tensor, split) -> torch.Tensor:
     if _spread(split):
         return scale
-    per = split.run // BLOCK
-    return scale.reshape(split.runs, -1).narrow(
-        1, split.i * per, per).reshape(-1, 1)
+    grid = split.grid(BLOCK)
+    return grid.take(scale.reshape(grid.whole)).reshape(-1, 1)
 
 
 def lr_schedule(step, base_lr, warmup=100, total=10_000, min_frac=0.1):

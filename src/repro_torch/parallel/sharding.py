@@ -15,9 +15,13 @@ tp) on the (in, out) dims of column-parallel weights, (tp, fsdp) on
 row-parallel ones, experts on (tp→EP, fsdp, ·), everything else
 replicated; stacked layer params get a leading None for the period axis.
 The rules are the reference's: attention, the dense FF, MoE, MLA, mamba
-and xLSTM.  `serve_rules` and `train_rules` map `fsdp` to nothing
-(weights split over `model` only); `leaf_splits` notes each leaf's
-`Split` for the training state's optimizer and checkpoints.
+and xLSTM.  `serve_rules` maps `fsdp` to nothing (weights split over
+`model` only, replicated over `data`); `train_rules` maps it to the DP
+axes, as `default_rules` does: training is ZeRO-3, every large weight cut
+once more over `data` on the dim the rules name `fsdp`.  `leaf_splits`
+notes each leaf's `Split` (one `Cut` per mesh axis it is cut over) for
+the training state's optimizer and checkpoints, and `gather_leaf` gathers
+a leaf's `fsdp` cut back for one use (`ShardingCtx.zero`).
 
 Three weights concatenate parts along their output columns: mamba's
 `w_in` ([x | z]), the mLSTM's and sLSTM's `w_up` ([xm | z], [a | b]) and
@@ -97,8 +101,10 @@ def _rank_grid(sizes):
 
 def _make_mesh(axes, sizes) -> Mesh:
     """The mesh over the first prod(sizes) ranks of the default group, and
-    its axis-line groups.  Every rank of the default group takes part in
-    every `new_group` call, members or not, in the same order."""
+    its axis-line groups (each with `comm.LANES - 1` more groups over the
+    same ranks: the lanes of its large collectives).  Every rank of the
+    default group takes part in every `new_group` call, members or not,
+    in the same order."""
     cells = _rank_grid(sizes)
     rank = dist.get_rank() if dist.is_initialized() else 0
     coords = cells[rank] if rank < len(cells) else None
@@ -111,8 +117,11 @@ def _make_mesh(axes, sizes) -> Mesh:
             lines.setdefault(c[:a] + c[a + 1:], []).append(r)
         for key in sorted(lines):
             g = dist.new_group(lines[key])
+            lanes = [dist.new_group(lines[key])
+                     for _ in range(comm.LANES - 1)]
             if coords is not None and coords[:a] + coords[a + 1:] == key:
                 groups[axis] = comm.name_group(g, axis)
+                comm.add_lanes(g, lanes)
     return Mesh(tuple(axes), tuple(sizes), coords, groups)
 
 
@@ -120,11 +129,15 @@ def _make_mesh(axes, sizes) -> Mesh:
 class ShardingCtx:
     """A mesh and its rules.  `split_batch`: the forwards under this ctx
     run on this rank's `data_rows` block of the batch (the mesh Engine's
-    slot split), so a layer whose result depends on every row of the call
-    (MoE routing and capacity) gathers its input over `data` first."""
+    slot split, a training rank's rows), so a layer whose result depends
+    on every row of the call (MoE routing and capacity) gathers its input
+    over `data` first.  `zero`: {param path: `Cut`} of the leaves a ZeRO-3
+    training rank holds cut over a DP axis, which the model gathers whole
+    right before each use (`gather_leaf`); empty outside training."""
     mesh: Mesh
     rules: dict
     split_batch: bool = False
+    zero: dict = dataclasses.field(default_factory=dict)
 
     def resolve(self, *logical) -> tuple:
         """The physical axes (or None) of each logical axis name."""
@@ -159,13 +172,11 @@ def serve_rules(multi_pod: bool) -> dict:
 
 
 def train_rules(multi_pod: bool) -> dict:
-    """Training sharding profile: weights (and their AdamW moments)
-    tensor-parallel over `model` only, replicated over the DP axes.  The
-    reference trains ZeRO-3 (`fsdp` over the DP axes); that placement is
-    ROADMAP queue 1 item 16, so `fsdp` maps to nothing here."""
-    r = default_rules(multi_pod)
-    r["fsdp"] = None
-    return r
+    """Training sharding profile, the reference's `default_rules`: weights
+    (and their AdamW moments) tensor-parallel over `model` and ZeRO-3 over
+    the DP axes (`fsdp`), each rank holding 1/n of every leaf the rules
+    cut where n divides the dim."""
+    return default_rules(multi_pod)
 
 
 def _world_size() -> int:
@@ -323,6 +334,31 @@ def batch_group():
     return _ACTIVE.mesh.group("data")
 
 
+def gather_leaf(t: torch.Tensor, path: str, drop: int = 0) -> torch.Tensor:
+    """The leaf at param `path` whole over the active ctx's DP axes for one
+    use: `comm.gather_params` along its `fsdp` cut (`ShardingCtx.zero`),
+    whose backward reduce-scatters the gradient back to this rank's block
+    (the data-parallel mean).  `drop`: leading dims of the stacked leaf
+    that `t` has lost (1 for one period's view).  `t` itself when no ctx
+    cuts the leaf over data: serving and the meshless step pay one dict
+    lookup."""
+    cut = None if _ACTIVE is None else _ACTIVE.zero.get(path)
+    if cut is None:
+        return t
+    return comm.gather_params(t, _ACTIVE.mesh.group(cut.axis),
+                              cut.dim - drop)
+
+
+def gather_uses(tree: dict, prefix: str, drop: int = 0) -> dict:
+    """`gather_leaf` of every tensor of the dict `tree` (params at
+    `prefix`): one block's weights, gathered right before the block
+    runs."""
+    if _ACTIVE is None or not _ACTIVE.zero:
+        return tree
+    return tree_map_with_path(
+        lambda k, t: gather_leaf(t, f"{prefix}/{k}", drop), tree)
+
+
 def tp_axis() -> str | None:
     """The mesh axis the active ctx's `tp` rule splits weights over (its
     size > 1), else None: where the model's row-parallel linears and the
@@ -427,38 +463,73 @@ def block(t: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:
 
 
 @dataclasses.dataclass(frozen=True)
-class Split:
-    """A leaf of shape `whole` split `n` ways along `dim`, of which this
-    rank holds block `i`.  In the whole leaf's flat order the block is
-    `runs` runs of `run` elements, one per index of the dims before
-    `dim`, rank i's run of each at offset i·run of its n·run."""
-    whole: tuple
+class Cut:
+    """One cut of a leaf: `n` blocks along `dim` over mesh axis `axis`, of
+    which this rank holds block `i`."""
     dim: int
     n: int
     i: int
+    axis: str
+
+
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """A leaf of shape `whole` cut by each of `cuts` (at most one per dim,
+    in dim order: ZeRO-3's `fsdp` cut over `data` and the `tp` cut over
+    `model`), of which this rank holds one contiguous block a cut.  In the
+    whole leaf's flat order the block is runs of `run` elements, each
+    ending at the last cut dim and starting at a multiple of `run`."""
+    whole: tuple
+    cuts: tuple
 
     @property
-    def run(self) -> int:
-        return self.whole[self.dim] // self.n * math.prod(
-            self.whole[self.dim + 1:])
-
-    @property
-    def runs(self) -> int:
-        return math.prod(self.whole[:self.dim])
+    def axes(self) -> tuple:
+        """The mesh axes the leaf is cut over, sorted by name."""
+        return tuple(sorted({c.axis for c in self.cuts}))
 
     @property
     def local(self) -> tuple:
-        return tuple(s // self.n if d == self.dim else s
-                     for d, s in enumerate(self.whole))
+        out = list(self.whole)
+        for c in self.cuts:
+            out[c.dim] //= c.n
+        return tuple(out)
+
+    @property
+    def run(self) -> int:
+        last = self.cuts[-1].dim
+        return self.local[last] * math.prod(self.whole[last + 1:])
 
     def take(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's block of the whole leaf `t` (a view)."""
-        return block(t, self.dim, self.n, self.i)
+        for c in self.cuts:
+            t = block(t, c.dim, c.n, c.i)
+        return t
+
+    def join(self, t: torch.Tensor, gather) -> torch.Tensor:
+        """The whole leaf from this rank's block `t`: `gather(t, cut)` joins
+        the cut's blocks over its axis, cut by cut."""
+        for c in self.cuts:
+            t = gather(t, c)
+        return t
 
     def whole_index(self, j: torch.Tensor) -> torch.Tensor:
         """The whole leaf's flat index of this rank's flat positions j."""
-        a = torch.div(j, self.run, rounding_mode="floor")
-        return j + a * (self.n - 1) * self.run + self.i * self.run
+        local, offset = self.local, {c.dim: c.i for c in self.cuts}
+        out, stride = torch.zeros_like(j), 1
+        for d in reversed(range(len(self.whole))):
+            idx = j % local[d]
+            j = torch.div(j, local[d], rounding_mode="floor")
+            out += (idx + offset.get(d, 0) * local[d]) * stride
+            stride *= self.whole[d]
+        return out
+
+    def grid(self, per: int) -> "Split":
+        """The same cuts of the leaf's grid of `per`-element blocks in flat
+        order, dims after the last cut folded into it (each run a whole
+        number of blocks)."""
+        last = self.cuts[-1].dim
+        return Split(self.whole[:last] + (
+            math.prod(self.whole[last:]) // per,), self.cuts)
 
 
 def grouped_block(t: torch.Tensor, dim: int, n: int, i: int,
@@ -478,20 +549,22 @@ def _stem(path: str) -> str:
 
 
 def _leaf_split(path: str, shape, ctx: ShardingCtx, whole) -> list:
-    """[(dim, n, i, parts)] of the mesh blocks the leaf at `path` takes
-    along each dim its spec maps to mesh axes; `parts` > 1 for the column
-    dim of a `_GROUPED` leaf.  A dim whose size the axes' product does not
-    divide stays whole, as `to_sharding` leaves it, except the stored rows
-    of a quantized row-parallel weight, which raise: that layer could not
-    run on its slice of the input."""
+    """[(dim, n, i, parts, axes)] of the mesh blocks the leaf at `path`
+    takes along each dim its spec maps to mesh axes (`axes`: those of them
+    with more than one rank); `parts` > 1 for the column dim of a
+    `_GROUPED` leaf.  A leaf matching a regex of `whole` is not cut over
+    the axes of the rules' `tp` and `expert` names (its `fsdp` dim still
+    is, where the rules map `fsdp`).  A dim whose size the axes' product
+    does not divide stays whole, as `to_sharding` leaves it, except the
+    stored rows of a quantized row-parallel weight, which raise: that
+    layer could not run on its slice of the input."""
     stem = _stem(path)
-    if any(re.search(p, stem) for p in whole):
-        return []
+    kept = any(re.search(p, stem) for p in whole)
     mesh, out = ctx.mesh, []
     ndim = len(shape)
     for dim, name in enumerate(spec_for(path, ndim)):
         ax = ctx.rules.get(name) if name is not None else None
-        if ax is None:
+        if ax is None or (kept and name != "fsdp"):
             continue
         names = (ax,) if isinstance(ax, str) else tuple(ax)
         n, i = 1, 0
@@ -499,6 +572,7 @@ def _leaf_split(path: str, shape, ctx: ShardingCtx, whole) -> list:
             n, i = n * mesh.shape[a], i * mesh.shape[a] + mesh.index(a)
         if n == 1:
             continue
+        axes = tuple(a for a in names if mesh.shape[a] > 1)
         if shape[dim] % n == 0:
             parts = next((g for p, g in _GROUPED if re.search(p, stem)), 1) \
                 if dim == ndim - 1 else 1
@@ -506,7 +580,7 @@ def _leaf_split(path: str, shape, ctx: ShardingCtx, whole) -> list:
                 raise ValueError(
                     f"{stem}: {parts} column parts of {shape[dim] // parts} "
                     f"do not split {n} ways over {ax!r}")
-            out.append((dim, n, i, parts))
+            out.append((dim, n, i, parts, axes))
         elif name == "tp" and dim == ndim - 2 and path.endswith("/values"):
             raise ValueError(
                 f"{stem}: its {shape[dim]} stored rows do not split {n} ways "
@@ -532,7 +606,8 @@ def shard_params(params: Any, ctx: ShardingCtx | None = None, *,
 
     def place(path, leaf):
         out = leaf
-        for dim, n, i, parts in _leaf_split(path, leaf.shape, ctx, whole):
+        for dim, n, i, parts, _ in _leaf_split(path, leaf.shape, ctx,
+                                                whole):
             out = grouped_block(out, dim, n, i, parts)
         return out if out is leaf else out.contiguous().clone()
     return tree_map_with_path(place, params)
@@ -541,17 +616,20 @@ def shard_params(params: Any, ctx: ShardingCtx | None = None, *,
 def leaf_splits(params: Any, ctx: ShardingCtx, *,
                 whole: tuple[str, ...] = ()) -> dict:
     """{path: Split or None} of every leaf of the whole tree `params` as
-    `shard_params` places it; a leaf split along more than one dim, or in
-    column parts, raises (the training layouts split each leaf into one
-    contiguous block)."""
+    `shard_params` places it.  A leaf cut in column parts, or over two
+    mesh axes at one dim, raises: the training layouts keep one contiguous
+    block a leaf and axis."""
     out = {}
 
     def note(path, leaf):
-        cuts = _leaf_split(path, leaf.shape, ctx, whole)
-        if len(cuts) > 1 or any(c[3] > 1 for c in cuts):
-            raise ValueError(f"{path}: split {cuts}; a training leaf splits "
-                             f"into one contiguous block")
-        out[path] = Split(tuple(leaf.shape), *cuts[0][:3]) if cuts else None
+        found = _leaf_split(path, leaf.shape, ctx, whole)
+        if any(parts > 1 or len(axes) != 1
+               for _, _, _, parts, axes in found):
+            raise ValueError(f"{path}: split {found}; a training leaf splits "
+                             f"into one contiguous block a mesh axis")
+        out[path] = Split(tuple(leaf.shape), tuple(
+            Cut(dim, n, i, axes[0]) for dim, n, i, _, axes in found)) \
+            if found else None
         return leaf
     tree_map_with_path(note, params)
     return out

@@ -7,7 +7,8 @@ quantization round with the quantization *residual* carried to the next
 step (error feedback, which keeps SGD convergence — Karimireddy et al.),
 before the `all_reduce` mean that cuts gradient traffic 4x on a
 bandwidth-constrained link.  With `compress=False` the gradients are
-averaged in full precision: the Trainer's data-parallel step.
+averaged in full precision.  The params stay replicated on every rank
+(the Trainer's own `data` axis is ZeRO-3: `runtime.trainer`).
 
 Where the reference keeps every replica's residual in one array with a
 leading (n,) axis sharded over `data`, a rank here holds its own residual

@@ -13,31 +13,42 @@ Responsibilities:
 
 The parameters train on whatever device they live on; batches are moved
 there.  On a mesh (`TrainLayout`), every rank is given the same whole
-parameters and draws the same global batch:
-  * a `data` axis of n > 1 ranks: each rank takes its B/n rows and the
-    gradients are averaged in full precision through
-    `dp_trainer.make_dp_train_step(compress=False)` before AdamW, as the
-    reference's GSPMD step reduces them;
+parameters and draws the same global batch, and keeps its blocks of the
+parameters and of the AdamW state under the reference's training rules
+(`sharding.train_rules`, the reference's `default_rules`):
+  * a `data` axis of n > 1 ranks is ZeRO-3: every leaf the rules cut on
+    its `fsdp` dim (the in dim of column-parallel weights, the out dim of
+    row-parallel ones, d of the experts and of the embedding), where n
+    divides that dim, is held 1/n a rank, the parameter, its bf16 `v` and
+    its int8 `m`'s blocks alike.  Each rank takes its B/n rows; the model
+    gathers each period's leaves whole right before the block runs
+    (`sharding.gather_uses`), autograd saves a gathered weight as its
+    shard and gathers it again in backward (`comm.regather_saved`), and
+    the gradient comes back reduce-scattered to the rank's block, summed
+    and divided by n (`comm.gather_params`).  The leaves that stay whole
+    (the norms, the router, a dim n does not divide) are averaged in one
+    `all_reduce` over `data`, with the loss;
   * a `model` axis: the parameters are split Megatron-style, as the mesh
-    Engine splits them (`sharding.train_rules`: column-parallel
-    wq/wk/wv/w_gate/w_up/unembed, row-parallel wo/w_down, the embedding
-    and the norms whole, nothing over `data`: ZeRO-3 is ROADMAP queue 1
-    item 16); the step runs the model's collectives under the training
-    ctx, with their backward (`parallel.comm.copy_to` and friends), and
-    AdamW updates each rank's blocks on the whole leaf's int8 block grid
-    (`optim.adamw`).  Its loss, gradients and update are the
-    single-device step's.
-Checkpoints hold whole leaves, as the reference's do: the ranks of the
-first `data` index gather each split leaf through the host, leaf by leaf,
-and the first of them writes; a restore reads whole leaves and takes each
-rank's blocks, so a checkpoint restores on any mesh (and the reference's
-`ckpt.restore` reads it).  Every rank waits for the writer before a
-restore.  A failure hook must raise on every rank at the same step: a
-rank that raises alone leaves the others waiting in a collective for
-`comm.RANK_TIMEOUT` (600 s).
+    Engine splits them (column-parallel wq/wk/wv/w_gate/w_up/unembed,
+    row-parallel wo/w_down, the embedding whole on `model`); the step runs
+    the model's collectives under the training ctx, with their backward
+    (`parallel.comm.copy_to` and friends).
+AdamW updates each rank's blocks on the whole leaf's int8 block grid
+(`optim.adamw`), reducing the norm and the spread block maxima over the
+axes each leaf is cut over.  The step's loss, gradients and update are
+the single-device step's.
+Checkpoints hold whole leaves, as the reference's do: every rank gathers
+each split leaf through the host, leaf by leaf, and the first rank
+writes; a restore reads whole leaves and takes each rank's blocks, so a
+checkpoint restores on any mesh (and the reference's `ckpt.restore`
+reads it).  Every rank waits for the writer before a restore.  A failure
+hook must raise on every rank at the same step: a rank that raises alone
+leaves the others waiting in a collective for `comm.RANK_TIMEOUT` (600
+s).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable
@@ -48,11 +59,12 @@ from repro_torch.checkpoint import ckpt
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
 from repro_torch.parallel import comm, sharding
-from repro_torch.runtime import dp_trainer
-from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
+from repro_torch.tree import tree_items, tree_leaves, tree_map, \
+    tree_map_with_path
 
 # leaves that stay whole on a model axis: a row gather on a vocab-split
-# table would cost a collective per forward (as the mesh Engine keeps it)
+# table would cost a collective per forward (as the mesh Engine keeps it);
+# its `fsdp` cut (d, over `data`) stands
 WHOLE = (r"embedding$",)
 
 
@@ -121,38 +133,39 @@ class TrainLayout:
     def __init__(self, cfg, mesh=None):
         check_mesh(cfg, mesh)
         self.mesh, self.cfg = mesh, cfg
-        self.ctx = self.group = self.dp = None
+        self.ctx = None
         self.splits: dict = {}
-        self.gathers = self.writer = True
-        if mesh is None:
+        self.writer = True
+        if mesh is None or self.ranks == 1:
             return
         if mesh.coords is None:
             raise ValueError(f"this rank is outside the mesh {mesh.shape}")
-        if mesh.shape.get("model", 1) > 1:
-            self.ctx = sharding.ShardingCtx(mesh, sharding.train_rules(
-                "pod" in mesh.axis_names))
-            self.cfg = sharding.local_config(cfg, mesh, "model")
-            self.group = mesh.group("model")
-        if mesh.shape.get("data", 1) > 1:
-            local = self.cfg
-            self.dp = dp_trainer.make_dp_train_step(
-                lambda p, b: M.loss_fn(p, b, local)[0], mesh, compress=False)
-            self.gathers = mesh.index("data") == 0
-        self.writer = self.gathers and (
-            self.ctx is None or mesh.index("model") == 0)
+        self.ctx = sharding.ShardingCtx(mesh, sharding.train_rules(
+            "pod" in mesh.axis_names))
+        self.cfg = sharding.local_config(cfg, mesh, "model")
+        self.writer = not any(mesh.coords)
 
     @property
     def ranks(self) -> int:
         return 1 if self.mesh is None else \
             self.mesh.shape.get("data", 1) * self.mesh.shape.get("model", 1)
 
+    @property
+    def groups(self) -> dict:
+        """{mesh axis: this rank's process group along it}."""
+        return {} if self.ctx is None else self.mesh.groups
+
     # -- placement ---------------------------------------------------------
     def shard(self, params):
         """This rank's blocks of the whole `params` (copies; the whole
-        tree can be freed), noting each leaf's split."""
+        tree can be freed), noting each leaf's split and, in the ctx, the
+        cuts over `data` that the model gathers per use."""
         if self.ctx is None:
             return params
         self.splits = sharding.leaf_splits(params, self.ctx, whole=WHOLE)
+        dp = self.ctx.rules["fsdp"]
+        self.ctx.zero = {path: c for path, s in self.splits.items()
+                         if s is not None for c in s.cuts if c.axis in dp}
         return sharding.shard_params(params, self.ctx, whole=WHOLE)
 
     def _split_of(self, path: str):
@@ -182,55 +195,114 @@ class TrainLayout:
         return out.clone() if out.untyped_storage().nbytes() > \
             out.numel() * out.element_size() else out.contiguous()
 
-    def gather(self, state):
-        """The whole {"params", "opt"} tree on the host (each split leaf
-        joined over the model axis through the host, leaf by leaf), on the
-        ranks of the first data index; `state` itself without a model
-        axis."""
+    def gather(self, state, keep: bool = True):
+        """The whole {"params", "opt"} tree on the host: each split leaf
+        joined over its axes through the host, leaf by leaf, every rank
+        taking part; `state` itself without a mesh.  `keep=False` drops
+        each whole leaf once joined (a rank that does not write: its host
+        then holds one leaf at a time), leaving None."""
         if self.ctx is None:
             return state
 
-        def join(t, dim):
-            return comm.all_gather(t.detach().cpu(), self.group, dim)
+        def join(t, cut):
+            return comm.all_gather(t.detach().cpu(), self.groups[cut.axis],
+                                   cut.dim)
 
         def whole(key, t):
             split, part = self._split_of(key)
             if split is None:
-                return t.detach().cpu()
-            if part == "q":
-                return adamw.gather_q(t, split, join)
-            if part == "scale":
-                return adamw.gather_scale(t, split, join).cpu()
-            return join(t, split.dim)
+                out = t.detach().cpu()
+            elif part == "q":
+                out = adamw.gather_q(t, split, join)
+            elif part == "scale":
+                out = adamw.gather_scale(t, split, join).cpu()
+            else:
+                out = split.join(t, join)
+            return out if keep else None
         return tree_map_with_path(whole, state)
 
+    def barrier(self) -> None:
+        """Wait for every rank of the mesh: a barrier along each axis in
+        turn (a rank passes the last one only once the first rank has
+        reached the first), so ranks outside the mesh are not waited
+        for."""
+        for axis in self.mesh.axis_names:
+            if self.mesh.group(axis) is not None:
+                comm.barrier(self.mesh.group(axis))
+
     # -- the step ------------------------------------------------------------
+    def rows(self, batch) -> tuple[dict, bool]:
+        """(this rank's rows of every batch leaf, whether they are a block
+        of them): its block of B/n over `data` (`sharding.data_rows`), or
+        all rows where n does not divide B, as the reference's batch rule
+        leaves such a dim whole."""
+        def take(t):
+            lo, hi = sharding.data_rows(t.shape[0], self.mesh)
+            return t[lo:hi]
+        out = tree_map(take, batch)
+        first = next(iter(batch.values())).shape[0]
+        return out, next(iter(out.values())).shape[0] < first
+
+    def _mean_over_data(self, params, metrics: dict) -> dict:
+        """The data-parallel mean of the metrics and of the gradients of
+        the leaves not cut over `data`, in place: one `all_reduce` of all
+        of them, packed in f32."""
+        group = self.mesh.group("data")
+        if group is None:
+            return metrics
+        n = comm.group_size(group)
+        whole = [p for path, p in tree_items(params)
+                 if not (self.splits.get(path) and "data" in
+                         self.splits[path].axes)]
+        for p in whole:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        flat = torch.cat([torch.stack([metrics[k].to(torch.float32)
+                                       for k in sorted(metrics)])]
+                         + [p.grad.reshape(-1).to(torch.float32)
+                            for p in whole])
+        flat = comm.all_reduce(flat, group, "sum") / n
+        out = dict(zip(sorted(metrics), flat[:len(metrics)]))
+        at = len(metrics)
+        for p in whole:
+            p.grad.copy_(flat[at:at + p.numel()].view(p.shape))
+            at += p.numel()
+        return out
+
     def grads(self, params, batch, mark=lambda: None):
-        """(gradient tree, loss, {"ce", "aux"} or {}) of one step: the loss
-        forward and its backward (the data-parallel mean under a data
-        axis), under the training ctx."""
-        with sharding.use(self.ctx):
-            if self.dp is not None:
-                g, _, loss = self.dp(params, None, batch)
-                mark()
-                return g, loss, {}
+        """(gradient tree, loss, {"ce", "aux"}) of one step: the loss
+        forward on this rank's rows and its backward under the training
+        ctx (the weights gathered per use and their saves re-gathered
+        under ZeRO-3), and the data-parallel mean of the loss, its parts
+        and the gradients."""
+        ctx = self.ctx
+        if ctx is not None:
+            batch, split = self.rows(batch)
+            ctx = dataclasses.replace(ctx, split_batch=split)
+        saves = comm.regather_saved() if ctx is not None and ctx.zero \
+            else contextlib.nullcontext()
+        with sharding.use(ctx), saves:
             loss, parts = M.loss_fn(params, batch, self.cfg)
             mark()
             loss.backward()
-            mark()
-            return grads(params), loss.detach(), parts
+        mark()
+        metrics = {"loss": loss.detach(),
+                   **{k: v.detach() for k, v in parts.items()}}
+        if self.ctx is not None:
+            metrics = self._mean_over_data(params, metrics)
+        loss = metrics.pop("loss")
+        return grads(params), loss, metrics
 
     def step(self, params, opt_state, batch, opt_cfg: adamw.AdamWConfig,
              mark=lambda: None) -> dict:
         """One training step in place on `params` and `opt_state`, with
-        `mark()` between its phases (the loss forward, its backward, AdamW
-        with the gradients released; the data-parallel step's gradients
-        come in one phase); returns the metrics."""
+        `mark()` between its phases (the loss forward, its backward with
+        the data-parallel mean, AdamW with the gradients released);
+        returns the metrics."""
         g, loss, parts = self.grads(params, batch, mark)
         _, _, om = adamw.apply(params, opt_state, g, opt_cfg, self.splits,
-                               self.group)
-        if self.dp is None:
-            release_grads(params)
+                               self.groups)
+        release_grads(params)
         return {"loss": loss, **parts, **om}
 
 
@@ -238,7 +310,7 @@ class Trainer:
     def __init__(self, cfg, tcfg: TrainerConfig, params, opt_state=None,
                  mesh=None):
         """`params` (and `opt_state`, if given) are the whole trees: on a
-        model axis each rank keeps its blocks of them."""
+        mesh each rank keeps its blocks of them."""
         self.layout = TrainLayout(cfg, mesh)
         self.cfg, self.tcfg = cfg, tcfg
         self._set_params(self.layout.shard(params))
@@ -284,10 +356,9 @@ class Trainer:
         return {"params": self.params, "opt": self.opt_state}
 
     def maybe_checkpoint(self, force=False):
-        if not self.layout.gathers:
-            return
         if force or (self.step and self.step % self.tcfg.ckpt_every == 0):
-            tree = self.layout.gather(self.state_tree())
+            tree = self.layout.gather(self.state_tree(),
+                                      keep=self.layout.writer)
             if not self.layout.writer:
                 return
             self._join_ckpt()
@@ -311,7 +382,7 @@ class Trainer:
         if self.layout.ranks > 1:
             # every rank restores what the writer has finished writing
             self._join_ckpt()
-            comm.barrier()
+            self.layout.barrier()
         step = ckpt.latest_step(self.tcfg.ckpt_dir)
         if step is None:
             return 0

@@ -328,7 +328,8 @@ def trainer_rank(mesh, cfg, params, batches, ckpt_dir):
     restored = trainer.restore_latest()
     losses = [trainer.run_step(b)["loss"] for b in batches]
     return {"restored": restored, "losses": losses,
-            "params": {k: _np(v) for k, v in tree_items(trainer.params)}}
+            "params": {k.partition("/")[2]: _np(v) for k, v in tree_items(
+                trainer.layout.gather({"params": trainer.params}))}}
 
 
 # ---------------------------------------------------------------------------
@@ -337,7 +338,7 @@ def trainer_rank(mesh, cfg, params, batches, ckpt_dir):
 
 def _whole_np(layout, tree):
     """A rank's {"params", "opt"} (or any part of it) as whole leaves,
-    {path: numpy} (bf16 as its int16 bits), on the first data index."""
+    {path: numpy} (bf16 as its int16 bits), on every rank."""
     out = {}
     for k, t in tree_items(layout.gather(tree)):
         t = t.detach().cpu()
@@ -374,7 +375,7 @@ def tp_train_rank(rank, world, device, cases, trainer_case):
         comm.stats.reset()
         for _ in range(2):
             _, _, om = adamw.apply(local, state, g, ocfg, layout.splits,
-                                   layout.group)
+                                   layout.groups)
         out[name] = {"loss": float(loss), "grads": grads,
                      "grad_calls": grad_calls,
                      "adamw_calls": dict(comm.stats.kind_calls),
@@ -533,3 +534,133 @@ def mixers_rank(rank, world, device, runs, blocks):
                 draft_heads=None if draft is None else draft.num_heads,
                 draft_bits=None if draft is None else draft.quant.bits_w)
     return out
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-3 training over `data`
+# ---------------------------------------------------------------------------
+
+def _zero_step(mesh, cfg, params, batch, adamw_steps=2):
+    """One step of `cfg` on `mesh` from the whole `params`: its loss, the
+    whole gradients, the collectives by kind, and with `adamw_steps` that
+    many AdamW updates (grad_clip 1e9) on those gradients: their
+    collectives, the whole state after them, and the bytes of this rank's
+    params, m and v by path."""
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import comm
+    from repro_torch.runtime.trainer import TrainLayout
+
+    layout = TrainLayout(cfg, mesh)
+    # a copy: spawn hands every rank the same shared-memory tensors
+    local = layout.shard(tree_map(torch.clone, params))
+    for _, p in tree_items(local):
+        p.requires_grad_(True)
+    comm.stats.reset()
+    g, loss, _ = layout.grads(local, batch)
+    out = {"loss": float(loss), "grad_calls": dict(comm.stats.kind_calls),
+           "grads": {k.partition("/")[2]: v for k, v in
+                     _whole_np(layout, {"params": g}).items()}}
+    if not adamw_steps:
+        return out
+    ocfg = adamw.AdamWConfig(lr=1e-2, grad_clip=1e9)
+    state = adamw.init(local, ocfg, layout.splits)
+    comm.stats.reset()
+    for _ in range(adamw_steps):
+        adamw.apply(local, state, g, ocfg, layout.splits, layout.groups)
+    out.update(adamw_calls=dict(comm.stats.kind_calls),
+               state=_whole_np(layout, {"params": local, "opt": state}),
+               nbytes={k: t.numel() * t.element_size() for k, t in
+                       tree_items({"params": local, "opt": state})})
+    return out
+
+
+def zero_train_rank(rank, world, device, steps, archs, trainer_case):
+    """ZeRO-3 over `data` on 4 ranks: mesh "data=2" on ranks 0 and 1,
+    "data=2,model=2" on all.  On each mesh: per case of `steps` (granite
+    smoke, float and QAT 8/8) one step and two AdamW updates
+    (`_zero_step`), then the Trainer (`tp_trainer_body`: history,
+    recovery, a restore of the meshless checkpoint); on "data=2" one step
+    of each of `archs`.  Then each mesh restores the other's final
+    checkpoint."""
+    import warnings
+
+    from repro_torch.parallel import comm
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")          # "uses 2 of 4 devices"
+        meshes = {"data=2": shd.build_mesh("data=2"),
+                  "data=2,model=2": shd.build_mesh("data=2,model=2")}
+    cfg, params, batches, dirs = trainer_case
+    out = {"lanes": _lane_checks(meshes["data=2,model=2"])}
+    for name, mesh in meshes.items():
+        if mesh.coords is not None:
+            res = {case: _zero_step(mesh, *args)
+                   for case, args in steps.items()}
+            if name == "data=2":
+                res.update({arch: _zero_step(mesh, *args, adamw_steps=0)
+                            for arch, args in archs.items()})
+            res["trainer"] = tp_trainer_body(mesh, cfg, params, batches,
+                                             dirs[name])
+            out[name] = res
+        comm.barrier()
+    # each mesh restores the other's final checkpoint (5 steps)
+    for name, other in (("data=2", "data=2,model=2"),
+                        ("data=2,model=2", "data=2")):
+        mesh = meshes[name]
+        if mesh.coords is not None:
+            out[name]["cross"] = _restore_state(
+                mesh, cfg, params, dirs[other]["crash"])
+        comm.barrier()
+    return out
+
+
+def _restore_state(mesh, cfg, params, ckpt_dir):
+    """The whole state a Trainer on `mesh` holds after restoring the newest
+    checkpoint in `ckpt_dir`, and its step."""
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    t = Trainer(cfg, TrainerConfig(ckpt_dir=ckpt_dir, opt=adamw.AdamWConfig(
+        lr=1e-3)), tree_map(torch.clone, params), mesh=mesh)
+    return {"step": t.restore_latest(),
+            "state": _whole_np(t.layout, t.state_tree())}
+
+
+def _lane_checks(mesh):
+    """`all_gather`, `reduce_scatter` and `all_reduce` over each axis of
+    `mesh`, in lanes, on odd shapes (spans that do not divide evenly, the
+    last one short or empty), against the result written out from every
+    rank's inputs (each rank draws all ranks' tensors from one seed):
+    {case: bit-equal}."""
+    from repro_torch.parallel import comm
+
+    out, lane_bytes = {}, comm.LANE_BYTES
+    comm.LANE_BYTES = 4096                 # on the card: 4 MiB
+    try:
+        _lane_cases(mesh, out)
+    finally:
+        comm.LANE_BYTES = lane_bytes
+    return out
+
+
+def _lane_cases(mesh, out):
+    from repro_torch.parallel import comm
+
+    for axis in ("data", "model"):
+        n, i, group = mesh.shape[axis], mesh.index(axis), mesh.group(axis)
+        for shape in ((3, 37, 20), (64, 33), (5, 1031)):
+            gen = torch.Generator().manual_seed(sum(shape))
+            xs = [torch.randn(shape, generator=gen) for _ in range(n)]
+            for dim in list(range(len(shape))) + [-1]:
+                got = comm.all_gather(xs[i], group, dim)
+                out[f"{axis} gather {shape} {dim}"] = torch.equal(
+                    got, torch.cat(xs, dim))
+                if shape[dim] % n == 0:
+                    got = comm.reduce_scatter(xs[i], group, dim)
+                    # gloo adds two ranks' values in one order
+                    want = (xs[0] + xs[1]).chunk(n, dim)[i]
+                    out[f"{axis} reduce-scatter {shape} {dim}"] = \
+                        torch.equal(got, want)
+            got = comm.all_reduce(xs[i], group, "max")
+            out[f"{axis} max {shape}"] = torch.equal(
+                got, torch.maximum(xs[0], xs[1]))

@@ -1,5 +1,6 @@
-"""The port's data-parallel trainer (`runtime.dp_trainer`, the Trainer's
-`data` axis) and `launch/train.py --data`, against the JAX package's.
+"""The port's data-parallel trainer (`runtime.dp_trainer`), the Trainer's
+`data` axis (ZeRO-3) and `launch/train.py --data`, against the JAX
+package's.
 
 `compress_decompress` equals the reference's (int8 blocks of 256 with
 error feedback) on the same gradient.  The ranks run on 2 gloo ranks on

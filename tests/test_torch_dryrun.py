@@ -351,6 +351,43 @@ def test_tp_granite_train_counts_291_collectives():
     assert abs(rec["memory"]["args_bytes_per_dev"] - half) < 0.01 * half
 
 
+def test_zero_granite_train_counts_the_derived_collectives():
+    """granite-8b training as the card's phase 15i(a) runs it (QAT 8/8,
+    B=4, S=64) on `data=2`, per rank: ZeRO-3 gathers each layer's 7
+    linears, the embedding and the unembed once forward and each saved
+    one (all but the embedding) once more backward, reduce-scatters their
+    gradients, and takes one mean of the loss and the norms' gradients;
+    AdamW's norm takes one sum (at full width no 128-block spans ranks):
+    507 all-gathers, 254 reduce-scatters, 2 all-reduces; 253
+    bramac_matmul calls, as meshless, on 2 of the 4 rows.  The rank's
+    state is the reference placement's: each param's block under the
+    reference's rules (`spec_for`, `default_rules`, `fsdp` on `data`) in
+    bf16, its bf16 v and its int8 m with one f32 scale per 128 values."""
+    from test_torch_zero_trainer import _reference_block
+    q8 = QuantConfig(enabled=True, bits_w=8, bits_a=8)
+    cfg = get_config("granite-8b").replace(quant=q8)
+    L = cfg.num_layers
+    info = {"kind": "train", "batch": 4, "seq": 64}
+    rec = dryrun.predict(cfg, info, mesh="data=2")
+    assert rec["ranks"] == 2 and rec["batch_per_dev"] == 2
+    assert rec["placement"].startswith("ZeRO-3 over data=2")
+    assert rec["collective_calls_per_dev"] == {
+        "all-gather": (7 * L + 2) + (7 * L + 1),
+        "reduce-scatter": 7 * L + 2, "all-reduce": 2}
+    assert rec["kernel_calls_per_dev"]["bramac_matmul"] == 7 * L + 1
+    state = 4                                        # AdamW's step
+    for path, t in tree_items(specs.param_specs(cfg)):
+        n = math.prod(_reference_block(path, tuple(t.shape),
+                                       {"data": 2, "model": 1}))
+        assert n % 128 == 0, path
+        state += n * (2 + 2 + 1) + n // 128 * 4
+    batch = 2 * info["batch"] * info["seq"] * 4      # int32 tokens, labels
+    assert rec["memory"]["args_bytes_per_dev"] == state + batch
+    whole = dryrun.predict(cfg, info)
+    assert rec["memory"]["peak_est_bytes_per_dev"] < \
+        0.55 * whole["memory"]["peak_est_bytes_per_dev"]
+
+
 @pytest.mark.parametrize("arch,shape,variant,mesh,match", [
     pytest.param("granite-8b", "train_4k", "baseline", "model=2", None,
                  id="granite-8b-train_4k-baseline-model=2-tensor-parallel "

@@ -1,7 +1,7 @@
 """Tensor-parallel training in the port (`runtime.trainer.TrainLayout`, the
-Trainer on a `model` axis, `optim.adamw` on split leaves, whole-leaf
-checkpoints) against the JAX package's single-device step and the port's
-meshless one.
+Trainer on a `model` axis, ZeRO-3 over `data`, `optim.adamw` on split
+leaves, whole-leaf checkpoints) against the JAX package's single-device
+step and the port's meshless one.
 
 The reference trains on any mesh through GSPMD; its own sharded-train test
 fails under jax 0.9.0, so the port's step on a mesh is held to the
@@ -15,8 +15,9 @@ train granite-8b's smoke config, float and QAT 8/8:
     sums and means);
   * two AdamW updates with grad_clip 1e9 (so the clip factor is exactly
     1) on those gradients: params, the int8 m's blocks and scales and v,
-    gathered, equal the meshless `adamw.apply` bit for bit.  At these
-    widths wq's, wk's, wv's, w_gate's and w_up's 128-blocks span both
+    gathered, equal the meshless `adamw.apply` bit for bit.  The mesh is
+    ZeRO-3 over `data`, so every large leaf is cut on both axes (the
+    embedding on d over `data` only); at these widths the 128-blocks span
     ranks, so this holds the block grid to the whole leaf's;
   * the collectives of a step, by kind, as derived below;
   * the Trainer's 3-step history within ATOL_HIST of the meshless
@@ -152,7 +153,9 @@ def test_tp_adamw_equals_meshless_bit_for_bit(case, name):
     """Two AdamW updates of each rank's blocks with the step's gradients
     (grad_clip 1e9: clip is 1) equal the meshless `adamw.apply` of the
     whole gradients: params, m's int8 blocks and f32 scales, v, bit for
-    bit.  The split leaves hold half their whole shape on a rank."""
+    bit.  The split leaves hold a part of their whole shape on a rank:
+    the linears a quarter, the embedding (cut on d over `data`) a
+    half."""
     tc, params, _ = case["steps"][name]
     got = case["out"][0][name]
     whole = tree_map(torch.clone, params)
@@ -170,7 +173,7 @@ def test_tp_adamw_equals_meshless_bit_for_bit(case, name):
     for path, shape in got["local"].items():
         full = tuple(shapes[path].shape)
         split = path.endswith(("wq", "wk", "wv", "wo", "w_gate", "w_up",
-                               "w_down", "unembed"))
+                               "w_down", "unembed", "embedding"))
         assert (shape != full) == split, (path, shape, full)
 
 
@@ -179,17 +182,21 @@ def test_tp_collectives_per_step_as_derived(case, name):
     """Per rank and step at the smoke depth (L = 2) on data=2,model=2:
     forward, each layer's wo and w_down take (QAT) max x, max w and the
     int32 sum, or (float) one sum, and the logits one gather; backward,
-    one gradient sum at the input of each attention, MLP and the unembed;
-    the data axis averages every gradient leaf and the loss; AdamW's norm
-    takes one sum, and the blocks that span ranks one max a step."""
+    one gradient sum at the input of each attention, MLP and the unembed.
+    ZeRO-3 over `data`: each layer's 7 linears, the embedding and the
+    unembed are gathered once forward, each saved one (all but the
+    embedding, whose lookup saves no weight) once more backward, and
+    every gradient of theirs reduce-scattered; the loss and the whole
+    leaves' gradients (the norms) take one mean.  AdamW's norm takes one
+    sum an axis, and the blocks that span ranks one max an axis."""
     tc, params, _ = case["steps"][name]
     L, got = tc.num_layers, case["out"][0][name]
     per_row = 3 if BITS[name] else 1
     fwd, bwd = L * 2 * per_row, L * 2 + 1
-    dp = len(tree_leaves(params)) + 1
-    assert got["grad_calls"] == {"all-reduce": fwd + bwd + dp,
-                                 "all-gather": 1}
-    assert got["adamw_calls"] == {"all-reduce": 2 * 2}
+    assert got["grad_calls"] == {"all-reduce": fwd + bwd + 1,
+                                 "all-gather": 1 + (7 * L + 2) + (7 * L + 1),
+                                 "reduce-scatter": 7 * L + 2}
+    assert got["adamw_calls"] == {"all-reduce": 2 * (2 + 2)}
 
 
 def test_tp_trainer_history_equals_meshless_and_jax(case, tmp_path):
@@ -263,8 +270,8 @@ def test_adamw_refuses_a_split_leaf_on_its_own_block_grid():
     """A rank whose blocks of a leaf span ranks (here 32 of 64 columns)
     must keep the whole leaf's block grid: AdamW raises, naming the leaf,
     for a first moment built on the rank's own grid."""
-    from repro_torch.parallel.sharding import Split
-    split = Split((4, 64), 1, 2, 0)
+    from repro_torch.parallel.sharding import Cut, Split
+    split = Split((4, 64), (Cut(1, 2, 0, "model"),))
     params = {"w": torch.zeros(split.local)}
     g = {"w": torch.ones(split.local)}
     own = adamw.init(params, ADAMW)                   # no splits: own grid
