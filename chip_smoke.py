@@ -90,19 +90,31 @@ meshless, collectives by axis as derived, the data ranks' pools
 bit-equal; (i) ZeRO-3 training over `data` on the same ranks: granite-8b
 at full width and depth on data=2 (each rank 1/2 of every weight, of its
 int8 m and of its v, the weights gathered per use, gradients
-reduce-scattered), 2 steps, step 1's loss within 1e-3 relative of phase
+reduce-scattered), 1 step, step 1's loss within 1e-3 relative of phase
 13b's, 253 launches and 763 collectives a rank and step as derived, the
 per-rank state and peak beside 13b's; and one step of the 6-layer cut
-on data=2,model=2 against its meshless loss. Phase 16
+on data=2,model=2 against its meshless loss; (j) qwen3-moe-30b-a3b
+trained at full width with its 128 experts split over `model`: its
+first 4 of 48 layers on model=2 (2 steps; each rank 64 experts of each
+stack and half of every other split weight, with their AdamW state) and
+its first 2 on data=2,model=2 (1 step; the stacks cut on E over model
+and on d over data), each against its meshless step 1 on this process
+(loss within 1e-3 relative, MoE drops equal), launches and collectives
+a rank and step as derived, state and peak a rank; and one full-width
+MoE layer through `ep_moe(dispatch="per_source")` on model=2, forward
+and backward, against `per_source_reference` under autograd on one
+rank. Phase 16
 holds the dry run (`launch.dryrun`, counted on the
 CPU's meta device) to live runs of the same step functions: granite-8b
 training's predicted peak within 10% of phase 13b's measured one, a q8
 decode step (B=8, 4096-row dense cache) and prefill (B=1, S=4096) on the
 card with their peaks within 10% (or 0.5 GB) of the prediction and their
 `bramac_matmul` launches equal to the counted calls, the 145
-collectives of the model=2 decode cell, and 15f's and 15i(a)'s per-rank
-peaks within 10% of their predictions with their collectives as counted. Phase 2 also times the speculative shapes (the verify window at
-M=20; 2-bit at M=4 with the unpack of the packed weights), every
+collectives of the model=2 decode cell, and 15f's, 15i(a)'s and
+15j(a)'s per-rank peaks within 10% of their predictions with their
+collectives as counted. Phase 2 also times the speculative shapes (the
+verify window at M=20; 2-bit at M=4 with the unpack of the packed
+weights), every
 minicpm3-4b linear and qwen3-moe-30b-a3b's attention linears and unembed;
 phases 3-4 also hold both decode kernels at qwen3-moe-30b-a3b's heads
 (32/4, hd 64); phase 6 also holds disaggregated == colocated and
@@ -4003,14 +4015,16 @@ def _rank_serve(cfg, params, prompts, new_tokens, mesh, warm=None,
     return run
 
 
-def _rank_train(mesh, layers=None, steps=4):
-    """15f and 15i on one rank: granite-8b at full width (bf16, QAT 8/8,
-    int8 m / bf16 v; `layers` of its 36, all by default) trained on `mesh`
-    as phase 13b trains it meshless: `steps` `Trainer.run_step`s on the
-    same seeded weights and batches, no checkpoint.  Each rank draws the
-    whole weights and keeps its blocks; the state is read once the draw is
-    freed and the peak from then on, each above the residue (what the
-    rank held before the draw)."""
+def _rank_train(mesh, layers=None, steps=4, cfg=None):
+    """15f, 15i and 15j on one rank: granite-8b (or `cfg`, a QAT config)
+    at full width (bf16, QAT 8/8, int8 m / bf16 v; `layers` of its
+    layers, all by default) trained on `mesh` (None: meshless, this
+    process) as phase 13b trains it meshless: `steps` `Trainer.run_step`s
+    on the same seeded weights and batches, no checkpoint.  Each rank
+    draws the whole weights and keeps its blocks; the state is read once
+    the draw is freed and the peak from then on, each above the residue
+    (what the rank held before the draw).  The MoE assignments each step
+    dropped are counted (on the device, read after the step)."""
     import tempfile
     from repro_torch.configs import get_config
     from repro_torch.core.bramac_linear import QuantConfig
@@ -4022,8 +4036,9 @@ def _rank_train(mesh, layers=None, steps=4):
     gc.collect()
     torch.cuda.empty_cache()
     residue = torch.cuda.memory_allocated()
-    q8 = QuantConfig(enabled=True, bits_w=8, bits_a=8)
-    cfg = get_config("granite-8b").replace(quant=q8)
+    if cfg is None:
+        q8 = QuantConfig(enabled=True, bits_w=8, bits_a=8)
+        cfg = get_config("granite-8b").replace(quant=q8)
     if layers is not None:
         cfg = cfg.replace(num_layers=layers)
     t0 = time.perf_counter()
@@ -4040,18 +4055,20 @@ def _rank_train(mesh, layers=None, steps=4):
         state_gb = (torch.cuda.memory_allocated() - residue) / 1e9
         torch.cuda.reset_peak_memory_stats()
         pipe = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B))
-        hist, times, launches, comms = [], [], [], []
+        hist, times, launches, comms, drops = [], [], [], [], []
         for step in range(steps):
             batch = pipe.batch(step, "cuda")
             _zero_counts()
             comm.stats.reset()
             torch.cuda.synchronize()
-            t = time.perf_counter()
-            hist.append(trainer.run_step(batch))
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t)
+            with watch(rows=False, ms=False) as seen:
+                t = time.perf_counter()
+                hist.append(trainer.run_step(batch))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
             launches.append(_read_counts())
             comms.append(comm.stats.snapshot())
+            drops.append(seen["drops"])
         peak = torch.cuda.max_memory_allocated()
         layers = cfg.num_layers
     del trainer
@@ -4059,14 +4076,14 @@ def _rank_train(mesh, layers=None, steps=4):
     torch.cuda.empty_cache()
     return dict(losses=[h["loss"] for h in hist],
                 grad_norms=[h["grad_norm"] for h in hist], times=times,
-                launches=launches, comm=comms, peak_gb=peak / 1e9,
-                residue_gb=residue / 1e9, state_gb=state_gb,
-                build_s=build_s, layers=layers)
+                launches=launches, comm=comms, drops=drops,
+                peak_gb=peak / 1e9, residue_gb=residue / 1e9,
+                state_gb=state_gb, build_s=build_s, layers=layers)
 
 
 def parallel_rank(rank, world, device, jobs):
-    """Phases 15b-d, 15f and 15g on one rank of the mesh "model=2"
-    (`jobs`: the inputs 15g takes from earlier phases)."""
+    """Phases 15b-d, 15f, 15j(a, c) and 15g on one rank of the mesh
+    "model=2" (`jobs`: the inputs 15g takes from earlier phases)."""
     from repro_torch.configs import get_config
     from repro_torch.core.bramac_linear import QuantConfig
     from repro_torch.kernels import build
@@ -4105,6 +4122,13 @@ def parallel_rank(rank, world, device, jobs):
                                _phase5_prompts(cfg.vocab_size)[:4], 8, mesh)
     del params
     out["train"] = _rank_train(mesh)
+    # 15j(a) and (c): qwen3-moe-30b-a3b trained with its experts split
+    t0 = time.perf_counter()
+    layers, steps = EP_TRAIN["a"]
+    out["ep_train"] = _rank_train(mesh, steps=steps,
+                                  cfg=ep_train_cfg(layers))
+    out["ep_layer"] = _rank_ep_layer(mesh)
+    out["15j_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     out["15g"] = _rank_mixers(mesh, jobs)
     out["15g_s"] = time.perf_counter() - t0
@@ -4176,6 +4200,152 @@ def _check_tp_train(runs, report):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 15j: qwen3-moe-30b-a3b trained with its experts split over `model`
+# ---------------------------------------------------------------------------
+
+# (layers of 48, steps): (a) on model=2, the second step timed warm; (b)
+# on data=2,model=2, whose one step holds the expert stacks cut on both
+# axes, AdamW's reduce over both and the peak
+EP_TRAIN = {"a": (4, 2), "b": (2, 1)}
+# (c): one f32 MoE layer through ep_moe(per_source) on model=2 against
+# per_source_reference on one rank: the same per-expert products on the
+# same rows (cuBLAS may take another algorithm for a rank's E/2 experts
+# than for all E) and the gradient of x and of the router summed across
+# the ranks in another order; each output and gradient within this share
+# of the tensor's largest magnitude
+EP_LAYER_TOL = 1e-4
+
+
+def ep_train_cfg(layers: int):
+    """15j's configuration: qwen3-moe-30b-a3b at full width (QAT 8/8, the
+    global dispatch at capacity factor 1.25), its first `layers` of 48."""
+    return _qwen3_cfg(num_layers=layers)[0]
+
+
+def ep_train_collectives(layers: int, data: int = 1) -> dict:
+    """Per rank and step of qwen3-moe's QAT training with its experts
+    split over model=2: forward, wo's max x, max w and int32 sum a layer,
+    one gather of each MoE layer's experts' outputs, one of the logits;
+    backward, one gradient sum at the input of each attention, of each
+    MoE dispatch and of the unembed; AdamW's norm one sum an axis and one
+    max an axis (the unembed's 128-blocks span ranks: V/2 = 75968
+    columns).  On data=2 too (ZeRO-3): each layer's 4 attention linears
+    and 3 expert stacks, the embedding and the unembed gathered forward,
+    again in backward (all but the embedding), reduce-scattered; each MoE
+    input gathered over data and reduce-scattered back; one mean of the
+    loss and the whole leaves' gradients."""
+    L, axes = layers, 1 + (data > 1)
+    out = {"all-reduce": L * (3 + 2) + 1 + 2 * axes, "all-gather": L + 1}
+    if data > 1:
+        out["all-gather"] += (7 * L + 2) + (7 * L + 1) + L
+        out["reduce-scatter"] = 7 * L + 2 + L
+        out["all-reduce"] += 1
+    return out
+
+
+def ep_train_reference(layers: int) -> dict:
+    """15j's meshless reference on this process: step 1 of `ep_train_cfg(
+    layers)` as the ranks take it (13b's seed, batch and AdamW), with its
+    loss, MoE drops, ms, state and peak; freed after."""
+    return _rank_train(None, steps=1, cfg=ep_train_cfg(layers))
+
+
+# 15j(c)'s collectives: forward, the buffer, its int32 sidecar and the
+# experts' outputs exchanged (3 all-to-alls), the output and the keep mask
+# gathered, the frac_tokens and frac_probs sums; backward, the two
+# exchanges of the gradients and the x and router gradient sums
+EP_LAYER_CALLS = {"all-to-all": 5, "all-gather": 2, "all-reduce": 4}
+
+
+def _rank_ep_layer(mesh, seed=30):
+    """15j(c) on one rank: one qwen3-moe-30b-a3b MoE layer at full width
+    (f32, weights and a B=4 x S=64 input from a seed) through
+    `ep.ep_moe(dispatch="per_source")` on model=2, forward and backward
+    of sum(out * cot) + aux, then `ep.per_source_reference` at ep_size 2
+    under autograd on this rank on the same whole weights: the largest
+    difference of out, aux and the gradients of x, the router and this
+    rank's block of each expert stack, each over the reference's largest
+    magnitude; keep masks equal; the other blocks' gradients zero."""
+    from repro_torch.models import moe
+    from repro_torch.parallel import comm, ep
+    cfg = ep_train_cfg(1).replace(dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    p = moe.init_moe(gen, cfg, "cuda")
+    shape = (TRAIN_B, TRAIN_S, cfg.d_model)
+    x = torch.randn(shape, generator=gen, device="cuda")
+    cot = torch.randn(shape, generator=gen, device="cuda")
+    n, i = mesh.shape["model"], mesh.index("model")
+    E = cfg.num_experts
+
+    def run(fn):
+        """(out, aux, keep, gradients with this rank's block of each
+        stack's, the largest gradient outside that block)."""
+        leaves = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        xx = x.clone().requires_grad_(True)
+        out, aux, keep = fn(leaves, xx)
+        (torch.sum(out * cot) + aux).backward()
+        grads, elsewhere = {"x": xx.grad, "router": leaves["router"].grad}, 0.0
+        lo, hi = i * E // n, (i + 1) * E // n
+        for k in ("w_gate", "w_up", "w_down"):
+            g = leaves[k].grad
+            grads[k] = g[lo:hi].clone()
+            others = torch.cat([g[:lo], g[hi:]])
+            elsewhere = max(elsewhere, float(others.abs().max()))
+        return out.detach(), float(aux.detach()), keep, grads, elsewhere
+
+    comm.stats.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = run(lambda q, xx: ep.ep_moe(q, xx, cfg, mesh=mesh,
+                                      dispatch="per_source",
+                                      return_drops=True))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    calls = dict(comm.stats.kind_calls)
+    want = run(lambda q, xx: ep.per_source_reference(q, xx, cfg,
+                                                     ep_size=n))
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+    errs = {"out": rel(got[0], want[0]),
+            "aux": abs(got[1] - want[1]) / abs(want[1])}
+    errs.update({k: rel(got[3][k], want[3][k])
+                 for k in ("x", "router", "w_gate", "w_up", "w_down")})
+    return dict(errs=errs, keep_equal=bool(torch.equal(got[2], want[2])),
+                drops=int((~got[2]).sum()), assignments=got[2].numel(),
+                elsewhere=got[4], calls=calls, ms=ms)
+
+
+def _check_ep_layer(runs) -> dict:
+    """15j(c): each rank's layer within EP_LAYER_TOL of the reference, keep
+    masks equal, no gradient outside the rank's experts, the collectives
+    as derived (EP_LAYER_CALLS)."""
+    for r, run in enumerate(runs):
+        worst = max(run["errs"].values())
+        need(worst <= EP_LAYER_TOL and run["keep_equal"] and
+             run["elsewhere"] == 0 and run["calls"] == EP_LAYER_CALLS,
+             f"15j(c): rank {r} errors {run['errs']} (tolerance "
+             f"{EP_LAYER_TOL}), keep equal {run['keep_equal']}, gradient "
+             f"outside its experts {run['elsewhere']}, collectives "
+             f"{run['calls']} (derived {EP_LAYER_CALLS})")
+    r0 = runs[0]
+    print(f"phase 15j(c) one qwen3-moe-30b-a3b MoE layer at full width "
+          f"(f32, B={TRAIN_B} S={TRAIN_S}, 128 experts top-8, capacity "
+          f"factor 1.25) through ep_moe(per_source) on model=2, forward and "
+          f"backward, vs per_source_reference under autograd on one rank: "
+          f"largest relative differences per rank "
+          f"{[{k: float('%.3g' % v) for k, v in run['errs'].items()} for run in runs]}"
+          f" (tolerance {EP_LAYER_TOL}); keep masks equal "
+          f"({r0['drops']} of {r0['assignments']} assignments dropped); no "
+          f"gradient outside a rank's experts; {sum(r0['calls'].values())} "
+          f"collectives {r0['calls']} (as derived); "
+          f"{', '.join('%.1f' % run['ms'] for run in runs)} ms forward and "
+          f"backward")
+    return dict(errs=[run["errs"] for run in runs], drops=r0["drops"],
+                calls=r0["calls"], ms=[run["ms"] for run in runs])
+
+
 def phase_parallel_launchers():
     """15e: `launch/serve.py --shard 2` and `launch/train.py --data 2` and
     `--model 2` on the card, each in a subprocess that spawns its 2
@@ -4245,8 +4415,12 @@ def phase_parallel(report):
     `Engine(mesh="model=2")`, the decode kernels on each rank's KV heads,
     against the meshless streams of that cut and of phase 11c; (e) both
     launchers' mesh flags; (f) granite-8b trained at full width on model=2, against
-    phase 13b; (g) the MLA, mamba, mLSTM and sLSTM mixers and the 2-bit
-    model drafter on model=2: full-width blocks against the meshless ones,
+    phase 13b; (j) qwen3-moe-30b-a3b's first 4 layers trained at full
+    width on model=2 with its experts split, against its meshless step
+    (15j(b), on data=2,model=2, runs on phase 15h's ranks), and one
+    full-width MoE layer's per_source route forward and backward against
+    its one-rank reference; (g) the MLA, mamba, mLSTM and sLSTM mixers
+    and the 2-bit model drafter on model=2: full-width blocks against the meshless ones,
     minicpm3-4b and xlstm-1.3b at full width and depth, jamba at two
     periods of its smoke widths and the drafter on phase 9's cut, against
     the meshless streams of phases 10d, 12c, 12e and 9."""
@@ -4257,6 +4431,21 @@ def phase_parallel(report):
     torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(15)
     report["int32_mode"] = phase_int32(gen)
+    # 15j's meshless references, each freed before the ranks start
+    t0 = time.perf_counter()
+    refs = report["ep_train_ref"] = {
+        k: ep_train_reference(layers) for k, (layers, _) in EP_TRAIN.items()}
+    for k, ref in refs.items():
+        _add_launches(report, ref["launches"][0])
+        print(f"  15j({k})'s reference: qwen3-moe-30b-a3b's first "
+              f"{ref['layers']} of 48 layers at full width (QAT 8/8, B="
+              f"{TRAIN_B} S={TRAIN_S}) meshless, step 1: loss "
+              f"{ref['losses'][0]!r}, {ref['drops'][0]} MoE assignments "
+              f"dropped, {1e3 * ref['times'][0]:.1f} ms (the first step), "
+              f"{ref['launches'][0]['bramac_matmul']} bramac_matmul "
+              f"launches, state {ref['state_gb']:.2f} GB, peak "
+              f"{ref['peak_gb'] - ref['residue_gb']:.2f} GB")
+    print(f"  15j's references took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     jobs = {"jamba_prompts":
             report["recurrent_streams"]["jamba mesh reference"]["prompts"]}
@@ -4298,6 +4487,19 @@ def phase_parallel(report):
         lambda run: ((4 + 3 * E // PAR_RANKS) * L + 1) * run["forwards"],
         lambda run: (L * (2 + 3) + 1) * run["forwards"], L, report)
     par["train"] = _check_tp_train([o["train"] for o in outs], report)
+    ref = refs["a"]
+    par["ep_train"] = _check_rank_train(
+        f"phase 15j(a) train qwen3-moe-30b-a3b full width "
+        f"({ref['layers']} of 48 layers, 128 experts top-8, QAT 8/8, int8 "
+        f"m / bf16 v, B={TRAIN_B} S={TRAIN_S}) on model=2, experts split "
+        f"over the 2 ranks on the card", [o["ep_train"] for o in outs],
+        ref["losses"][0], "the cut's meshless step",
+        lambda n: (4 * n + 1, ep_train_collectives(n)), report,
+        ref_drops=ref["drops"][0],
+        replicated_gb=ref["peak_gb"] - ref["residue_gb"])
+    par["ep_layer"] = _check_ep_layer([o["ep_layer"] for o in outs])
+    print(f"  phase 15j(a, c) on the ranks took "
+          f"{', '.join('%.1f' % o['15j_s'] for o in outs)} s")
     print(f"  phase 15g on the ranks took "
           f"{', '.join('%.1f' % o['15g_s'] for o in outs)} s (the blocks "
           f"{', '.join('%.1f' % o['15g']['blocks_s'] for o in outs)} s; "
@@ -4758,7 +4960,9 @@ def data_rank(rank, world, device, jobs):
     same ranks: (b) the 6-layer cut trained ZeRO-3 on "data=2,model=2"
     after (c), on all four; (a) granite-8b at full width and depth
     trained ZeRO-3 on "data=2" last, on ranks 0 and 1 (ranks 2 and 3
-    wait, holding nothing but their context).  `jobs`: phase 8's
+    wait, holding nothing but their context).  Phase 15j(b) after 15i(b)
+    on all four: qwen3-moe-30b-a3b's first layers trained on
+    "data=2,model=2", its experts split over model.  `jobs`: phase 8's
     prompts."""
     import warnings
     from repro_torch.configs import get_config
@@ -4798,6 +5002,12 @@ def data_rank(rank, world, device, jobs):
     out["zero_b"] = _rank_train(mesh4, layers=CUT_LAYERS,
                                 steps=ZERO_STEPS["b"])
     out["zero_b_s"] = time.perf_counter() - t0
+    # 15j(b): qwen3-moe-30b-a3b's first layers, its expert stacks cut on
+    # E over model and on d over data
+    t0 = time.perf_counter()
+    layers, steps = EP_TRAIN["b"]
+    out["ep_b"] = _rank_train(mesh4, steps=steps, cfg=ep_train_cfg(layers))
+    out["ep_b_s"] = time.perf_counter() - t0
     if mesh2.coords is None:
         del params
         free()
@@ -4862,10 +5072,10 @@ def data_rank(rank, world, device, jobs):
 # 15i's steps a rank: granite-8b's full-width ZeRO-3 step on data=2 stages
 # ~74 GB a rank through the host (its gathers, re-gathers and
 # reduce-scatters: 25.5 s a step on an H100 80GB HBM3 at 700 W), so
-# (a) runs two steps, the first a warm-up, and (b), whose one step holds
-# the two-axis split, AdamW's reduce over both axes and the peak, one;
-# 13b and 15f run 4
-ZERO_STEPS = {"a": 2, "b": 1}
+# (a) runs one step (two until 15j took its time), which holds every
+# collective, AdamW's reduce and the peak, and so does (b)'s one step on
+# the two-axis split; 13b and 15f run 4
+ZERO_STEPS = {"a": 1, "b": 1}
 
 
 def zero_train_collectives(layers: int, model: int = 1) -> dict:
@@ -4910,17 +5120,18 @@ def zero_cut_reference() -> float:
     return loss
 
 
-def _check_zero_train(label, runs, ref_loss, ref_what, model, report,
-                      replicated_gb=None):
-    """15i: the ranks' ZeRO-3 steps against the derivation (collectives by
-    kind, `bramac_matmul` launches, no decode launch) and step 1's loss
-    against `ref_loss` (1e-3 relative); every loss finite and equal on
-    every rank.  Returns the readings: ms a step (the steps after the
-    first; the one step of a one-step run), ms in collectives and bytes
-    staged through the host a step, state and peak GB a rank."""
+def _check_rank_train(label, runs, ref_loss, ref_what, derive, report,
+                      ref_drops=None, replicated_gb=None):
+    """15i and 15j: the ranks' training steps against the derivation
+    (`derive(layers)` -> (`bramac_matmul` launches, collectives by kind) a
+    rank and step; no decode launch) and step 1's loss against `ref_loss`
+    (1e-3 relative), and its MoE drops against `ref_drops` where given;
+    every loss finite and equal on every rank.  Returns the readings: ms a
+    step (the steps after the first; the one step of a one-step run), ms
+    in collectives and bytes staged through the host a step, state and
+    peak GB a rank."""
     L = runs[0]["layers"]
-    per_step = 7 * L + 1
-    want_calls = zero_train_collectives(L, model)
+    per_step, want_calls = derive(L)
     for r, run in enumerate(runs):
         need(all(np.isfinite(x) for x in run["losses"] + run["grad_norms"]),
              f"{label}: rank {r} non-finite losses {run['losses']} or grad "
@@ -4935,6 +5146,9 @@ def _check_zero_train(label, runs, ref_loss, ref_what, model, report,
                  f"{label}: rank {r} step {step} collectives "
                  f"{c['kind_calls']} != {want_calls}")
             report["bramac_matmul"]["launches"] += got["bramac_matmul"]
+        need(ref_drops is None or run["drops"][0] == ref_drops,
+             f"{label}: rank {r} step 1 dropped {run['drops'][0]} MoE "
+             f"assignments, {ref_what} {ref_drops}")
     mine = runs[0]["losses"][0]
     rel = abs(mine - ref_loss) / abs(ref_loss)
     need(rel <= 1e-3, f"{label}: step 1's loss {mine!r} is not within 1e-3 "
@@ -4955,10 +5169,12 @@ def _check_zero_train(label, runs, ref_loss, ref_what, model, report,
                peak_gb=peaks, state_gb=[run["state_gb"] for run in runs],
                build_s=[run["build_s"] for run in runs],
                collectives=want_calls, launches_per_step=per_step,
-               steps=len(r0["times"]))
+               steps=len(r0["times"]), drops=r0["drops"])
     beside = "" if replicated_gb is None else \
-        f" (13b's meshless step, the replicated layout's need: " \
+        f" ({ref_what}, the replicated layout's need: " \
         f"{replicated_gb:.2f} GB)"
+    dropped = "" if ref_drops is None else \
+        f"; MoE drops a step {r0['drops']} (step 1 = {ref_what}'s)"
     print(f"{label}: losses {[round(x, 4) for x in r0['losses']]}, grad "
           f"norms {[round(x, 3) for x in r0['grad_norms']]}; step 1's loss "
           f"{mine!r} vs {ref_what}'s {ref_loss!r} (relative difference "
@@ -4972,7 +5188,7 @@ def _check_zero_train(label, runs, ref_loss, ref_what, model, report,
           f"rank {', '.join(f'{g:.2f}' for g in row['state_gb'])} GB, peak "
           f"per rank {', '.join(f'{g:.2f}' for g in peaks)} GB{beside} "
           f"(drawn and placed in "
-          f"{', '.join(f'{t:.1f}' for t in row['build_s'])} s)")
+          f"{', '.join(f'{t:.1f}' for t in row['build_s'])} s){dropped}")
     return row
 
 
@@ -5129,20 +5345,32 @@ def phase_data_split(report):
     # 15i: ZeRO-3 training, (a) at full depth on data=2 against 13b,
     # (b) the 6-layer cut on data=2,model=2 against its meshless loss
     tr = report["train"]
-    zero = {"a": _check_zero_train(
+    zero = {"a": _check_rank_train(
         "phase 15i(a) train granite-8b full width (36 layers, QAT 8/8, "
         f"int8 m / bf16 v, B={TRAIN_B} S={TRAIN_S}) ZeRO-3 on data=2, 2 "
         "ranks on the card", [o["zero_a"] for o in two], tr["losses"][0],
-        "13b", 1, report, replicated_gb=tr["peak_gb"] - tr["residue_gb"])}
-    zero["b"] = _check_zero_train(
+        "13b", lambda n: (7 * n + 1, zero_train_collectives(n, 1)), report,
+        replicated_gb=tr["peak_gb"] - tr["residue_gb"])}
+    zero["b"] = _check_rank_train(
         f"phase 15i(b) train granite-8b full width ({L} of 36 layers, QAT "
         f"8/8) ZeRO-3 on data=2,model=2, 4 ranks on the card",
         [o["zero_b"] for o in outs], cut_loss, "the cut's meshless step",
-        2, report)
+        lambda n: (7 * n + 1, zero_train_collectives(n, 2)), report)
     rows["zero"] = zero
+    # 15j(b): qwen3-moe's cut, experts over model and ZeRO-3 over data
+    ref = report["ep_train_ref"]["b"]
+    rows["ep_train"] = _check_rank_train(
+        f"phase 15j(b) train qwen3-moe-30b-a3b full width "
+        f"({ref['layers']} of 48 layers, QAT 8/8, experts split over "
+        f"model) ZeRO-3 on data=2,model=2, 4 ranks on the card",
+        [o["ep_b"] for o in outs], ref["losses"][0],
+        "the cut's meshless step",
+        lambda n: (4 * n + 1, ep_train_collectives(n, data=2)), report,
+        ref_drops=ref["drops"][0],
+        replicated_gb=ref["peak_gb"] - ref["residue_gb"])
     parts = {k: [round(o[k], 1) for o in outs if k in o]
-             for k in ("c_s", "zero_b_s", "a_s", "b_s", "d_s", "e_s",
-                       "zero_a_s")}
+             for k in ("c_s", "zero_b_s", "ep_b_s", "a_s", "b_s", "d_s",
+                       "e_s", "zero_a_s")}
     spent = time.perf_counter() - t_phase
     rows["parts_s"] = parts
     report["data_split"] = rows
@@ -5215,7 +5443,9 @@ def phase_dryrun(report):
     training step on a dry model=2: the per-rank peak within 10% of each
     rank's measured one, collectives and kernel calls equal to 15f's;
     (e) phase 15i(a)'s ZeRO-3 training step on a dry data=2, the same
-    three checks against 15i(a)'s.  The meta count leaves out the cuBLAS
+    three checks against 15i(a)'s; (f) phase 15j(a)'s expert-parallel
+    training step on a dry model=2, the same three checks against
+    15j(a)'s.  The meta count leaves out the cuBLAS
     workspace (CUBLAS_WORKSPACE_CONFIG :4096:8, 32 MiB) and the
     allocator's segments; it rounds each storage to the allocator's
     512-byte granule (`peak_rounded`)."""
@@ -5425,6 +5655,42 @@ def phase_dryrun(report):
           f"{rec['collective_bytes_per_dev']}) and "
           f"{rec['kernel_calls_per_dev']['bramac_matmul']} bramac_matmul "
           f"calls a step, as 15i(a) counted them")
+    # (f) expert-parallel training: phase 15j(a)'s configuration on a
+    # dry model=2
+    ep_run = report["parallel"]["ep_train"]
+    rec = dry_record(ep_train_cfg(EP_TRAIN["a"][0]), {
+        "kind": "train", "batch": TRAIN_B, "seq": TRAIN_S}, mesh="model=2")
+    print("  " + _dry_line(f"16f qwen3-moe-30b-a3b ({EP_TRAIN['a'][0]} "
+                           f"layers) train B={TRAIN_B} S={TRAIN_S} model=2 "
+                           f"(per rank)", rec))
+    pred = _gb(rec["memory"]["peak_rounded_bytes_per_dev"])
+    calls = rec["collective_calls_per_dev"]
+    for r, meas in enumerate(ep_run["peak_gb"]):
+        need(within(meas, pred, 0.10),
+             f"16f: predicted per-rank training peak {pred:.2f} GB is not "
+             f"within 10% of 15j(a) rank {r}'s measured {meas:.2f} GB")
+    need(calls == ep_run["collectives"],
+         f"16f: counted collectives {calls} != 15j(a)'s "
+         f"{ep_run['collectives']}")
+    need(rec["kernel_calls_per_dev"]["bramac_matmul"] ==
+         ep_run["launches_per_step"], f"16f: counted kernel calls "
+         f"{rec['kernel_calls_per_dev']} != 15j(a)'s "
+         f"{ep_run['launches_per_step']}")
+    out["ep_train"] = dict(
+        predicted_peak_gb=pred, measured_peak_gb=ep_run["peak_gb"],
+        collectives=calls, bytes=rec["collective_bytes_per_dev"],
+        roofline=rec["roofline"],
+        args_gb=_gb(rec["memory"]["args_bytes_per_dev"]))
+    print(f"phase 16f qwen3-moe-30b-a3b train on model=2 (experts split): "
+          f"predicted per-rank peak {pred:.2f} GB vs 15j(a)'s measured "
+          f"{', '.join(f'{g:.2f}' for g in ep_run['peak_gb'])} GB "
+          f"({', '.join(f'{100 * (pred - g) / g:+.2f}%' for g in ep_run['peak_gb'])}); "
+          f"state {out['ep_train']['args_gb']:.2f} GB a rank (measured "
+          f"{', '.join(f'{g:.2f}' for g in ep_run['state_gb'])}); "
+          f"{sum(calls.values())} collectives {calls} (result bytes "
+          f"{rec['collective_bytes_per_dev']}) and "
+          f"{rec['kernel_calls_per_dev']['bramac_matmul']} bramac_matmul "
+          f"calls a step, as 15j(a) counted them")
     report["dryrun"] = out
     spent = time.perf_counter() - t_phase
     report["phase16_s"] = spent

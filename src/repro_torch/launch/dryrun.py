@@ -48,8 +48,8 @@ What differs from the reference:
   gathered per use), so the forward's gathers, the backward's re-gathers
   and reduce-scatters and the tensor-parallel collectives are counted; a
   training record says which placement it counted (`placement`);
-  xattn under a mesh, and training a layer other than attn+dense under
-  a model axis, raise the port's own errors (`status: error`).  The
+  xattn under a mesh, and training a layer whose mixer is not attention
+  under a model axis, raise the port's own errors (`status: error`).  The
   256/512-chip production meshes mean nothing on one card and are not
   taken;
 - ranks share one card, so the roofline terms are the card's: every

@@ -19,7 +19,8 @@ AdamW state alike), takes B/D rows of each batch, gathers each block's
 weights per use, and gets its gradients reduce-scattered over `data`
 (`runtime.trainer`); every rank joins a checkpoint's gather and rank 0
 prints and writes them, whole leaves.  A `model` axis trains attn+dense
-archs; an attn+moe arch or a layer the mesh Engine does not serve raises
+and attn+moe archs (the experts split over it, either `ep_dispatch`); a
+layer whose mixer is not attention (ROADMAP queue 1 item 18) raises
 NotImplementedError before any rank starts.  The last line reads as the
 reference's: `loss a -> b over n steps; straggler events: k`.
 """

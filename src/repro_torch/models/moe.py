@@ -1,14 +1,16 @@
 """Mixture-of-Experts FFN: top-k routing, capacity-based dispatch, EP.
 
-Port of `repro.models.moe`, with its two expert-parallel routes: under an
-active sharding ctx (`parallel.sharding.activate`, the mesh Engine) the
-quantized expert einsum goes through `parallel.ep.ep_quant_einsum_edf`,
-and `dispatch="per_source"` hands the whole layer to `parallel.ep.ep_moe`.
-Both are bit-exact against the meshless path.  Tokens are scattered into a
-per-expert capacity buffer (E, C, d) — the Switch-Transformer dispatch —
-so expert compute is E·C·(3·d·ff), about the *active* FLOPs.  Serving
-weights run each expert einsum as one `bramac_matmul` per expert
-(`bramac_linear.serve_einsum_edf`).
+Port of `repro.models.moe`, with its expert-parallel routes: under an
+active sharding ctx (`parallel.sharding.activate`, the mesh Engine, a
+training rank) the quantized expert einsum goes through
+`parallel.ep.ep_quant_einsum_edf`, the float expert stacks (training's)
+run on this rank's block of the experts (`_expert_split`), and
+`dispatch="per_source"` hands the whole layer to `parallel.ep.ep_moe`.
+The first two are bit-exact against the meshless path.  Tokens are
+scattered into a per-expert capacity buffer (E, C, d) — the
+Switch-Transformer dispatch — so expert compute is E·C·(3·d·ff), about
+the *active* FLOPs.  Serving weights run each expert einsum as one
+`bramac_matmul` per expert (`bramac_linear.serve_einsum_edf`).
 
 Router math is f32; a Switch-style load-balancing aux loss is returned.
 Tokens overflowing an expert's capacity are dropped; every row of the call
@@ -39,6 +41,23 @@ from repro_torch.models.routing import (_one_hot, _rank_in_expert_cumsum,
                                         dispatch_buffer, moe_capacity,
                                         router_top_k)
 from repro_torch.parallel import comm, ep, sharding
+
+
+def _expert_split(p, E: int):
+    """(group, n, i) when the active ctx splits float expert stacks over
+    an `expert` axis of n > 1 ranks that divides E (this rank holds block
+    i of the experts: the training placement), else None.  The reference
+    multiplies such stacks in one einsum that GSPMD shards; where n does
+    not divide E its `constrain` leaves them whole, and so does the
+    port."""
+    ctx = sharding.active()
+    if ctx is None or isinstance(p["w_gate"], QuantizedTensor):
+        return None
+    ax = ctx.phys_axis("expert")
+    n = 1 if ax is None else ctx.mesh.shape[ax]
+    if n == 1 or E % n:
+        return None
+    return ctx.mesh.group(ax), n, ctx.mesh.index(ax)
 
 
 def _expert_matmul(x, w):
@@ -139,13 +158,27 @@ def moe(p, x, cfg, capacity_factor: float | None = None,
     r = route(p, xf, cfg, capacity_factor)
 
     # ---- capacity dispatch: dropped rows add zeros at (a, C-1) ----
-    xk = torch.repeat_interleave(xf, k, dim=0)               # (T*k, d)
+    # under an expert split each rank's gradient of the buffer covers its
+    # own experts: it is summed over the axis on the dispatch branch only
+    # (the router's is whole on every rank already)
+    split = _expert_split(p, E)
+    xd = xf if split is None else comm.copy_to(xf, split[0])
+    xk = torch.repeat_interleave(xd, k, dim=0)               # (T*k, d)
     buf = dispatch_buffer(E, r.C, r.a, r.pos_c, r.keep, xk)
 
     # ---- expert compute ----
-    g = _expert_matmul(buf, p["w_gate"])
-    u = _expert_matmul(buf, p["w_up"])
-    ye = _expert_matmul(F.silu(g) * u, p["w_down"])
+    if split is not None:
+        # this rank's E/n experts on their rows of the buffer, the
+        # outputs gathered (backward: the rank's own block)
+        group, n, i = split
+        _, w = ep._moe_weights(p, E, n, i)
+        ye = ep._expert_ffn(sharding.block(buf, 0, n, i), w,
+                            quantized=False, bits_a=8)
+        ye = comm.gather_from(ye, group, 0, i)               # (E, C, d)
+    else:
+        g = _expert_matmul(buf, p["w_gate"])
+        u = _expert_matmul(buf, p["w_up"])
+        ye = _expert_matmul(F.silu(g) * u, p["w_down"])
 
     # ---- combine ----
     yk = ye[r.a, r.pos_c]                                    # (T*k, d)

@@ -20,9 +20,10 @@ group (`name_group`).  `all_gather_many` gathers several tensors of any
 dtypes in one collective: the mesh Engine's one exchange over `data` a
 forward (the pool rows a rank wrote and the tokens it sampled).
 
-The collectives above detach their input: serving and the dry run's
-forwards need no gradient through them.  Training a `model`-split model
-needs three that autograd passes through (Megatron-LM's conjugate pairs,
+The collectives above detach their input, but for `all_to_all`, whose
+backward is the same exchange: serving and the dry run's forwards need
+no gradient through them.  Training a `model`-split model needs three
+more that autograd passes through (Megatron-LM's conjugate pairs,
 for a loss that every rank of the group computes alike): `copy_to`
 (identity forward, the gradient summed over the group: Megatron's *f*),
 `reduce_from` (a sum forward, the gradient passed through: *g*) and
@@ -361,9 +362,15 @@ def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     """Chunk i of `t`'s leading axis (split n ways) goes to group rank i;
     the result holds the chunks received, source rank by source rank,
     along the leading axis (`jax.lax.all_to_all(split_axis=0,
-    concat_axis=0)`)."""
+    concat_axis=0)`).  Autograd passes through it: the exchange is its
+    own transpose (chunk j of rank i's result is chunk i of rank j's
+    input), so its backward is the same exchange of the gradient."""
     if group is None:
         return t
+    return _AllToAll.apply(t, group)
+
+
+def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     if isinstance(group, DryGroup):
         return _dry(t, "all-to-all", t.shape, group)
 
@@ -378,6 +385,17 @@ def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # collectives autograd passes through (tensor-parallel training)
 # ---------------------------------------------------------------------------
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _all_to_all(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g.contiguous(), ctx.group), None
+
 
 class _CopyTo(torch.autograd.Function):
     @staticmethod

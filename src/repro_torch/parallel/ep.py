@@ -41,6 +41,20 @@ over the EP axis) with two token dispatch modes:
 
 The input x is replicated on every rank of the axis (as in the Engine);
 each rank takes its T/n token block and the outputs are gathered back.
+
+`ep_moe` trains: autograd passes through each of its collectives with
+the backward that fits how its result is used, for a loss that every
+rank of the axis computes alike.  x and the router enter through
+`comm.copy_to` (each rank's gradient covers its own token rows only, and
+the rows are disjoint, so the sum over the axis is the whole gradient);
+the `all_to_all`s are their own transposes; the global combine's
+`all_gather` reduce-scatters its gradient back to the owners
+(`comm.all_gather_grad`: every source reads the rows of its own
+tokens); the gather of `out` hands each rank its own block
+(`comm.gather_from`) and the `frac_probs` sum passes its gradient
+through (`comm.reduce_from`), since everything after them is
+replicated.  Counts, the sidecar and `frac_tokens` are integer or
+one-hot and carry none.
 """
 from __future__ import annotations
 
@@ -222,13 +236,14 @@ def ep_moe(p, x, cfg, *, mesh, axis: str | None = None,
     me = mesh.index(ax) if n > 1 else 0
     group = mesh.group(ax)
     quantized, w = _moe_weights(p, E, n, me)
-    xf = x.reshape(T, d)
+    xf = comm.copy_to(x, group).reshape(T, d)
     xl = xf[me * Tl:(me + 1) * Tl]
     # every rank routes the whole (replicated) batch and keeps its block:
     # the router's f32 product is then the meshless one bit for bit (a
     # GPU matmul's rounding may depend on its row count)
+    router = comm.copy_to(p["router"], group)
     probs, top_p, top_i = (t[me * Tl:(me + 1) * Tl]
-                           for t in router_top_k(xf, p["router"], k))
+                           for t in router_top_k(xf, router, k))
     a = top_i.reshape(Tl * k)
     al = a.long()
     xk = torch.repeat_interleave(xl, k, dim=0)              # (Tl*k, d)
@@ -250,7 +265,7 @@ def ep_moe(p, x, cfg, *, mesh, axis: str | None = None,
         ye = _expert_ffn(buf, w, quantized, bits_a)         # (El, C, d)
         # combine: every source needs every owner's rows (owner order ==
         # axis order, the single-rank buffer layout)
-        ye = comm.all_gather(ye, group, dim=0)              # (E, C, d)
+        ye = comm.all_gather_grad(ye, group, dim=0)         # (E, C, d)
         yk = ye[al, pos_c]
     else:
         # ---- per-source capacity dispatch (GShard lossy path) ----
@@ -283,9 +298,9 @@ def ep_moe(p, x, cfg, *, mesh, axis: str | None = None,
     frac_tokens = comm.all_reduce(
         torch.sum(_one_hot(top_i, E, torch.float32), dim=(0, 1)),
         group) / (T * k)
-    frac_probs = comm.all_reduce(torch.sum(probs, dim=0), group) / T
+    frac_probs = comm.reduce_from(torch.sum(probs, dim=0), group) / T
     aux = E * torch.sum(frac_tokens * frac_probs)
-    out = comm.all_gather(out, group, dim=0).reshape(B, S, d)
+    out = comm.gather_from(out, group, 0, me).reshape(B, S, d)
     if return_drops:
         keep = comm.all_gather(keep.reshape(Tl, k), group, dim=0)
         return out, aux, keep

@@ -30,9 +30,11 @@ parameters and of the AdamW state under the reference's training rules
     `all_reduce` over `data`, with the loss;
   * a `model` axis: the parameters are split Megatron-style, as the mesh
     Engine splits them (column-parallel wq/wk/wv/w_gate/w_up/unembed,
-    row-parallel wo/w_down, the embedding whole on `model`); the step runs
-    the model's collectives under the training ctx, with their backward
-    (`parallel.comm.copy_to` and friends).
+    row-parallel wo/w_down, the embedding whole on `model`, the MoE
+    expert stacks on E: the `expert` rule); the step runs the model's
+    collectives under the training ctx, with their backward
+    (`parallel.comm.copy_to` and friends; a MoE layer's expert split in
+    `models.moe`, or `parallel.ep.ep_moe` with `ep_dispatch="per_source"`).
 AdamW updates each rank's blocks on the whole leaf's int8 block grid
 (`optim.adamw`), reducing the norm and the spread block maxima over the
 axes each leaf is cut over.  The step's loss, gradients and update are
@@ -84,8 +86,8 @@ def check_mesh(cfg, mesh) -> None:
     yet: an axis other than `data` and `model`; under a `model` axis, a
     layer whose mixer is not `attn` (ROADMAP queue 1 item 18: the grouped
     column splits of mamba's and the xLSTM's weights, and the mixers' own
-    collectives, have no training layout) or an attn+moe layer (item
-    17)."""
+    collectives, have no training layout).  attn+dense and attn+moe
+    layers train (the experts split over the `expert` rule's axis)."""
     if mesh is None:
         return
     other = {a: n for a, n in mesh.shape.items()
@@ -103,12 +105,6 @@ def check_mesh(cfg, mesh) -> None:
             f"is not ported to repro_torch yet (ROADMAP queue 1 item 18: "
             f"tensor-parallel training of mla, mamba, mlstm and slstm "
             f"layers; the tensor-parallel Trainer takes attn layers)")
-    moe = [s for s in cfg.layer_pattern if s.endswith("+moe")]
-    if moe:
-        raise NotImplementedError(
-            f"{cfg.name}: training a {moe[0]!r} layer under a model axis is "
-            f"not ported to repro_torch yet (ROADMAP queue 1 item 17: the "
-            f"expert-parallel collectives have no backward)")
 
 
 def grads(params):

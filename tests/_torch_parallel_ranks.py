@@ -1,5 +1,6 @@
 """Rank-side bodies of the port's parallel tests (`tests/test_torch_parallel_
-*.py`, `tests/test_torch_dp_trainer.py`, `tests/test_torch_tp_trainer.py`).
+*.py`, `tests/test_torch_dp_trainer.py`, `tests/test_torch_tp_trainer.py`,
+`tests/test_torch_zero_trainer.py`, `tests/test_torch_ep_trainer.py`).
 
 Each test file spawns its ranks once (`repro_torch.parallel.comm.spawn`,
 gloo on the CPU) with one of the functions below, which runs every case's
@@ -664,3 +665,69 @@ def _lane_cases(mesh, out):
             got = comm.all_reduce(xs[i], group, "max")
             out[f"{axis} max {shape}"] = torch.equal(
                 got, torch.maximum(xs[0], xs[1]))
+
+
+# ---------------------------------------------------------------------------
+# expert-parallel training (attn+moe under a model axis)
+# ---------------------------------------------------------------------------
+
+EP_MESHES = ("model=2", "data=2,model=2")
+
+
+def _ep_layer(mesh, p, x, cfg, cf, dispatch, cot):
+    """One `ep_moe` layer on `mesh` from the whole params `p` and input
+    `x`: forward (out, aux, keep) and the gradients of sum(out * cot) +
+    aux with respect to x and every leaf of `p` (a stack's gradient is
+    non-zero on this rank's block of experts only)."""
+    from repro_torch.parallel import ep
+
+    p = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+    x = x.clone().requires_grad_(True)
+    out, aux, keep = ep.ep_moe(p, x, cfg, mesh=mesh, capacity_factor=cf,
+                               dispatch=dispatch, return_drops=True)
+    (torch.sum(out * cot) + aux).backward()
+    return {"out": _np(out), "aux": float(aux), "keep": _np(keep),
+            "grads": {"x": _np(x.grad),
+                      **{k: _np(v.grad) for k, v in p.items()}}}
+
+
+def ep_train_rank(rank, world, device, steps, layers, trainer_case):
+    """Training attn+moe archs under a `model` axis on 4 ranks: mesh
+    "model=2" on ranks 0 and 1, "data=2,model=2" on all.  On each mesh:
+    per case of `steps` (arch, QAT bits) one step and two AdamW updates
+    (`_zero_step`) with the MoE drops the step's dispatches counted, then
+    the Trainer (`tp_trainer_body`); on "model=2" each of `layers` (one
+    MoE layer through `ep_moe`: (p, x, cfg, capacity factor, dispatch,
+    cotangent)) forward and backward.  Then each mesh restores the other's
+    final checkpoint."""
+    import warnings
+
+    from repro_torch.parallel import comm
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")          # "uses 2 of 4 devices"
+        meshes = {"model=2": shd.build_mesh("data=1,model=2"),
+                  "data=2,model=2": shd.build_mesh("data=2,model=2")}
+    cfg, params, batches, dirs = trainer_case
+    out = {}
+    for name, mesh in meshes.items():
+        if mesh.coords is not None:
+            res = {}
+            for case, args in steps.items():
+                with watched() as seen:
+                    res[case] = _zero_step(mesh, *args)
+                res[case]["drops"] = seen["drops"]
+            if name == "model=2":
+                res["layers"] = {key: _ep_layer(mesh, *args)
+                                 for key, args in layers.items()}
+            res["trainer"] = tp_trainer_body(mesh, cfg, params, batches,
+                                             dirs[name])
+            out[name] = res
+        comm.barrier()
+    for name, other in zip(EP_MESHES, reversed(EP_MESHES)):
+        mesh = meshes[name]
+        if mesh.coords is not None:
+            out[name]["cross"] = _restore_state(
+                mesh, cfg, params, dirs[other]["crash"])
+        comm.barrier()
+    return out

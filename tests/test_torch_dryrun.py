@@ -5,8 +5,9 @@ analysis,dryrun}`) on the CPU: the meta stand-ins leaf for leaf against
 40 cells, counted FLOPs against a sum written out by hand, per-period
 counting against the whole stack, the sLSTM recurrence against the
 reference's analytic correction, the 145 collectives of a tensor-parallel
-granite-8b decode, the cells the port refuses, the records' roofline
-terms, and the CLI."""
+granite-8b decode, the expert-parallel training cells of the attn+moe
+archs on `model=2` and `data=2,model=2`, the cells the port refuses, the
+records' roofline terms, and the CLI."""
 import json
 import math
 import os
@@ -388,12 +389,104 @@ def test_zero_granite_train_counts_the_derived_collectives():
         0.55 * whole["memory"]["peak_est_bytes_per_dev"]
 
 
+def moe_train_collectives(cfg, sizes: dict) -> dict:
+    """Per rank, the collectives of one float training step of an attn+moe
+    arch on a mesh of `sizes` with a 2-way `model` axis: forward, each
+    layer's row-parallel wo one sum and its MoE layer one gather of its
+    experts' outputs (the global dispatch), the logits one gather;
+    backward, one gradient sum at the input of each attention, of each
+    MoE dispatch and of the unembed.  With a 2-way `data` axis (ZeRO-3),
+    each layer's 4 attention linears and 3 expert stacks, the embedding
+    and the unembed gathered forward, again in backward (all but the
+    embedding) and reduce-scattered, each MoE input gathered over `data`
+    and its gradient reduce-scattered, one mean of the loss and the whole
+    leaves.  AdamW's norm one sum an axis, and one max an axis where a
+    leaf's 128-blocks span ranks (the unembed's V/2 columns when 128 does
+    not divide them)."""
+    L = cfg.num_layers
+    out = {"all-reduce": 3 * L + 1, "all-gather": L + 1}
+    if sizes["data"] > 1:
+        out["all-gather"] += (7 * L + 2) + (7 * L + 1) + L
+        out["reduce-scatter"] = 7 * L + 2 + L
+        out["all-reduce"] += 1
+    axes = sum(n > 1 for n in sizes.values())
+    spread = (cfg.vocab_size // 2) % 128 != 0
+    out["all-reduce"] += axes * (1 + spread)
+    return out
+
+
+@pytest.mark.parametrize("sizes", [{"data": 1, "model": 2},
+                                   {"data": 2, "model": 2}],
+                         ids=["model=2", "data=2,model=2"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "dbrx-132b"])
+def test_moe_train_cell_counts_expert_parallel_collectives(arch, sizes):
+    """train_4k of the two attn+moe archs on `model=2` and
+    `data=2,model=2` gives ok records: the experts split over `model` (E
+    over it, d over `data`), their collectives as derived
+    (`moe_train_collectives`), no kernel call (a float step), and the
+    rank's state its blocks of the reference's cuts: each param's block
+    under the reference's rules (`spec_for`, `default_rules`; the
+    embedding whole on `model`) at its dtype, a bf16 v, an int8 m of
+    ceil(block / 128) rows of 128 with one f32 scale a 128-block (of the
+    whole leaf where its blocks span ranks), and the int32 tokens and
+    labels (every rank is handed the whole batch and takes its rows)."""
+    from test_torch_zero_trainer import _reference_block
+    mesh = ",".join(f"{a}={n}" for a, n in sizes.items() if n > 1)
+    rec = dryrun.run_cell(arch, "train_4k", "baseline", mesh=mesh)
+    cfg = get_config(arch)
+    assert rec["status"] == "ok" and rec["ranks"] == math.prod(
+        sizes.values())
+    assert rec["placement"].endswith("tensor-parallel over model=2")
+    assert rec["collective_calls_per_dev"] == moe_train_collectives(
+        cfg, sizes)
+    assert rec["kernel_calls_per_dev"]["bramac_matmul"] == 0
+    state = 4                                        # AdamW's step
+    for path, t in tree_items(specs.param_specs(cfg)):
+        block = _reference_block(path, tuple(t.shape), sizes)
+        n = math.prod(block)
+        last = max((d for d in range(t.ndim) if block[d] != t.shape[d]),
+                   default=None)
+        run = None if last is None else \
+            block[last] * math.prod(t.shape[last + 1:])
+        scales = n // 128 if run is not None and run % 128 == 0 \
+            else -(-t.numel() // 128)
+        state += n * (t.element_size() + 2) + -(-n // 128) * 128 \
+            + scales * 4
+        if "/moe/w_" in path:
+            assert block[1] == cfg.num_experts // 2, path
+    info = archs.SHAPES["train_4k"]
+    batch = 2 * info["batch"] * info["seq"] * 4
+    assert rec["memory"]["args_bytes_per_dev"] == state + batch
+
+
+def test_moe_per_source_train_counts_its_exchanges():
+    """qwen3-moe-30b-a3b at full width cut to 4 layers, trained float with
+    `ep_dispatch="per_source"` (B=4, S=64) on `model=2`: each MoE layer
+    goes through `ep.ep_moe`, whose forward sends the capacity buffer and
+    its int32 sidecar and returns the experts' outputs (3 all-to-alls),
+    and whose backward sends the two gradients back (2 more); one gather
+    of its output forward; the frac_tokens and frac_probs sums forward
+    and the x and router gradient sums backward; with the wo sum, the
+    attention's input sum and the logits' gather, and AdamW's norm and
+    the unembed's spread block maxima."""
+    cfg = get_config("qwen3-moe-30b-a3b").replace(num_layers=4,
+                                                  ep_dispatch="per_source")
+    L = cfg.num_layers
+    rec = dryrun.predict(cfg, {"kind": "train", "batch": 4, "seq": 64},
+                         mesh="model=2")
+    assert rec["collective_calls_per_dev"] == {
+        "all-to-all": 5 * L, "all-gather": L + 1,
+        "all-reduce": L * (1 + 1 + 4) + 1 + 2}
+
+
 @pytest.mark.parametrize("arch,shape,variant,mesh,match", [
     pytest.param("granite-8b", "train_4k", "baseline", "model=2", None,
                  id="granite-8b-train_4k-baseline-model=2-tensor-parallel "
                     "training"),
-    ("qwen3-moe-30b-a3b", "train_4k", "baseline", "model=2",
-     "queue 1 item 17"),
+    pytest.param("qwen3-moe-30b-a3b", "train_4k", "baseline", "model=2",
+                 None, id="qwen3-moe-30b-a3b-train_4k-baseline-model=2-"
+                          "queue 1 item 17"),
+    ("minicpm3-4b", "train_4k", "baseline", "model=2", "queue 1 item 18"),
     pytest.param("minicpm3-4b", "decode_32k", "serve_tp_q8", "model=2", None,
                  id="minicpm3-4b-decode_32k-serve_tp_q8-model=2-'mla\\+dense'"
                     " layer under a mesh"),
@@ -405,21 +498,31 @@ def test_refused_cells_record_the_port_error(tmp_path, capsys, arch, shape,
     train_4k on `model=2` was refused until tensor-parallel training was
     ported: its record is ok now, with the backward's collectives counted
     (float: 36 x 2 sums and the gather forward, 36 x 2 + 1 sums backward,
-    the norm: 147).  minicpm3-4b's serve_tp_q8 decode on `model=2` was
-    refused until the mesh Engine served MLA: its record is ok now, with
-    a max and a sum for each row-parallel wo and w_down of its 62 layers
-    and the logits' gather (249, as on the card)."""
+    the norm: 147).  qwen3-moe-30b-a3b's was refused until expert-parallel
+    training was ported: ok now (48 wo sums, 48 expert gathers and the
+    logits' gather forward, 48 x 2 + 1 sums backward, the norm and the
+    unembed's spread block maxima: 147 sums, 49 gathers); minicpm3-4b's
+    (MLA) is refused naming ROADMAP item 18.  minicpm3-4b's serve_tp_q8
+    decode on `model=2` was refused until the mesh Engine served MLA: its
+    record is ok now, with a max and a sum for each row-parallel wo and
+    w_down of its 62 layers and the logits' gather (249, as on the
+    card)."""
     argv = ["--arch", arch, "--shape", shape, "--variant", variant,
             "--out", str(tmp_path)]
     dryrun.main(argv + (["--mesh", mesh] if mesh else []))
     (path,) = tmp_path.iterdir()
     rec = json.loads(path.read_text())
     if match is None:
-        L = get_config(arch).num_layers
+        cfg = get_config(arch)
+        L = cfg.num_layers
         assert rec["status"] == "ok", rec.get("error")
-        reduces = L * 2 + L * 2 + 1 + 1 if shape == "train_4k" else L * 4
-        assert rec["collective_calls_per_dev"] == {
-            "all-reduce": reduces, "all-gather": 1}
+        if shape == "train_4k" and cfg.num_experts:
+            want = moe_train_collectives(cfg, {"data": 1, "model": 2})
+        else:
+            reduces = L * 2 + L * 2 + 1 + 1 if shape == "train_4k" \
+                else L * 4
+            want = {"all-reduce": reduces, "all-gather": 1}
+        assert rec["collective_calls_per_dev"] == want
         assert ": ok" in capsys.readouterr().out
         return
     assert rec["status"] == "error"

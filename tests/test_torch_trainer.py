@@ -168,7 +168,8 @@ def test_launcher_closing_line_as_the_reference(tmp_path):
     (`loss a -> b over n steps; straggler events: k`) over the same number
     of steps, and writes its final checkpoint; a second run resumes from
     it and takes no step.  `--model 2` trains tensor-parallel on 2 ranks
-    and prints the same closing line; qwen3-moe under `--model 2` raises
+    and prints the same closing line, and so does qwen3-moe (its experts
+    split over the ranks); jamba under `--model 2` raises
     NotImplementedError naming its ROADMAP item; --data is
     tests/test_torch_dp_trainer.py's."""
     ref = _run("repro.launch.train", [], tmp_path / "j")
@@ -202,5 +203,17 @@ def test_launcher_closing_line_as_the_reference(tmp_path):
                                             "2", "--arch",
                                             "qwen3-moe-30b-a3b"],
                tmp_path / "q")
-    assert moe.returncode != 0 and "NotImplementedError" in moe.stderr
-    assert "queue 1 item 17" in moe.stderr
+    assert moe.returncode == 0, moe.stderr[-3000:]
+    ql = moe.stdout.strip().splitlines()
+    assert ql[0].startswith("mesh {'data': 1, 'model': 2}  device cpu  arch "
+                            "qwen3-moe-30b-a3b-smoke  params ")
+    mq = pat.match(ql[-1])
+    assert mq and mq.group(3) == "3", ql[-1]
+    assert ckpt.latest_step(str(tmp_path / "q")) == 3
+    hybrid = _run("repro_torch.launch.train", ["--device", "cpu", "--model",
+                                               "2", "--arch",
+                                               "jamba-1.5-large-398b"],
+                  tmp_path / "h")
+    assert hybrid.returncode != 0 and \
+        "NotImplementedError" in hybrid.stderr
+    assert "queue 1 item 18" in hybrid.stderr
