@@ -88,12 +88,13 @@ minicpm3-4b at 8 layers and xlstm-1.3b's first period against 10d's and
 12c's cut streams; each rank's forwards at 2 of the 4 slots, launches as
 meshless, collectives by axis as derived, the data ranks' pools
 bit-equal; (i) ZeRO-3 training over `data` on the same ranks: granite-8b
-at full width and depth on data=2 (each rank 1/2 of every weight, of its
+at full width on data=2 (each rank 1/2 of every weight, of its
 int8 m and of its v, the weights gathered per use, gradients
-reduce-scattered), 1 step, step 1's loss within 1e-3 relative of phase
-13b's, 253 launches and 763 collectives a rank and step as derived, the
-per-rank state and peak beside 13b's; and one step of the 6-layer cut
-on data=2,model=2 against its meshless loss; (j) qwen3-moe-30b-a3b
+reduce-scattered) on its first 12 of 36 layers since 15k took the time,
+1 step, step 1's loss within 1e-3 relative of the cut's meshless step,
+85 launches and 259 collectives a rank and step as derived, the
+per-rank state and peak; and one step of the 6-layer cut on
+data=2,model=2 against its meshless loss; (j) qwen3-moe-30b-a3b
 trained at full width with its 128 experts split over `model`: its
 first 4 of 48 layers on model=2 (2 steps; each rank 64 experts of each
 stack and half of every other split weight, with their AdamW state) and
@@ -103,16 +104,22 @@ and on d over data), each against its meshless step 1 on this process
 a rank and step as derived, state and peak a rank; and one full-width
 MoE layer through `ep_moe(dispatch="per_source")` on model=2, forward
 and backward, against `per_source_reference` under autograd on one
-rank. Phase 16
+rank; (k) the MLA, mamba, mLSTM, sLSTM and cross-attention layers
+trained under the model axis at full width (QAT 8/8), cut in depth:
+minicpm3-4b's first 4 layers, xlstm-1.3b's first period, jamba's layer
+0 (mamba+dense at d=8192) and llama-3.2-vision-11b's first period on
+model=2 (2 steps), xlstm-1.3b's first period on data=2,model=2 (1
+step), each against its meshless step 1 on this process, launches and
+collectives a rank and step as derived, state and peak a rank. Phase 16
 holds the dry run (`launch.dryrun`, counted on the
 CPU's meta device) to live runs of the same step functions: granite-8b
 training's predicted peak within 10% of phase 13b's measured one, a q8
 decode step (B=8, 4096-row dense cache) and prefill (B=1, S=4096) on the
 card with their peaks within 10% (or 0.5 GB) of the prediction and their
 `bramac_matmul` launches equal to the counted calls, the 145
-collectives of the model=2 decode cell, and 15f's, 15i(a)'s and
-15j(a)'s per-rank peaks within 10% of their predictions with their
-collectives as counted. Phase 2 also times the speculative shapes (the
+collectives of the model=2 decode cell, 15f's, 15i(a)'s and 15j(a)'s
+per-rank peaks within 10% of their predictions and 15k's within 2%,
+with their collectives and launches as counted. Phase 2 also times the speculative shapes (the
 verify window at M=20; 2-bit at M=4 with the unpack of the packed
 weights), every
 minicpm3-4b linear and qwen3-moe-30b-a3b's attention linears and unembed;
@@ -4016,7 +4023,7 @@ def _rank_serve(cfg, params, prompts, new_tokens, mesh, warm=None,
 
 
 def _rank_train(mesh, layers=None, steps=4, cfg=None):
-    """15f, 15i and 15j on one rank: granite-8b (or `cfg`, a QAT config)
+    """15f, 15i, 15j and 15k on one rank: granite-8b (or `cfg`, a QAT config)
     at full width (bf16, QAT 8/8, int8 m / bf16 v; `layers` of its
     layers, all by default) trained on `mesh` (None: meshless, this
     process) as phase 13b trains it meshless: `steps` `Trainer.run_step`s
@@ -4058,6 +4065,8 @@ def _rank_train(mesh, layers=None, steps=4, cfg=None):
         hist, times, launches, comms, drops = [], [], [], [], []
         for step in range(steps):
             batch = pipe.batch(step, "cuda")
+            if cfg.vision_tokens:
+                batch["vision_embeds"] = vision_embeds(cfg, step)
             _zero_counts()
             comm.stats.reset()
             torch.cuda.synchronize()
@@ -4082,7 +4091,7 @@ def _rank_train(mesh, layers=None, steps=4, cfg=None):
 
 
 def parallel_rank(rank, world, device, jobs):
-    """Phases 15b-d, 15f, 15j(a, c) and 15g on one rank of the mesh
+    """Phases 15b-d, 15f, 15j(a, c), 15g and 15k(a-d) on one rank of the mesh
     "model=2" (`jobs`: the inputs 15g takes from earlier phases)."""
     from repro_torch.configs import get_config
     from repro_torch.core.bramac_linear import QuantConfig
@@ -4132,6 +4141,12 @@ def parallel_rank(rank, world, device, jobs):
     t0 = time.perf_counter()
     out["15g"] = _rank_mixers(mesh, jobs)
     out["15g_s"] = time.perf_counter() - t0
+    # 15k(a)-(d): the mixers trained under the model axis
+    t0 = time.perf_counter()
+    out["mixer_train"] = {
+        k: _rank_train(mesh, steps=MIXER_TRAIN[k][4], cfg=mixer_train_cfg(k))
+        for k in MIXER_TRAIN if MIXER_TRAIN[k][3] == "model=2"}
+    out["15k_s"] = time.perf_counter() - t0
     return out
 
 
@@ -4346,6 +4361,194 @@ def _check_ep_layer(runs) -> dict:
                 calls=r0["calls"], ms=[run["ms"] for run in runs])
 
 
+# ---------------------------------------------------------------------------
+# phase 15k: the MLA, mamba, mLSTM, sLSTM and cross-attention layers
+# trained under a `model` axis
+# ---------------------------------------------------------------------------
+
+# sub-phase: (arch, layers kept, the pattern's first positions kept or
+# None, mesh, steps).  Full width, QAT 8/8, cut in depth only: (a)
+# minicpm3-4b's first 4 of 62 layers; (b) xlstm-1.3b's first period (7
+# mLSTM + 1 sLSTM); (c) jamba-1.5-large-398b's layer 0 (mamba+dense at
+# d=8192: ~2 B parameters with the embeddings; a MoE layer at full width
+# does not fit the card beside it); (d) llama-3.2-vision-11b's first
+# period (1 xattn+dense + 4 attn+dense over 1600 vision tokens); (e) (b)'s
+# cut on data=2,model=2, its parted leaves cut on both axes.  (a)-(d) run
+# 2 steps, the second timed warm; (e) one.  Each against its own
+# meshless step 1 on one process ((e) against (b)'s)
+MIXER_TRAIN = {"a": ("minicpm3-4b", 4, None, "model=2", 2),
+               "b": ("xlstm-1.3b", 8, None, "model=2", 2),
+               "c": ("jamba-1.5-large-398b", 1, 1, "model=2", 2),
+               "d": ("llama-3.2-vision-11b", 5, None, "model=2", 2),
+               "e": ("xlstm-1.3b", 8, None, "data=2,model=2", 1)}
+
+
+# 16g: each 15k rank's measured peak within this share of the dry run's
+MIXER_PEAK_TOL = 0.02
+
+
+def mixer_train_cfg(key: str):
+    """15k's configuration `key`: the arch at full width, QAT 8/8, cut to
+    its first layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.bramac_linear import QuantConfig
+    arch, layers, positions, _, _ = MIXER_TRAIN[key]
+    cfg = get_config(arch)
+    if positions is not None:
+        cfg = cfg.replace(layer_pattern=cfg.layer_pattern[:positions])
+    return cfg.replace(num_layers=layers, quant=QuantConfig(
+        enabled=True, bits_w=8, bits_a=8))
+
+
+def vision_embeds(cfg, step: int):
+    """The stub frontend's patch embeddings of training step `step` (a
+    vlm's batch holds them beside the tokens): normal draws from a seed
+    of the step, bf16, the same on every rank and on the meshless run."""
+    gen = torch.Generator(device="cuda").manual_seed(1000 + step)
+    return torch.randn((TRAIN_B, cfg.vision_tokens, cfg.d_model),
+                       generator=gen, device="cuda").to(torch.bfloat16)
+
+
+# `bramac_matmul` launches of one QAT layer's forward by mixer and FF
+# (backward: plain products): MLA's 7 projections; mamba's w_in and w_out
+# (B/C and dt are plain products through whole weights); the mLSTM's
+# w_up, wq, wk, wv, w_down; the sLSTM's w_gates, w_up, w_down; attention
+# and cross-attention's 4; the dense FF's 3
+MIXER_LAUNCHES = {"mla": 7, "mamba": 2, "mlstm": 5, "slstm": 3, "attn": 4,
+                  "xattn": 4, "dense": 3, "none": 0}
+
+
+def mixer_train_launches(cfg) -> int:
+    """`bramac_matmul` launches a rank (or the meshless run) makes in one
+    QAT training step of `cfg`: each layer's forward and the unembed."""
+    return sum(MIXER_LAUNCHES[m] + MIXER_LAUNCHES[f] for m, f in (
+        s.split("+") for s in cfg.layer_pattern)) * cfg.n_periods + 1
+
+
+def mixer_train_collectives(cfg, data: int = 1) -> dict:
+    """Per rank and step of `cfg`'s QAT training on model=2 (and data=2
+    when `data` > 1).  Forward: each row-parallel linear's max x, max w
+    and int32 sum (attention's and cross-attention's wo, MLA's wo, the
+    mLSTM's and sLSTM's w_down, the dense FF's w_down); mamba's two
+    gathers (the conv output, y·silu(z)) and the mLSTM's two (xm, h); the
+    logits' gather.  Backward: one gradient sum at each column-parallel
+    input (attention's, cross-attention's queries, the FF's, mamba's and
+    the mLSTM's up projections, the unembed's), at MLA's latents, at
+    mamba's B·C and dt (one a chunk of its scan: S=64 is one chunk) and
+    at the sLSTM's gelu(a)·b; a reduce-scatter for each mLSTM gather; one
+    sum of the leaves each rank reads in part (the mLSTM's gates and norm,
+    cross-attention's kv_norm).  AdamW: the norm one sum an axis, the
+    spread block maxima one max an axis (the unembed's V/2 columns where
+    128 does not divide them: minicpm3-4b, xlstm-1.3b).  On data=2 too
+    (ZeRO-3): each leaf cut on its fsdp dim (every linear but MLA's
+    w_uq/w_uk/w_uv/w_kr, mamba's w_bc/w_dt_down/w_dt_up/w_out and the
+    mLSTM's w_if; the embedding and the unembed) gathered forward, again
+    in backward where autograd saved it, and reduce-scattered; one mean
+    of the loss and the whole leaves' gradients, a norm and the maxima
+    over data."""
+    T = min(cfg.chunk_size, TRAIN_S)            # models.xlstm._chunk_len
+    chunks = 1 if TRAIN_S % T else TRAIN_S // T
+    row, ar, ag, rs, zero = 3, 1 + 1, 1, 0, 2
+    layer = {"attn": (row + 1, 0, 0, 4), "xattn": (row + 1, 0, 0, 4),
+             "mla": (row + 1, 0, 0, 3), "mamba": (1 + chunks, 2, 0, 1),
+             "mlstm": (row + 1, 2, 2, 5), "slstm": (row + 1, 0, 0, 4),
+             "dense": (row + 1, 0, 0, 3), "none": (0, 0, 0, 0)}
+    for spec in cfg.layer_pattern:
+        for part in spec.split("+"):
+            a, g, r, z = layer[part]
+            ar += a * cfg.n_periods
+            ag += g * cfg.n_periods
+            rs += r * cfg.n_periods
+            zero += z * cfg.n_periods
+    mixers = {s.split("+")[0] for s in cfg.layer_pattern}
+    ar += bool(mixers & {"mlstm", "xattn"})
+    spread = (cfg.vocab_size // 2) % 128 != 0
+    ar += spread
+    if data > 1:
+        # re-gathers: every gathered weight autograd saves (not the
+        # embedding's; not a bf16 sLSTM's r_gates, which each step casts
+        # to f32 first, so autograd saves the casts)
+        casts = sum(s.startswith("slstm+") for s in cfg.layer_pattern) * \
+            cfg.n_periods * (cfg.dtype != "float32")
+        ag += zero + zero - 1 - casts
+        rs += zero
+        ar += 1 + 1 + spread
+    out = {"all-reduce": ar, "all-gather": ag}
+    if rs:
+        out["reduce-scatter"] = rs
+    return out
+
+
+def mixer_train_reference(key: str) -> dict:
+    """15k(`key`)'s meshless reference on this process: step 1 of
+    `mixer_train_cfg(key)` as the ranks take it (13b's seed, batch and
+    AdamW), with its loss, ms, launches, state and peak; freed after."""
+    return _rank_train(None, steps=1, cfg=mixer_train_cfg(key))
+
+
+def mixer_rows_reference(key: str, data: int = 2) -> float:
+    """15k(`key`)'s step 1 loss meshless on this process, its batch taken
+    as `data` data ranks take it: each rank's block of B/data rows
+    (`sharding.data_rows`) a forward of its own (13b's seed and first
+    batch, `M.loss_fn` as the Trainer takes it), the mean of their losses
+    in f32 as `TrainLayout` means them over `data`.  xlstm-1.3b's rows
+    depend on the batch they are computed in on the card
+    (scripts/torch_rows_probe.py), so the whole batch's loss is not what
+    the data ranks compute."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import model as M
+    cfg = mixer_train_cfg(key)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    batch = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B)).batch(
+        0, "cuda")
+    if cfg.vision_tokens:
+        batch["vision_embeds"] = vision_embeds(cfg, 0)
+    b = TRAIN_B // data
+    with torch.no_grad():
+        losses = [M.loss_fn(params, {k: v[i * b:(i + 1) * b] for k, v in
+                                     batch.items()}, cfg)[0].float()
+                  for i in range(data)]
+    loss = float(torch.stack(losses).sum() / data)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return loss
+
+
+def _check_mixer_train(key, runs, refs, report) -> dict:
+    """15k(`key`): the ranks' steps against `mixer_train_collectives`,
+    `mixer_train_launches` and the meshless step 1's loss (1e-3
+    relative: `_check_rank_train`); on data=2,model=2 the meshless step
+    on the data ranks' rows (`mixer_rows_reference`), with the whole
+    batch's loss ((b)'s meshless step) printed beside it."""
+    arch, _, _, mesh, _ = MIXER_TRAIN[key]
+    cfg = mixer_train_cfg(key)
+    data = 2 if mesh.startswith("data=2") else 1
+    ref = refs["b" if key == "e" else key]
+    ref_loss, ref_what = ref["losses"][0], "the cut's meshless step"
+    if data > 1:
+        ref_loss = refs[f"{key}_rows"]
+        ref_what = "the cut's meshless step on the data ranks' rows"
+    row = _check_rank_train(
+        f"phase 15k({key}) train {arch} full width ({cfg.num_layers} "
+        f"layers: {', '.join(cfg.layer_pattern)}; QAT 8/8, int8 m / bf16 "
+        f"v, B={TRAIN_B} S={TRAIN_S}) on {mesh}, {len(runs)} ranks on the "
+        f"card", runs, ref_loss, ref_what,
+        lambda n: (mixer_train_launches(cfg),
+                   mixer_train_collectives(cfg, data)), report,
+        replicated_gb=ref["peak_gb"] - ref["residue_gb"])
+    if data > 1:
+        whole = ref["losses"][0]
+        row["whole_batch_loss"] = whole
+        row["whole_batch_rel"] = (row["losses"][0] - whole) / abs(whole)
+        print(f"  15k({key}): the whole batch's meshless step 1 loss "
+              f"{whole!r} (relative difference of the data ranks' "
+              f"{row['whole_batch_rel']:+.3e}: rows computed in another "
+              f"batch, scripts/torch_rows_probe.py)")
+    return row
+
+
 def phase_parallel_launchers():
     """15e: `launch/serve.py --shard 2` and `launch/train.py --data 2` and
     `--model 2` on the card, each in a subprocess that spawns its 2
@@ -4446,6 +4649,23 @@ def phase_parallel(report):
               f"launches, state {ref['state_gb']:.2f} GB, peak "
               f"{ref['peak_gb'] - ref['residue_gb']:.2f} GB")
     print(f"  15j's references took {time.perf_counter() - t0:.1f} s")
+    # 15k's meshless references ((e) takes (b)'s), each freed after
+    t0 = time.perf_counter()
+    mrefs = report["mixer_train_ref"] = {
+        k: mixer_train_reference(k) for k in MIXER_TRAIN if k != "e"}
+    for k, ref in mrefs.items():
+        _add_launches(report, ref["launches"][0])
+        need(ref["launches"][0]["bramac_matmul"] == mixer_train_launches(
+            mixer_train_cfg(k)), f"15k({k})'s reference: launches "
+            f"{ref['launches'][0]}")
+        print(f"  15k({k})'s reference: {MIXER_TRAIN[k][0]}, "
+              f"{ref['layers']} layers at full width (QAT 8/8, B={TRAIN_B} "
+              f"S={TRAIN_S}) meshless, step 1: loss {ref['losses'][0]!r}, "
+              f"{1e3 * ref['times'][0]:.1f} ms (the first step), "
+              f"{ref['launches'][0]['bramac_matmul']} bramac_matmul "
+              f"launches, state {ref['state_gb']:.2f} GB, peak "
+              f"{ref['peak_gb'] - ref['residue_gb']:.2f} GB")
+    print(f"  15k's references took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     jobs = {"jamba_prompts":
             report["recurrent_streams"]["jamba mesh reference"]["prompts"]}
@@ -4509,6 +4729,11 @@ def phase_parallel(report):
           f"{', '.join('%.1f' % o['15g']['xlstm_draw_s'] for o in outs)} s)"
           f"; card {smi_line()}")
     par["mixers"] = _check_mixers([o["15g"] for o in outs], report)
+    print(f"  phase 15k(a-d) on the ranks took "
+          f"{', '.join('%.1f' % o['15k_s'] for o in outs)} s")
+    par["mixer_train"] = {k: _check_mixer_train(
+        k, [o["mixer_train"][k] for o in outs], mrefs, report)
+        for k in outs[0]["mixer_train"]}
     par["launchers"] = phase_parallel_launchers()
     report["parallel"] = par
     spent = time.perf_counter() - t_phase
@@ -4958,11 +5183,12 @@ def data_rank(rank, world, device, jobs):
     of 48 layers; (e) minicpm3-4b at 10d's 8 layers and xlstm-1.3b's
     first period (8 of 48 layers, 12c's identity cut).  Phase 15i on the
     same ranks: (b) the 6-layer cut trained ZeRO-3 on "data=2,model=2"
-    after (c), on all four; (a) granite-8b at full width and depth
-    trained ZeRO-3 on "data=2" last, on ranks 0 and 1 (ranks 2 and 3
+    after (c), on all four; (a) granite-8b at full width (ZERO_A_LAYERS
+    of its 36 layers) trained ZeRO-3 on "data=2" last, on ranks 0 and 1 (ranks 2 and 3
     wait, holding nothing but their context).  Phase 15j(b) after 15i(b)
     on all four: qwen3-moe-30b-a3b's first layers trained on
-    "data=2,model=2", its experts split over model.  `jobs`: phase 8's
+    "data=2,model=2", its experts split over model; then phase 15k(e):
+    xlstm-1.3b's first period trained there.  `jobs`: phase 8's
     prompts."""
     import warnings
     from repro_torch.configs import get_config
@@ -5008,6 +5234,11 @@ def data_rank(rank, world, device, jobs):
     layers, steps = EP_TRAIN["b"]
     out["ep_b"] = _rank_train(mesh4, steps=steps, cfg=ep_train_cfg(layers))
     out["ep_b_s"] = time.perf_counter() - t0
+    # 15k(e): xlstm-1.3b's first period, its parted leaves cut on both axes
+    t0 = time.perf_counter()
+    out["mixer_e"] = _rank_train(mesh4, steps=MIXER_TRAIN["e"][4],
+                                 cfg=mixer_train_cfg("e"))
+    out["mixer_e_s"] = time.perf_counter() - t0
     if mesh2.coords is None:
         del params
         free()
@@ -5061,9 +5292,10 @@ def data_rank(rank, world, device, jobs):
     del params, pone
     free()
     out["e_s"] = time.perf_counter() - t0
-    # 15i(a): granite-8b at full width and depth, ZeRO-3 on data=2
+    # 15i(a): granite-8b at full width, ZeRO-3 on data=2
     t0 = time.perf_counter()
-    out["zero_a"] = _rank_train(mesh2, steps=ZERO_STEPS["a"])
+    out["zero_a"] = _rank_train(mesh2, layers=ZERO_A_LAYERS,
+                                steps=ZERO_STEPS["a"])
     out["zero_a_s"] = time.perf_counter() - t0
     comm.barrier()
     return out
@@ -5076,6 +5308,11 @@ def data_rank(rank, world, device, jobs):
 # collective, AdamW's reduce and the peak, and so does (b)'s one step on
 # the two-axis split; 13b and 15f run 4
 ZERO_STEPS = {"a": 1, "b": 1}
+# 15i(a)'s depth: its first 12 of granite-8b's 36 layers, to make room
+# for 15k (the whole depth's one step took 36.9 s of an 882.6 s run on an
+# H100 80GB HBM3 at 700 W, 12.5 s at 12 layers); every check of 15i(a)
+# and 16e holds at the cut, against the cut's meshless step
+ZERO_A_LAYERS = 12
 
 
 def zero_train_collectives(layers: int, model: int = 1) -> dict:
@@ -5098,16 +5335,17 @@ def zero_train_collectives(layers: int, model: int = 1) -> dict:
     return out
 
 
-def zero_cut_reference() -> float:
-    """15i(b)'s reference: step 1's loss of granite-8b's 6-layer cut
-    (phase 13b's draw, config and first batch, cut as phases 8-10 cut it)
-    meshless on the card, through the Trainer's own loss."""
+def zero_cut_reference(layers: int = CUT_LAYERS) -> float:
+    """15i's reference: step 1's loss of granite-8b's cut to its first
+    `layers` (phase 13b's draw, config and first batch, cut as phases 8-10
+    cut it; 15i(b) the 6 layers, 15i(a) ZERO_A_LAYERS) meshless on the
+    card, through the Trainer's own loss."""
     from repro_torch.configs import get_config
     from repro_torch.core.bramac_linear import QuantConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models import model as M
     q8 = QuantConfig(enabled=True, bits_w=8, bits_a=8)
-    cfg = get_config("granite-8b").replace(quant=q8, num_layers=CUT_LAYERS)
+    cfg = get_config("granite-8b").replace(quant=q8, num_layers=layers)
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                            "cuda")
     batch = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B)).batch(
@@ -5232,13 +5470,15 @@ def phase_data_split(report):
     """Phase 15h: the mesh Engine's slot split over `data` on DATA_RANKS
     ranks sharing the card (`data_rank`), every stream and total against
     its meshless phase; phase 15i: ZeRO-3 training on the same ranks,
-    against phase 13b and the 6-layer cut's meshless loss."""
+    against the cuts' meshless losses; phase 15k(e) there."""
     from repro_torch.configs import get_config
     from repro_torch.parallel import comm
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     cut_loss = zero_cut_reference()
+    cut_loss_a = zero_cut_reference(ZERO_A_LAYERS)
+    report["mixer_train_ref"]["e_rows"] = mixer_rows_reference("e")
     outs = comm.spawn(data_rank, DATA_RANKS,
                       {"prefix_prompts": report["prefix_ref"]["prompts"]})
     two = outs[:2]
@@ -5342,15 +5582,14 @@ def phase_data_split(report):
         xlstm_traffic(xc.vocab_size)[0],
         lambda run: _recurrent_launches(xc) * run["forwards"],
         lambda run: run["forwards"], 0, report)
-    # 15i: ZeRO-3 training, (a) at full depth on data=2 against 13b,
-    # (b) the 6-layer cut on data=2,model=2 against its meshless loss
-    tr = report["train"]
+    # 15i: ZeRO-3 training, (a) its 12-layer cut on data=2, (b) the
+    # 6-layer cut on data=2,model=2, each against its meshless loss
     zero = {"a": _check_rank_train(
-        "phase 15i(a) train granite-8b full width (36 layers, QAT 8/8, "
-        f"int8 m / bf16 v, B={TRAIN_B} S={TRAIN_S}) ZeRO-3 on data=2, 2 "
-        "ranks on the card", [o["zero_a"] for o in two], tr["losses"][0],
-        "13b", lambda n: (7 * n + 1, zero_train_collectives(n, 1)), report,
-        replicated_gb=tr["peak_gb"] - tr["residue_gb"])}
+        f"phase 15i(a) train granite-8b full width ({ZERO_A_LAYERS} of 36 "
+        f"layers, QAT 8/8, int8 m / bf16 v, B={TRAIN_B} S={TRAIN_S}) ZeRO-3 "
+        f"on data=2, 2 ranks on the card", [o["zero_a"] for o in two],
+        cut_loss_a, "the cut's meshless step",
+        lambda n: (7 * n + 1, zero_train_collectives(n, 1)), report)}
     zero["b"] = _check_rank_train(
         f"phase 15i(b) train granite-8b full width ({L} of 36 layers, QAT "
         f"8/8) ZeRO-3 on data=2,model=2, 4 ranks on the card",
@@ -5368,9 +5607,12 @@ def phase_data_split(report):
         lambda n: (4 * n + 1, ep_train_collectives(n, data=2)), report,
         ref_drops=ref["drops"][0],
         replicated_gb=ref["peak_gb"] - ref["residue_gb"])
+    # 15k(e): xlstm-1.3b's first period on data=2,model=2
+    rows["mixer_train"] = _check_mixer_train(
+        "e", [o["mixer_e"] for o in outs], report["mixer_train_ref"], report)
     parts = {k: [round(o[k], 1) for o in outs if k in o]
-             for k in ("c_s", "zero_b_s", "ep_b_s", "a_s", "b_s", "d_s",
-                       "e_s", "zero_a_s")}
+             for k in ("c_s", "zero_b_s", "ep_b_s", "mixer_e_s", "a_s",
+                       "b_s", "d_s", "e_s", "zero_a_s")}
     spent = time.perf_counter() - t_phase
     rows["parts_s"] = parts
     report["data_split"] = rows
@@ -5445,7 +5687,9 @@ def phase_dryrun(report):
     (e) phase 15i(a)'s ZeRO-3 training step on a dry data=2, the same
     three checks against 15i(a)'s; (f) phase 15j(a)'s expert-parallel
     training step on a dry model=2, the same three checks against
-    15j(a)'s.  The meta count leaves out the cuBLAS
+    15j(a)'s; (g) each of phase 15k's cuts on its dry mesh, the peak
+    within MIXER_PEAK_TOL of each rank's, collectives and launches equal.
+    The meta count leaves out the cuBLAS
     workspace (CUBLAS_WORKSPACE_CONFIG :4096:8, 32 MiB) and the
     allocator's segments; it rounds each storage to the allocator's
     512-byte granule (`peak_rounded`)."""
@@ -5625,10 +5869,11 @@ def phase_dryrun(report):
           f"calls a step, as 15f counted them")
     # (e) ZeRO-3 training: phase 15i(a)'s configuration on a dry data=2
     zero = report["data_split"]["zero"]["a"]
-    rec = dry_record(cfg, {"kind": "train", "batch": TRAIN_B,
-                           "seq": TRAIN_S}, mesh="data=2")
-    print("  " + _dry_line(f"16e granite-8b train B={TRAIN_B} S={TRAIN_S} "
-                           f"data=2 (per rank; {rec['placement']})", rec))
+    rec = dry_record(cfg.replace(num_layers=ZERO_A_LAYERS), {
+        "kind": "train", "batch": TRAIN_B, "seq": TRAIN_S}, mesh="data=2")
+    print("  " + _dry_line(f"16e granite-8b ({ZERO_A_LAYERS} layers) train "
+                           f"B={TRAIN_B} S={TRAIN_S} data=2 (per rank; "
+                           f"{rec['placement']})", rec))
     pred = _gb(rec["memory"]["peak_rounded_bytes_per_dev"])
     calls = rec["collective_calls_per_dev"]
     for r, meas in enumerate(zero["peak_gb"]):
@@ -5646,7 +5891,8 @@ def phase_dryrun(report):
         collectives=calls, bytes=rec["collective_bytes_per_dev"],
         roofline=rec["roofline"],
         args_gb=_gb(rec["memory"]["args_bytes_per_dev"]))
-    print(f"phase 16e granite-8b train on data=2 (ZeRO-3): predicted "
+    print(f"phase 16e granite-8b ({ZERO_A_LAYERS} layers) train on data=2 "
+          f"(ZeRO-3): predicted "
           f"per-rank peak {pred:.2f} GB vs 15i(a)'s measured "
           f"{', '.join(f'{g:.2f}' for g in zero['peak_gb'])} GB "
           f"({', '.join(f'{100 * (pred - g) / g:+.2f}%' for g in zero['peak_gb'])}); "
@@ -5691,6 +5937,44 @@ def phase_dryrun(report):
           f"{rec['collective_bytes_per_dev']}) and "
           f"{rec['kernel_calls_per_dev']['bramac_matmul']} bramac_matmul "
           f"calls a step, as 15j(a) counted them")
+    # (g) 15k's cuts on their meshes
+    out["mixer_train"] = {}
+    runs = dict(report["parallel"]["mixer_train"],
+                e=report["data_split"]["mixer_train"])
+    for key, run in sorted(runs.items()):
+        arch, _, _, mesh, _ = MIXER_TRAIN[key]
+        rec = dry_record(mixer_train_cfg(key), {
+            "kind": "train", "batch": TRAIN_B, "seq": TRAIN_S}, mesh=mesh)
+        print("  " + _dry_line(f"16g 15k({key}) {arch} train B={TRAIN_B} "
+                               f"S={TRAIN_S} {mesh} (per rank)", rec))
+        pred = _gb(rec["memory"]["peak_rounded_bytes_per_dev"])
+        calls = rec["collective_calls_per_dev"]
+        for r, meas in enumerate(run["peak_gb"]):
+            need(within(meas, pred, MIXER_PEAK_TOL),
+                 f"16g: 15k({key})'s predicted per-rank training peak "
+                 f"{pred:.2f} GB is not within {MIXER_PEAK_TOL:.0%} of rank "
+                 f"{r}'s measured {meas:.2f} GB")
+        need(calls == run["collectives"],
+             f"16g: 15k({key})'s counted collectives {calls} != its live "
+             f"{run['collectives']}")
+        need(rec["kernel_calls_per_dev"]["bramac_matmul"] ==
+             run["launches_per_step"], f"16g: 15k({key})'s counted kernel "
+             f"calls {rec['kernel_calls_per_dev']} != its live "
+             f"{run['launches_per_step']}")
+        out["mixer_train"][key] = dict(
+            predicted_peak_gb=pred, measured_peak_gb=run["peak_gb"],
+            collectives=calls, bytes=rec["collective_bytes_per_dev"],
+            args_gb=_gb(rec["memory"]["args_bytes_per_dev"]))
+        print(f"phase 16g 15k({key}) {arch} train on {mesh}: predicted "
+              f"per-rank peak {pred:.2f} GB vs measured "
+              f"{', '.join(f'{g:.2f}' for g in run['peak_gb'])} GB "
+              f"({', '.join(f'{100 * (pred - g) / g:+.2f}%' for g in run['peak_gb'])}); "
+              f"state {out['mixer_train'][key]['args_gb']:.2f} GB a rank "
+              f"(measured {', '.join(f'{g:.2f}' for g in run['state_gb'])})"
+              f"; {sum(calls.values())} collectives {calls} (result bytes "
+              f"{rec['collective_bytes_per_dev']}) and "
+              f"{rec['kernel_calls_per_dev']['bramac_matmul']} bramac_matmul "
+              f"calls a step, as 15k({key}) counted them")
     report["dryrun"] = out
     spent = time.perf_counter() - t_phase
     report["phase16_s"] = spent

@@ -12,6 +12,12 @@ allocating its bytes.  Per op it counts:
   ops move nothing; an indexed write (`index_put_`, `scatter`,
   `index_copy_`) moves its values and indices, not the whole destination;
   `copy_` reads its source and writes its destination;
+- an index's backward (`index_backward`: an embedding lookup's gradient)
+  writes into fresh zeros in place on the card (`_index_put_impl_`), but
+  takes the out-of-place `index_put` under any dispatch mode, this one
+  included: the counter counts that `index_put` as the in-place write it
+  stands for (its bytes as an indexed write's, and the zeros' storage
+  handed to the result, not a second copy of it live);
 - live bytes: every storage an op creates is live until its last tensor
   dies, so the peak over the step is the device memory the eager program
   needs, the tracked arguments included; `mark()` splits the step into
@@ -53,7 +59,7 @@ _RANDN = {_aten.randn.default, _aten.randn.generator}
 _INDEXED_WRITES = {_aten.index_put_.default, _aten._index_put_impl_.default,
                    _aten.index_copy_.default, _aten.scatter_.src,
                    _aten.scatter_.value, _aten.scatter_add_.default,
-                   _aten.scatter_reduce_.two}
+                   _aten.scatter_reduce_.two, _aten.index_put.default}
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -311,5 +317,7 @@ class Counter(FastMeta):
             else:
                 self.bytes += sum(_nbytes(t) for t in ins) + \
                     sum(_nbytes(t) for t in outs)
+        if func is _aten.index_put.default:     # index_backward's in-place write
+            self._free(id(ins[0].untyped_storage()))
         for t in outs:
             self._add(t)

@@ -46,10 +46,11 @@ What differs from the reference:
   rules, each rank's blocks of the params and AdamW state; a `data` axis
   is ZeRO-3, every leaf the rules cut on its `fsdp` dim held 1/n and
   gathered per use), so the forward's gathers, the backward's re-gathers
-  and reduce-scatters and the tensor-parallel collectives are counted; a
-  training record says which placement it counted (`placement`);
-  xattn under a mesh, and training a layer whose mixer is not attention
-  under a model axis, raise the port's own errors (`status: error`).  The
+  and reduce-scatters and the tensor-parallel collectives (every layer
+  kind's, the mixers' own included) are counted; a training record says
+  which placement it counted (`placement`); serving an xattn arch under
+  a mesh raises the port's own error (`status: error`), as the Engine
+  refuses such an arch.  The
   256/512-chip production meshes mean nothing on one card and are not
   taken;
 - ranks share one card, so the roofline terms are the card's: every

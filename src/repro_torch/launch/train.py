@@ -18,11 +18,12 @@ each rank draws the same whole weights and keeps its blocks of them (its
 AdamW state alike), takes B/D rows of each batch, gathers each block's
 weights per use, and gets its gradients reduce-scattered over `data`
 (`runtime.trainer`); every rank joins a checkpoint's gather and rank 0
-prints and writes them, whole leaves.  A `model` axis trains attn+dense
-and attn+moe archs (the experts split over it, either `ep_dispatch`); a
-layer whose mixer is not attention (ROADMAP queue 1 item 18) raises
-NotImplementedError before any rank starts.  The last line reads as the
-reference's: `loss a -> b over n steps; straggler events: k`.
+prints and writes them, whole leaves.  A `model` axis trains every layer
+kind (the experts split over it, either `ep_dispatch`; the MLA, mamba,
+xLSTM and cross-attention mixers with their own collectives); a mesh
+axis other than `data` and `model` raises NotImplementedError before any
+rank starts.  The last line reads as the reference's: `loss a -> b over
+n steps; straggler events: k`.
 """
 from __future__ import annotations
 

@@ -34,9 +34,9 @@ from typing import Any
 import torch
 
 from repro_torch.kernels import paged_attention as pk
-from repro_torch.models.layers import (apply_rope, column_input, dense,
-                                       dense_row, init_dense, init_rmsnorm,
-                                       rmsnorm)
+from repro_torch.models.layers import (apply_rope, column_input,
+                                       column_inputs, dense, dense_row,
+                                       init_dense, init_rmsnorm, rmsnorm)
 
 Q_CHUNK = 1024
 
@@ -415,21 +415,25 @@ def mla(p, x, cfg, positions, cache=None, cache_pos=None, paged=None):
     head blocks, as each output reshapes to (..., H, .)), `wo` its rows
     (`layers.dense_row`), and `w_dq`, `w_dkv`, `w_kr` and the norms stay
     whole, so every rank writes the whole latent cache, which does not
-    depend on the heads, into its own pool."""
+    depend on the heads, into its own pool.  In training the latents
+    (c_q, c_kv, k_rope) pass `layers.column_inputs` on their way to the
+    rank's heads: the gradient sum over the axis stands there, after the
+    whole projections, so `w_dq`, `w_dkv`, `w_kr` and the norms get their
+    whole gradient on every rank (one sum a layer, of qr + kvr + rope
+    values a token)."""
     B, S, _ = x.shape
     H = cfg.num_heads
-    x = column_input(x)
     nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-    q = dense(rmsnorm(p["q_norm"], dense(x, p["w_dq"], cfg.quant),
-                      cfg.norm_eps), p["w_uq"], cfg.quant)
-    q = q.reshape(B, S, H, nope + rope)
-    q_nope, q_rope = q[..., :nope], q[..., nope:]
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c_q = rmsnorm(p["q_norm"], dense(x, p["w_dq"], cfg.quant), cfg.norm_eps)
     c_kv = rmsnorm(p["kv_norm"], dense(x, p["w_dkv"], cfg.quant),
                    cfg.norm_eps)
     # RoPE through a temporary head axis: (B, S, 1, rope) -> (B, S, rope)
     k_rope = apply_rope(dense(x, p["w_kr"], cfg.quant)[:, :, None, :],
                         positions, cfg.rope_theta)[:, :, 0]
+    c_q, c_kv, k_rope = column_inputs(c_q, c_kv, k_rope)
+    q = dense(c_q, p["w_uq"], cfg.quant).reshape(B, S, H, nope + rope)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     if cache is not None and isinstance(paged, DenseKV):
         dense_update(cache["c_kv"], c_kv, positions, paged)
         dense_update(cache["k_rope"], k_rope, positions, paged)
@@ -483,10 +487,18 @@ def xattn(p, x, cfg, vision_embeds, cache=None, cache_pos=None):
     frontend).  K/V are position-free: a decode step (S == 1 with a cache)
     reads them from the cache, anything else projects them from
     `vision_embeds` and, given a cache, writes them there in place.
-    Returns (out, cache)."""
+    Returns (out, cache).
+
+    Under a tp-splitting ctx (training; the Engine serves no xattn arch)
+    it is the GQA layer's tensor-parallel form: `cfg` is the rank's view
+    (H/n query and Hkv/n KV heads), `wq` runs on `column_input(x)`, `wk`
+    and `wv` on the whole normed vision embeddings, `wo` row-parallel
+    (`layers.dense_row`).  `kv_norm` stays whole; each rank's backward
+    reaches it through its own KV heads only, so its gradient is summed
+    over the axis once a step (`runtime.trainer.model_partial`)."""
     B, S, _ = x.shape
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    q = dense(x, p["wq"], cfg.quant).reshape(B, S, H, hd)
+    q = dense(column_input(x), p["wq"], cfg.quant).reshape(B, S, H, hd)
     if cache is not None and S == 1:
         k, v = cache["k"], cache["v"]              # projected during prefill
     else:
@@ -499,7 +511,7 @@ def xattn(p, x, cfg, vision_embeds, cache=None, cache_pos=None):
             cache["v"].copy_(v)
     mask = torch.ones((S, k.shape[1]), dtype=torch.bool, device=x.device)
     out = _attend(q, k, v, mask)
-    return dense(out.reshape(B, S, H * hd), p["wo"], cfg.quant), cache
+    return dense_row(out.reshape(B, S, H * hd), p["wo"], cfg.quant), cache
 
 
 def init_xattn_cache(cfg, batch, dtype, device=None):

@@ -12,7 +12,11 @@ block's input passed once through `column_input` (identity forward, the
 gradient summed over the axis in backward), the row-parallel ones (`wo`,
 `w_down`) go through `dense_row`, and `unembed` gathers its vocab columns
 (in backward each rank keeps its own columns' gradient).  The MLA, mamba
-and xLSTM mixers take their own collectives over `tp_line()`.
+and xLSTM mixers take their own collectives over `tp_line()`; where a
+mixer computes something whole on every rank (through weights kept
+whole) and each rank then reads only its own block of it, the
+`copy_to` stands at that boundary (`column_inputs`), so that the whole
+computation's weights get their whole gradient on every rank.
 """
 from __future__ import annotations
 
@@ -37,6 +41,20 @@ def column_input(x: torch.Tensor) -> torch.Tensor:
     if ax is None:
         return x
     return comm.copy_to(x, sharding.active().mesh.group(ax))
+
+
+def column_inputs(*ts: torch.Tensor) -> tuple:
+    """`column_input` of several tensors of one dtype and leading shape,
+    the point where a computation every rank runs whole hands its results
+    to the rank's own columns or heads: one gradient sum over the axis in
+    backward for all of them (packed along the last dim).  The tensors
+    themselves where nothing needs a gradient (serving)."""
+    ax = sharding.tp_axis()
+    if ax is None or not any(t.requires_grad for t in ts):
+        return ts
+    packed = comm.copy_to(torch.cat(ts, -1),
+                          sharding.active().mesh.group(ax))
+    return packed.split([t.shape[-1] for t in ts], -1)
 
 
 def tp_line():

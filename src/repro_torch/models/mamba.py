@@ -26,14 +26,25 @@ would put a float partial sum on the path and break stream equality with
 the meshless Engine; whole, they give the meshless values bit for bit.
 `w_out` has no reference rule and stays whole: the rank gathers
 y·silu(z) before it.  Two collectives a layer, both all-gathers.
+
+Training (the tensor-parallel Trainer) runs the same forward, and the
+gathers and cuts carry the backward: both gathers are
+`comm.gather_from` (every rank computes the whole B, C, dt and the whole
+output from the gathered rows, so each takes its own slice of their
+replicated gradient back), and the whole B·C and dt pass
+`layers.column_inputs` right before the rank keeps its channels of them,
+so `w_bc`, `w_dt_down` and `w_dt_up` get their whole gradient on every
+rank: one gradient sum a chunk of the scan (of 2N + d_in values a
+token).  This departs from the reference's row split of `w_bc` and
+`w_dt_down` as the mesh Engine does.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import column_input, dense, init_dense, \
-    tp_line
+from repro_torch.models.layers import column_input, column_inputs, dense, \
+    init_dense, tp_line
 from repro_torch.models.xlstm import _chunk_len
 from repro_torch.parallel import comm
 
@@ -80,10 +91,11 @@ def _ssm_inputs(p, xc, xc_all=None, cols=None):
     whole row, and dt is cut to the block."""
     xa = xc if xc_all is None else xc_all
     bc = xa @ p["w_bc"]
-    Bm, Cm = torch.chunk(bc.to(torch.float32), 2, dim=-1)    # (..., N)
     dt = xa @ p["w_dt_down"] @ p["w_dt_up"]
-    if cols is not None:
+    if cols is not None:                  # whole on every rank: its block
+        bc, dt = column_inputs(bc, dt)
         dt = dt[..., cols]
+    Bm, Cm = torch.chunk(bc.to(torch.float32), 2, dim=-1)    # (..., N)
     dt = softplus(dt.to(torch.float32) + p["dt_bias"])      # (..., d_in)
     A = -torch.exp(p["a_log"])                               # (d_in, N)
     dA = torch.exp(dt[..., None] * A)                        # (..., d_in, N)
@@ -117,7 +129,7 @@ def _whole_row(xc, line):
         return None, None
     group, _, i = line
     d_loc = xc.shape[-1]
-    return comm.all_gather(xc, group, dim=-1), slice(i * d_loc,
+    return comm.gather_from(xc, group, -1, i), slice(i * d_loc,
                                                      (i + 1) * d_loc)
 
 
@@ -126,7 +138,7 @@ def _out_proj(p, y, z, cfg, line):
     parallelism."""
     yz = y * F.silu(z)
     if line is not None:
-        yz = comm.all_gather(yz, line[0], dim=-1)
+        yz = comm.gather_from(yz, line[0], -1, line[2])
     return dense(yz, p["w_out"], cfg.quant)
 
 

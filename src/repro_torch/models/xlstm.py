@@ -36,6 +36,18 @@ ATen runs the lanes past the last full vector pair through a scalar tanh
 (one ulp apart at a 48-lane row).  Two collectives a layer.  Every rank's
 result equals the meshless one bit for bit where the linears are
 quantized (the row-parallel sum is exact in int32).
+
+Training (the tensor-parallel Trainer) runs the same forwards.  mLSTM:
+both gathers are `comm.all_gather_grad` (each rank's backward reaches
+the whole xm and the whole h through its own heads only, so the ranks'
+partial gradients are summed and each keeps its block: a reduce-scatter
+each); for the same reason the whole `w_if`, `b_if` and `norm` get a
+partial gradient on each rank, summed over the axis once a step
+(`runtime.trainer.model_partial`).  sLSTM: the cell and the FF's
+gelu(a)·b run whole on every rank, and the product passes
+`layers.column_input` right before the rank keeps its block for
+`w_down`, so `w_up`, `norm` and the cell get their whole gradient on
+every rank (one gradient sum a layer).
 """
 from __future__ import annotations
 
@@ -104,7 +116,7 @@ def _mlstm_in(p, x, cfg, line):
     if line is None:
         return xm, z, slice(0, H)
     group, _, i = line
-    return comm.all_gather(xm, group, dim=-1), z, slice(i * H, (i + 1) * H)
+    return comm.all_gather_grad(xm, group, -1), z, slice(i * H, (i + 1) * H)
 
 
 def _mlstm_out(p, h, z, cfg, line):
@@ -115,7 +127,7 @@ def _mlstm_out(p, h, z, cfg, line):
     else:
         group, _, i = line
         w = h.shape[-1]
-        normed = rmsnorm(p["norm"], comm.all_gather(h, group, dim=-1),
+        normed = rmsnorm(p["norm"], comm.all_gather_grad(h, group, -1),
                          cfg.norm_eps)[..., i * w:(i + 1) * w]
     return dense_row(normed * F.silu(z), p["w_down"], cfg.quant)
 
@@ -277,14 +289,14 @@ def _slstm_cell(p, wx_t, hcnm):
 def _slstm_out(p, h, cfg):
     """norm → up projection → gelu(a) · b → down projection.  jax.nn.gelu
     defaults to the tanh approximation."""
-    h = column_input(rmsnorm(p["norm"], h, cfg.norm_eps))
+    h = rmsnorm(p["norm"], h, cfg.norm_eps)
     a, b = torch.chunk(dense(h, p["w_up"], cfg.quant), 2, dim=-1)
     ab = F.gelu(a, approximate="tanh") * b
     line = tp_line()
     if line is not None:                 # this rank's block of w_down's K
         _, n, i = line
         w = ab.shape[-1] // n
-        ab = ab[..., i * w:(i + 1) * w]
+        ab = column_input(ab)[..., i * w:(i + 1) * w]
     return dense_row(ab, p["w_down"], cfg.quant)
 
 

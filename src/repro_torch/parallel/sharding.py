@@ -27,11 +27,14 @@ Three weights concatenate parts along their output columns: mamba's
 `w_in` ([x | z]), the mLSTM's and sLSTM's `w_up` ([xm | z], [a | b]) and
 the sLSTM's `w_gates` ([z, i, f, o]).  `shard_params` splits each part on
 its own (`_GROUPED`), so that rank r holds block r of every part and the
-model code chunks its local output as it chunks the whole one.  The mesh
-Engine keeps some leaves whole that the reference's rules split
-(`serve_whole`): the embedding, mamba's `w_bc` / `w_dt_down` /
-`w_dt_up`, the sLSTM's recurrent cell (`w_gates`, `r_gates`) and its
-`w_up`; the mixers' docstrings say why.
+model code chunks its local output as it chunks the whole one; in
+training such a leaf's `Cut` carries its `parts`, and its `Split`
+addresses the rank's block of each part.  The mesh Engine and the
+Trainer keep some leaves whole on `model` that the reference's rules
+split (`serve_whole`; a training leaf's `fsdp` cut over `data` stands):
+the embedding, mamba's `w_bc` / `w_dt_down` / `w_dt_up` (the reference
+splits `w_bc` and `w_dt_down` by rows), the sLSTM's recurrent cell
+(`w_gates`, `r_gates`) and its `w_up`; the mixers' docstrings say why.
 
 What differs from the reference: a mesh here is a grid of
 `torch.distributed` ranks (processes), not of devices in one program.
@@ -465,20 +468,36 @@ def block(t: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class Cut:
     """One cut of a leaf: `n` blocks along `dim` over mesh axis `axis`, of
-    which this rank holds block `i`."""
+    which this rank holds block `i`.  With `parts` > 1 the dim is the
+    column dim of a `_GROUPED` leaf, `parts` equal parts laid end to end,
+    and the rank holds block `i` of each part, in part order."""
     dim: int
     n: int
     i: int
     axis: str
+    parts: int = 1
+
+    def reorder(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole dim from its `n` ranks' blocks gathered in rank order
+        (each rank's `parts` blocks end to end): the parts back in the
+        leaf's order.  `t` itself when the dim is not parted."""
+        if self.parts == 1:
+            return t
+        d, shape = self.dim, t.shape
+        b = shape[d] // (self.n * self.parts)
+        t = t.reshape(shape[:d] + (self.n, self.parts, b) + shape[d + 1:])
+        return t.transpose(d, d + 1).reshape(shape)
 
 
 @dataclasses.dataclass(frozen=True)
 class Split:
     """A leaf of shape `whole` cut by each of `cuts` (at most one per dim,
     in dim order: ZeRO-3's `fsdp` cut over `data` and the `tp` cut over
-    `model`), of which this rank holds one contiguous block a cut.  In the
-    whole leaf's flat order the block is runs of `run` elements, each
-    ending at the last cut dim and starting at a multiple of `run`."""
+    `model`), of which this rank holds one block a cut: a contiguous one,
+    or along a parted dim (`Cut.parts`) its block of each part.  In the
+    whole leaf's flat order the rank's values are runs of `run` elements,
+    each ending at the last cut dim (or at the end of its part's block)
+    and starting at a multiple of `run`."""
     whole: tuple
     cuts: tuple
 
@@ -496,30 +515,40 @@ class Split:
 
     @property
     def run(self) -> int:
-        last = self.cuts[-1].dim
-        return self.local[last] * math.prod(self.whole[last + 1:])
+        last = self.cuts[-1]
+        return self.local[last.dim] // last.parts * \
+            math.prod(self.whole[last.dim + 1:])
 
     def take(self, t: torch.Tensor) -> torch.Tensor:
-        """This rank's block of the whole leaf `t` (a view)."""
+        """This rank's block of the whole leaf `t` (a view where no dim is
+        parted)."""
         for c in self.cuts:
-            t = block(t, c.dim, c.n, c.i)
+            t = grouped_block(t, c.dim, c.n, c.i, c.parts)
         return t
 
     def join(self, t: torch.Tensor, gather) -> torch.Tensor:
         """The whole leaf from this rank's block `t`: `gather(t, cut)` joins
-        the cut's blocks over its axis, cut by cut."""
+        the cut's blocks over its axis in rank order, cut by cut (a parted
+        dim's parts then put back in order)."""
         for c in self.cuts:
-            t = gather(t, c)
+            t = c.reorder(gather(t, c))
         return t
 
     def whole_index(self, j: torch.Tensor) -> torch.Tensor:
         """The whole leaf's flat index of this rank's flat positions j."""
-        local, offset = self.local, {c.dim: c.i for c in self.cuts}
+        local, cut = self.local, {c.dim: c for c in self.cuts}
         out, stride = torch.zeros_like(j), 1
         for d in reversed(range(len(self.whole))):
             idx = j % local[d]
             j = torch.div(j, local[d], rounding_mode="floor")
-            out += (idx + offset.get(d, 0) * local[d]) * stride
+            c = cut.get(d)
+            if c is not None and c.parts == 1:
+                idx = idx + c.i * local[d]
+            elif c is not None:
+                b = local[d] // c.parts          # one part's block
+                part = torch.div(idx, b, rounding_mode="floor")
+                idx = part * (c.n * b) + c.i * b + idx % b
+            out += idx * stride
             stride *= self.whole[d]
         return out
 
@@ -616,20 +645,19 @@ def shard_params(params: Any, ctx: ShardingCtx | None = None, *,
 def leaf_splits(params: Any, ctx: ShardingCtx, *,
                 whole: tuple[str, ...] = ()) -> dict:
     """{path: Split or None} of every leaf of the whole tree `params` as
-    `shard_params` places it.  A leaf cut in column parts, or over two
-    mesh axes at one dim, raises: the training layouts keep one contiguous
-    block a leaf and axis."""
+    `shard_params` places it (a `_GROUPED` leaf's column cut with its
+    parts).  A leaf cut over two mesh axes at one dim raises: the
+    training layouts keep one block a leaf and axis."""
     out = {}
 
     def note(path, leaf):
         found = _leaf_split(path, leaf.shape, ctx, whole)
-        if any(parts > 1 or len(axes) != 1
-               for _, _, _, parts, axes in found):
+        if any(len(axes) != 1 for _, _, _, _, axes in found):
             raise ValueError(f"{path}: split {found}; a training leaf splits "
-                             f"into one contiguous block a mesh axis")
+                             f"into one block a mesh axis")
         out[path] = Split(tuple(leaf.shape), tuple(
-            Cut(dim, n, i, axes[0]) for dim, n, i, _, axes in found)) \
-            if found else None
+            Cut(dim, n, i, axes[0], parts)
+            for dim, n, i, parts, axes in found)) if found else None
         return leaf
     tree_map_with_path(note, params)
     return out

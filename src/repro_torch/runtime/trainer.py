@@ -30,11 +30,20 @@ parameters and of the AdamW state under the reference's training rules
     `all_reduce` over `data`, with the loss;
   * a `model` axis: the parameters are split Megatron-style, as the mesh
     Engine splits them (column-parallel wq/wk/wv/w_gate/w_up/unembed,
-    row-parallel wo/w_down, the embedding whole on `model`, the MoE
-    expert stacks on E: the `expert` rule); the step runs the model's
-    collectives under the training ctx, with their backward
-    (`parallel.comm.copy_to` and friends; a MoE layer's expert split in
-    `models.moe`, or `parallel.ep.ep_moe` with `ep_dispatch="per_source"`).
+    row-parallel wo/w_down, the MoE expert stacks on E: the `expert`
+    rule; mamba's `w_in` and the mLSTM's `w_up` in their column parts,
+    the rank's block of each), and keeps whole what the mesh Engine keeps
+    whole (`sharding.serve_whole`: the embedding, mamba's B/C and dt
+    projections, the sLSTM's cell and its `w_up`; their `fsdp` cut over
+    `data` stands); the step runs the model's collectives under the
+    training ctx, with their backward (`parallel.comm.copy_to` and
+    friends; a MoE layer's expert split in `models.moe`, or
+    `parallel.ep.ep_moe` with `ep_dispatch="per_source"`; the mixers'
+    own in `models.attention`, `models.mamba` and `models.xlstm`).  A few
+    whole leaves are read by each rank through its own heads only, the
+    mLSTM's gates and norm and the cross-attention's `kv_norm`
+    (`model_partial`): their gradients are summed over `model` once a
+    step.
 AdamW updates each rank's blocks on the whole leaf's int8 block grid
 (`optim.adamw`), reducing the norm and the spread block maxima over the
 axes each leaf is cut over.  The step's loss, gradients and update are
@@ -52,6 +61,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import re
 import time
 from typing import Callable
 
@@ -64,10 +74,19 @@ from repro_torch.parallel import comm, sharding
 from repro_torch.tree import tree_items, tree_leaves, tree_map, \
     tree_map_with_path
 
-# leaves that stay whole on a model axis: a row gather on a vocab-split
-# table would cost a collective per forward (as the mesh Engine keeps it);
-# its `fsdp` cut (d, over `data`) stands
-WHOLE = (r"embedding$",)
+
+def model_partial(cfg) -> tuple[str, ...]:
+    """The leaves of `cfg` kept whole on a model axis whose gradient each
+    rank's backward computes only in part, which the step sums over
+    `model`: the mLSTM's `w_if`, `b_if` and `norm` (each rank keeps its
+    heads' gates and its block of the normed h) and the cross-attention's
+    `kv_norm` (each rank projects its KV heads from the normed vision
+    embeddings).  The path names the pattern position: the sLSTM's norm
+    and MLA's kv_norm get their whole gradient on every rank."""
+    leaves = {"mlstm": r"(w_if|b_if|norm/scale)", "xattn": r"kv_norm/scale"}
+    return tuple(rf"\bpos{i}/mixer/{leaves[mixer]}$"
+                 for i, spec in enumerate(cfg.layer_pattern)
+                 if (mixer := spec.split("+")[0]) in leaves)
 
 
 @dataclasses.dataclass
@@ -83,28 +102,16 @@ class TrainerConfig:
 
 def check_mesh(cfg, mesh) -> None:
     """Raise NotImplementedError for what training on `mesh` does not take
-    yet: an axis other than `data` and `model`; under a `model` axis, a
-    layer whose mixer is not `attn` (ROADMAP queue 1 item 18: the grouped
-    column splits of mamba's and the xLSTM's weights, and the mixers' own
-    collectives, have no training layout).  attn+dense and attn+moe
-    layers train (the experts split over the `expert` rule's axis)."""
+    yet: an axis other than `data` and `model`.  Every layer kind trains
+    on a data x model mesh."""
     if mesh is None:
         return
     other = {a: n for a, n in mesh.shape.items()
              if a not in ("data", "model") and n > 1}
     if other:
         raise NotImplementedError(
-            f"training over mesh axes {other} is not ported to repro_torch "
-            f"(its meshes are data x model)")
-    if mesh.shape.get("model", 1) == 1:
-        return
-    mixers = [s for s in cfg.layer_pattern if not s.startswith("attn+")]
-    if mixers:
-        raise NotImplementedError(
-            f"{cfg.name}: training a {mixers[0]!r} layer under a model axis "
-            f"is not ported to repro_torch yet (ROADMAP queue 1 item 18: "
-            f"tensor-parallel training of mla, mamba, mlstm and slstm "
-            f"layers; the tensor-parallel Trainer takes attn layers)")
+            f"{cfg.name}: training over mesh axes {other} is not ported to "
+            f"repro_torch (its meshes are data x model)")
 
 
 def grads(params):
@@ -131,6 +138,8 @@ class TrainLayout:
         self.mesh, self.cfg = mesh, cfg
         self.ctx = None
         self.splits: dict = {}
+        self.whole = sharding.serve_whole(cfg)
+        self.partial = model_partial(cfg)
         self.writer = True
         if mesh is None or self.ranks == 1:
             return
@@ -158,11 +167,12 @@ class TrainLayout:
         cuts over `data` that the model gathers per use."""
         if self.ctx is None:
             return params
-        self.splits = sharding.leaf_splits(params, self.ctx, whole=WHOLE)
+        self.splits = sharding.leaf_splits(params, self.ctx,
+                                           whole=self.whole)
         dp = self.ctx.rules["fsdp"]
         self.ctx.zero = {path: c for path, s in self.splits.items()
                          if s is not None for c in s.cuts if c.axis in dp}
-        return sharding.shard_params(params, self.ctx, whole=WHOLE)
+        return sharding.shard_params(params, self.ctx, whole=self.whole)
 
     def _split_of(self, path: str):
         """(split, part) of a state-tree tensor: part "q" / "scale" for an
@@ -239,6 +249,22 @@ class TrainLayout:
         first = next(iter(batch.values())).shape[0]
         return out, next(iter(out.values())).shape[0] < first
 
+    def _sum_over_model(self, params) -> None:
+        """The `model_partial` leaves' gradients summed over `model`, in
+        place: one `all_reduce` of all of them, packed in f32."""
+        group = self.mesh.group("model")
+        leaves = [p for path, p in tree_items(params)
+                  if any(re.search(r, path) for r in self.partial)]
+        if group is None or not leaves:
+            return
+        for p in leaves:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        flat = comm.all_reduce(torch.cat([p.grad.reshape(-1).to(
+            torch.float32) for p in leaves]), group, "sum")
+        for p, g in zip(leaves, flat.split([p.numel() for p in leaves])):
+            p.grad.copy_(g.view(p.shape))
+
     def _mean_over_data(self, params, metrics: dict) -> dict:
         """The data-parallel mean of the metrics and of the gradients of
         the leaves not cut over `data`, in place: one `all_reduce` of all
@@ -269,8 +295,9 @@ class TrainLayout:
         """(gradient tree, loss, {"ce", "aux"}) of one step: the loss
         forward on this rank's rows and its backward under the training
         ctx (the weights gathered per use and their saves re-gathered
-        under ZeRO-3), and the data-parallel mean of the loss, its parts
-        and the gradients."""
+        under ZeRO-3), the `model_partial` leaves' gradients summed over
+        `model`, and the data-parallel mean of the loss, its parts and the
+        gradients."""
         ctx = self.ctx
         if ctx is not None:
             batch, split = self.rows(batch)
@@ -285,6 +312,7 @@ class TrainLayout:
         metrics = {"loss": loss.detach(),
                    **{k: v.detach() for k, v in parts.items()}}
         if self.ctx is not None:
+            self._sum_over_model(params)
             metrics = self._mean_over_data(params, metrics)
         loss = metrics.pop("loss")
         return grads(params), loss, metrics

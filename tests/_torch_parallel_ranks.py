@@ -1,6 +1,7 @@
 """Rank-side bodies of the port's parallel tests (`tests/test_torch_parallel_
 *.py`, `tests/test_torch_dp_trainer.py`, `tests/test_torch_tp_trainer.py`,
-`tests/test_torch_zero_trainer.py`, `tests/test_torch_ep_trainer.py`).
+`tests/test_torch_zero_trainer.py`, `tests/test_torch_ep_trainer.py`,
+`tests/test_torch_tp_mixers_trainer.py`).
 
 Each test file spawns its ranks once (`repro_torch.parallel.comm.spawn`,
 gloo on the CPU) with one of the functions below, which runs every case's
@@ -730,4 +731,65 @@ def ep_train_rank(rank, world, device, steps, layers, trainer_case):
             out[name]["cross"] = _restore_state(
                 mesh, cfg, params, dirs[other]["crash"])
         comm.barrier()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel training of the MLA, mamba, xLSTM and cross-attention
+# layers
+# ---------------------------------------------------------------------------
+
+def mixers_train_rank(rank, world, device, steps, trainer_case):
+    """Training every layer kind under a `model` axis on 4 ranks: mesh
+    "model=2" on ranks 0 and 1, "data=2,model=2" on all.  On each mesh:
+    per case of `steps` one step and two AdamW updates (`_zero_step`),
+    then the Trainer on `trainer_case` (`_checkpoint_body`).  Then each
+    mesh restores the other's checkpoint."""
+    import warnings
+
+    from repro_torch.parallel import comm
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")          # "uses 2 of 4 devices"
+        meshes = {"model=2": shd.build_mesh("data=1,model=2"),
+                  "data=2,model=2": shd.build_mesh("data=2,model=2")}
+    cfg, params, batches, dirs = trainer_case
+    out = {}
+    for name, mesh in meshes.items():
+        if mesh.coords is not None:
+            res = {case: _zero_step(mesh, *args)
+                   for case, args in steps.items()}
+            res["trainer"] = _checkpoint_body(mesh, cfg, params, batches,
+                                              dirs[name])
+            out[name] = res
+        comm.barrier()
+    for name, other in zip(EP_MESHES, reversed(EP_MESHES)):
+        mesh = meshes[name]
+        if mesh.coords is not None:
+            out[name]["cross"] = _restore_state(
+                mesh, cfg, params, dirs[other]["final"])
+        comm.barrier()
+    return out
+
+
+def _checkpoint_body(mesh, cfg, params, batches, dirs):
+    """The Trainer on `mesh`: one step per batch from `params`, then its
+    checkpoint in dirs["final"] (the history and the whole state it
+    holds); a restore of the meshless checkpoint in dirs["meshless"]."""
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    def trainer(d):
+        # a copy each (see tp_train_rank)
+        return Trainer(cfg, TrainerConfig(ckpt_dir=d, opt=adamw.AdamWConfig(
+            lr=1e-3)), tree_map(torch.clone, params), mesh=mesh)
+
+    t = trainer(dirs["final"])
+    out = {"history": [t.run_step(b) for b in batches]}
+    t.maybe_checkpoint(force=True)
+    t._join_ckpt()
+    out["final"] = _whole_np(t.layout, t.state_tree())
+    t2 = trainer(dirs["meshless"])
+    out["restored"] = t2.restore_latest()
+    out["restored_state"] = _whole_np(t2.layout, t2.state_tree())
     return out

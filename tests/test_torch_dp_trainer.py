@@ -166,8 +166,8 @@ def test_launcher_data_parallel_on_the_cpu(tmp_path, capfd):
     reference's closing line (to this process's stdout) and writes the
     checkpoint; `--model 2` trains tensor-parallel on 2 ranks the same
     way, and so does qwen3-moe (attn+moe: its experts split over the
-    ranks); an MLA arch under `--model 2` raises NotImplementedError
-    naming its ROADMAP item before any rank starts."""
+    ranks) and minicpm3-4b (MLA: refused before tensor-parallel training
+    of the mixers was ported)."""
     args = ["--arch", "granite-8b", "--smoke", "--device", "cpu", "--steps",
             "3", "--ckpt-dir", str(tmp_path)]
     tlaunch.main(args + ["--data", "2"])
@@ -194,6 +194,12 @@ def test_launcher_data_parallel_on_the_cpu(tmp_path, capfd):
     assert lines[-1].startswith("loss ") and lines[-1].endswith(
         "over 3 steps; straggler events: 0")
     assert ckpt.latest_step(moe_dir) == 3
-    with pytest.raises(NotImplementedError, match="queue 1 item 18"):
-        tlaunch.main(["--arch", "minicpm3-4b"] + args[2:] +
-                     ["--model", "2"])
+    mla_dir = str(tmp_path / "mla")
+    tlaunch.main(["--arch", "minicpm3-4b"] + args[2:-1] +
+                 [mla_dir, "--model", "2"])
+    lines = capfd.readouterr().out.strip().splitlines()
+    assert lines[0].startswith("mesh {'data': 1, 'model': 2}  device cpu  "
+                               "arch minicpm3-4b-smoke")
+    assert lines[-1].startswith("loss ") and lines[-1].endswith(
+        "over 3 steps; straggler events: 0")
+    assert ckpt.latest_step(mla_dir) == 3

@@ -6,7 +6,9 @@ analysis,dryrun}`) on the CPU: the meta stand-ins leaf for leaf against
 counting against the whole stack, the sLSTM recurrence against the
 reference's analytic correction, the 145 collectives of a tensor-parallel
 granite-8b decode, the expert-parallel training cells of the attn+moe
-archs on `model=2` and `data=2,model=2`, the cells the port refuses, the
+archs on `model=2` and `data=2,model=2`, the training cells of the
+MLA, mamba, xLSTM and cross-attention archs there, the cells the port
+refuses, the
 records' roofline terms, and the CLI."""
 import json
 import math
@@ -479,6 +481,65 @@ def test_moe_per_source_train_counts_its_exchanges():
         "all-reduce": L * (1 + 1 + 4) + 1 + 2}
 
 
+@pytest.mark.parametrize("mesh", ["model=2", "data=2,model=2"])
+@pytest.mark.parametrize("name", ["minicpm3_fp", "xlstm_fp", "xlstm_q8",
+                                  "jamba_fp", "jamba_q8", "vision_fp"])
+def test_mixer_train_cells_count_the_derived_collectives(name, mesh):
+    """The dry run's train record of each arch whose MLA, mamba, mLSTM,
+    sLSTM or cross-attention layers train under a model axis (the smoke
+    configs of tests/test_torch_tp_mixers_trainer.py, B=4, S=8) is ok on
+    `model=2` and `data=2,model=2`, and counts the collectives derived
+    there for one step and one AdamW update: the ones the ranks counted,
+    the mixers' own and the `model_partial` sum among them."""
+    from test_torch_tp_mixers_trainer import STEPS, _collectives, _pair
+    _, tc = _pair(*STEPS[name])
+    rec = dryrun.predict(tc, {"kind": "train", "batch": 4, "seq": 8},
+                         mesh=mesh)
+    assert "tensor-parallel over model=2" in rec["placement"]
+    step, opt = _collectives(name, mesh)
+    want = dict(step)
+    want["all-reduce"] += opt["all-reduce"] // 2
+    assert rec["collective_calls_per_dev"] == want
+
+
+@pytest.mark.parametrize("mesh", ["model=2", "data=2,model=2"])
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "llama-3.2-vision-11b"])
+def test_mixer_train_4k_records_on_a_model_axis(arch, mesh, tmp_path):
+    """`launch.dryrun --shape train_4k --mesh model=2` (and data=2,model=2)
+    writes an ok train record for minicpm3-4b (MLA) and llama-3.2-vision-
+    11b (cross-attention) at full width, with the collectives derived:
+    under `model`, a sum at each row-parallel linear (forward) and at each
+    column-parallel input (backward: MLA's latents, the FF's, the
+    cross-attention's queries, the attention's), the logits' gather, the
+    unembed's input sum, llama-vision's kv_norm sum, AdamW's norm and,
+    for minicpm3-4b, the unembed's spread block maxima (V/2 = 36724
+    columns, which 128 does not divide; llama-vision's 64128 it does);
+    under `data` too, every leaf cut on its fsdp dim gathered,
+    re-gathered (but the embedding) and reduce-scattered, one mean, a
+    norm and the maxima over `data`.  xlstm-1.3b's and jamba's records
+    count their scans step by step at S=4096 (minutes each): the smoke
+    cells above hold their counts."""
+    cfg = get_config(arch)
+    dryrun.main(["--arch", arch, "--shape", "train_4k", "--mesh", mesh,
+                 "--out", str(tmp_path)])
+    (path,) = tmp_path.iterdir()
+    rec = json.loads(path.read_text())
+    assert rec["status"] == "ok", rec.get("error")
+    L = cfg.num_layers
+    # per layer (row-parallel linears, column inputs, leaves cut on fsdp)
+    rows, cols, zero = (2, 2, 6) if arch == "minicpm3-4b" else (2, 2, 7)
+    partial = sum(s.startswith("xattn+") for s in cfg.layer_pattern)
+    spread = (cfg.vocab_size // 2) % 128 != 0
+    want = {"all-reduce": L * (rows + cols) + 1 + (partial > 0) + 1 + spread,
+            "all-gather": 1}
+    if "data=2" in mesh:
+        z = zero * L + 2
+        want["all-gather"] += z + z - 1
+        want["reduce-scatter"] = z
+        want["all-reduce"] += 2 + spread
+    assert rec["collective_calls_per_dev"] == want
+
+
 @pytest.mark.parametrize("arch,shape,variant,mesh,match", [
     pytest.param("granite-8b", "train_4k", "baseline", "model=2", None,
                  id="granite-8b-train_4k-baseline-model=2-tensor-parallel "
@@ -486,7 +547,8 @@ def test_moe_per_source_train_counts_its_exchanges():
     pytest.param("qwen3-moe-30b-a3b", "train_4k", "baseline", "model=2",
                  None, id="qwen3-moe-30b-a3b-train_4k-baseline-model=2-"
                           "queue 1 item 17"),
-    ("minicpm3-4b", "train_4k", "baseline", "model=2", "queue 1 item 18"),
+    pytest.param("minicpm3-4b", "train_4k", "baseline", "model=2", None,
+                 id="minicpm3-4b-train_4k-baseline-model=2-queue 1 item 18"),
     pytest.param("minicpm3-4b", "decode_32k", "serve_tp_q8", "model=2", None,
                  id="minicpm3-4b-decode_32k-serve_tp_q8-model=2-'mla\\+dense'"
                     " layer under a mesh"),
@@ -501,8 +563,12 @@ def test_refused_cells_record_the_port_error(tmp_path, capsys, arch, shape,
     the norm: 147).  qwen3-moe-30b-a3b's was refused until expert-parallel
     training was ported: ok now (48 wo sums, 48 expert gathers and the
     logits' gather forward, 48 x 2 + 1 sums backward, the norm and the
-    unembed's spread block maxima: 147 sums, 49 gathers); minicpm3-4b's
-    (MLA) is refused naming ROADMAP item 18.  minicpm3-4b's serve_tp_q8
+    unembed's spread block maxima: 147 sums, 49 gathers).  minicpm3-4b's
+    (MLA) was refused until tensor-parallel training of the mixers was
+    ported: ok now (62 wo and 62 w_down sums and the logits' gather
+    forward; backward a sum at each layer's latents and FF input and at
+    the unembed's; the norm and the unembed's spread block maxima: 251
+    sums).  minicpm3-4b's serve_tp_q8
     decode on `model=2` was refused until the mesh Engine served MLA: its
     record is ok now, with a max and a sum for each row-parallel wo and
     w_down of its 62 layers and the logits' gather (249, as on the
@@ -518,6 +584,8 @@ def test_refused_cells_record_the_port_error(tmp_path, capsys, arch, shape,
         assert rec["status"] == "ok", rec.get("error")
         if shape == "train_4k" and cfg.num_experts:
             want = moe_train_collectives(cfg, {"data": 1, "model": 2})
+        elif shape == "train_4k" and cfg.q_lora_rank:
+            want = {"all-reduce": L * 4 + 1 + 1 + 1, "all-gather": 1}
         else:
             reduces = L * 2 + L * 2 + 1 + 1 if shape == "train_4k" \
                 else L * 4

@@ -18,8 +18,8 @@ and the state reassembled over the ranks) equals the meshless block bit
 for bit.  The name rules equal the reference's for every leaf of the
 three smoke trees, the leaves the port keeps whole are named, the grouped
 column splits give rank r block r of every part, and non-dividing widths
-and packed rows raise ValueError.  Training under a model axis refuses
-these layer kinds by name (ROADMAP queue 1 item 18), and the dry run's
+and packed rows raise ValueError.  Training under a model axis takes
+these layer kinds, and still refuses a pod axis, and the dry run's
 `--mesh model=2` writes ok serve records for xlstm-1.3b and jamba with
 the collectives the mesh Engine makes."""
 import json
@@ -37,7 +37,6 @@ from repro.parallel import sharding as jshd
 from repro.runtime.serve import Engine as JEngine
 from repro_torch.core import bramac_linear as tbl
 from repro_torch.launch import dryrun
-from repro_torch.launch import train as tltrain
 from repro_torch.models import model as TM
 from repro_torch.parallel import comm
 from repro_torch.parallel import sharding as shd
@@ -283,20 +282,20 @@ def test_packed_rows_that_do_not_split_raise(arch, bits, over, leaf):
         shd.shard_params(tree, _mesh(0), whole=shd.serve_whole(tc))
 
 
-# --- training refuses these layers under a model axis ------------------------
+# --- training these layers under a model axis --------------------------------
 
 @pytest.mark.parametrize("arch", [MB, XL, JB])
-def test_training_under_a_model_axis_refuses_the_layer_kinds(arch, tmp_path):
-    """`trainer.check_mesh` and `launch/train.py --model 2` (before any
-    rank starts) raise NotImplementedError naming ROADMAP item 18; a data
-    axis alone is taken."""
+def test_training_under_a_model_axis_refuses_the_layer_kinds(arch):
+    """`trainer.check_mesh` takes these layer kinds on `model=2`, on
+    `data=2,model=2` and on a data axis alone (they were refused under a
+    model axis until tensor-parallel training of the mixers was ported:
+    tests/test_torch_tp_mixers_trainer.py trains them), and still refuses
+    a mesh axis other than `data` and `model` (a `pod` axis) by name."""
     _, tc = smoke_pair(arch)
-    with pytest.raises(NotImplementedError, match="queue 1 item 18"):
-        ttrainer.check_mesh(tc, shd.dry_mesh("model=2"))
-    ttrainer.check_mesh(tc, shd.dry_mesh("data=2"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 18"):
-        tltrain.main(["--arch", arch, "--smoke", "--device", "cpu",
-                      "--model", "2", "--ckpt-dir", str(tmp_path)])
+    for spec in ("model=2", "data=2,model=2", "data=2"):
+        ttrainer.check_mesh(tc, shd.dry_mesh(spec))
+    with pytest.raises(NotImplementedError, match=re.escape("mesh axes {'pod': 2}")):
+        ttrainer.check_mesh(tc, shd.dry_mesh("pod=2,model=2"))
 
 
 # --- the dry run's serve cells on model=2 ------------------------------------

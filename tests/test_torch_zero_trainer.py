@@ -207,7 +207,7 @@ def _reference_block(path: str, shape, sizes: dict) -> tuple:
     rank holds under the reference's training rules on a mesh of `sizes`:
     each dim its `spec_for` names `fsdp` or `tp` divided by the axis size
     where that divides it (`param_shardings`); the port keeps the
-    embedding whole on `model` (`trainer.WHOLE`)."""
+    embedding whole on `model` (`sharding.SERVE_WHOLE`)."""
     rules = jshd.default_rules(multi_pod=False)
     spec = jshd.spec_for(path.replace("/", "."), len(shape))
     out = list(shape)
